@@ -1,0 +1,354 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (svtrek_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines; any failure exits non-zero before the
+last line:
+
+1. environment: torch version, the card's name and power limit; no CUDA
+   device is a failure;
+2. build: kernel K1 (svtrek_tpu_torch/csrc/consensus.cu, nvcc for sm_90a)
+   from the sources in this checkout, with ptxas's register report;
+3. kernel: K1 against its plain PyTorch version on the card at the bench
+   shapes, the main path's shape and edge rows, exact integer equality,
+   plus 256 rows against tools/audt_scalar.py's scalar consensus;
+   CUDA-event times of both;
+4. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
+   this process, so the launch counts can be read) on the 5,000-record
+   synthetic long-read benchmark fixture of tools/bench_e2e.py; its result
+   lines must be byte-identical to those of tools/audt_scalar.py (an
+   independent scalar audt that decodes the BAM itself), K1 must have run
+   once per batch or more, the plain path never, and the refined
+   breakpoints must land within 5 bp of the planted truth;
+5. JAX: the script refuses every `jax`/`jaxlib` import from its first
+   line on, and checks at the end that none was loaded.
+
+The line before the last two is {"kernels": [...]}, then the card's
+nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+
+class _NoJax:
+    """Refuses jax and jaxlib: the port must run where neither exists."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"jax is blocked in chip_smoke.py: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _NoJax())
+
+import numpy as np  # noqa: E402
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The 5,000-record fixture of tools/bench_e2e.py (10 supporting + 5 noise
+# reads per record, 800 CIGAR ops per read); all-'A' SEQ, which changes
+# only BGZF decode time, never a candidate.
+RECORDS, DEPTH, OPS_PER_READ = 5000, 10, 800
+BIG = 0x7FFFFFFF
+# (B, K, sweep_width): the bench refine shape B=8192 (bench.py:33) over the
+# K buckets the packer ships, K=1024 at B=1024 (the plain version holds a
+# [B, W, K] int64 intermediate), sweep_width 8 to raise overflow flags, and
+# the main path's own shape (512 windows, K=16).
+KERNEL_SHAPES = [
+    (512, 16, 128),
+    (8192, 16, 128), (8192, 64, 128), (8192, 128, 128), (8192, 128, 8),
+    (8192, 64, 8), (1024, 1024, 128), (1024, 1024, 8),
+]
+MAIN_SHAPE = (512, 16, 128)
+# Rows that lead each kernel batch: n = 0, n < min_count, values near
+# INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
+# in the JAX program, and the scalar consensus, which does not wrap, may
+# differ), the early-return tie.  K1 and its plain version must agree on
+# them exactly: tolerance 0.
+EDGE_ROWS = [
+    ([], 1000),
+    ([5000, 5001], 5000),
+    ([BIG - 10, BIG - 9, BIG - 8, BIG - 3], BIG - 9),
+    ([BIG - 100, BIG - 99, BIG - 98], BIG - 5),
+    ([995, 996, 997, 1004, 1005, 1006], 1000),
+    ([1, 2, 3], -2**31 + 3),
+    ([-2**31, -2**31 + 1, -2**31 + 2], 2**31 - 1),
+]
+
+
+def fail(msg: str) -> None:
+    print(f"[smoke] FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def phase_environment():
+    import torch
+
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this smoke needs a card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[env] nvidia-smi: {smi}", flush=True)
+    return smi
+
+
+def phase_build():
+    from svtrek_tpu_torch.kernels import build as kbuild, load_library
+
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with contextlib.redirect_stderr(report):
+        kbuild.build(force=True, verbose=True)
+    load_library()
+    print(f"[build] K1 {kbuild.LIB} {time.perf_counter() - t0:.3f}s",
+          flush=True)
+    for line in report.getvalue().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] {line.strip()}", flush=True)
+
+
+def kernel_rows(rng, B: int, K: int):
+    """Sorted candidate rows: tight clusters, +-600 bp noise and
+    duplicates (tests/test_consensus.py:48-75), led by EDGE_ROWS."""
+    locs = np.full((B, K), BIG, np.int32)
+    n = rng.integers(0, K + 1, B).astype(np.int32)
+    pos = np.zeros(B, np.int32)
+    for b in range(B):
+        center = int(rng.integers(1000, 100_000_000))
+        mode = rng.integers(0, 3, n[b])
+        vals = center + np.where(
+            mode == 0, rng.integers(-4, 5, n[b]),
+            np.where(mode == 1, rng.integers(-600, 600, n[b]),
+                     rng.integers(-30, 30, n[b])))
+        locs[b, :n[b]] = np.sort(vals)
+        pos[b] = center + int(rng.integers(-100, 100))
+    for i, (vals, p) in enumerate(EDGE_ROWS[:B]):
+        locs[i] = BIG
+        locs[i, :len(vals)] = vals
+        n[i] = len(vals)
+        pos[i] = p
+    return locs, n, pos
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of fn() in milliseconds, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_kernel():
+    import torch
+
+    from audt_scalar import consensus_pos
+    from svtrek_tpu_torch.kernels import consensus_pos_cuda
+    from svtrek_tpu_torch.ops.consensus import consensus_pos_batch_reference
+
+    rng = np.random.default_rng(2026)
+    max_err = 0
+    main_times = None
+    for B, K, sw in KERNEL_SHAPES:
+        locs, n, pos = kernel_rows(rng, B, K)
+        args = [torch.from_numpy(a).cuda() for a in (locs, n, pos)]
+        kw = dict(min_count=3, interval=5, range_=500, sweep_width=sw)
+        got, got_ovf = consensus_pos_cuda(*args, **kw)
+        want, want_ovf = consensus_pos_batch_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want) or not torch.equal(got_ovf, want_ovf):
+            fail(f"K1 differs from the plain version at B={B} K={K} "
+                 f"sweep_width={sw}: max_abs_err={err}, overflow flags "
+                 f"equal={torch.equal(got_ovf, want_ovf)}")
+        ms = cuda_ms(lambda: consensus_pos_cuda(*args, **kw), 50)
+        plain_ms = cuda_ms(lambda: consensus_pos_batch_reference(*args, **kw),
+                           5)
+        print(f"[kernel] B={B} K={K} sweep_width={sw}: equal, "
+              f"overflow_rows={int(got_ovf.sum())} "
+              f"refined_rows={int((got >= 0).sum())} K1 {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        if (B, K, sw) == MAIN_SHAPE:
+            main_times = (ms, plain_ms)
+        if (B, K, sw) == (8192, 64, 128):
+            got_h, ovf_h = got.cpu().numpy(), got_ovf.cpu().numpy()
+            checked = 0
+            for b in range(len(EDGE_ROWS), len(EDGE_ROWS) + 256):
+                if ovf_h[b]:
+                    continue
+                o = consensus_pos(locs[b, :n[b]].tolist(), int(pos[b]))
+                if o != int(got_h[b]):
+                    fail(f"K1 differs from the scalar consensus at row {b}: "
+                         f"{int(got_h[b])} vs {o}")
+                checked += 1
+            print(f"[kernel] {checked} rows equal audt_scalar.consensus_pos",
+                  flush=True)
+    return max_err, main_times
+
+
+def concordance(lines) -> float:
+    """bench.py:364-381: share of DEL/INS lines whose every diff is within
+    5 bp of the planted truth (INV excluded)."""
+    hits = total = 0
+    for line in lines:
+        if line.startswith("(INV)"):
+            continue
+        total += 1
+        diffs = [int(d) for d in
+                 re.findall(r"diff(?: pos| end)?: (-?\d+)", line)]
+        if diffs and all(abs(d) <= 5 for d in diffs):
+            hits += 1
+    return hits / total if total else 0.0
+
+
+def fixture() -> tuple[str, str]:
+    from bench_e2e import build_fixture
+
+    d = os.path.join(tempfile.gettempdir(),
+                     f"svtrek_smoke_r{RECORDS}_d{DEPTH}_o{OPS_PER_READ}_alla")
+    marker = os.path.join(d, "done")
+    if not os.path.exists(marker):
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        _, _, n_reads, n_ops = build_fixture(d, RECORDS, DEPTH, OPS_PER_READ,
+                                             realistic_seq=False)
+        open(marker, "w").close()
+        print(f"[fixture] {RECORDS} records, {n_reads} reads, {n_ops} CIGAR "
+              f"ops, built in {time.perf_counter() - t0:.1f}s", flush=True)
+    return os.path.join(d, "bench.bam"), os.path.join(d, "bench.vcf")
+
+
+def phase_main_path():
+    from audt_scalar import audt_lines
+    from svtrek_tpu_torch import cli
+    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from svtrek_tpu_torch.ops.consensus import plain_calls
+    from svtrek_tpu_torch.pipeline.audit import open_native_reader
+
+    bam, vcf = fixture()
+    t0 = time.perf_counter()
+    open_native_reader(bam)  # builds the native C BAM library at first use
+    print(f"[build] native C BAM library {time.perf_counter() - t0:.3f}s",
+          flush=True)
+    out_path = os.path.join(tempfile.gettempdir(),
+                            f"svtrek_smoke_out_{os.getpid()}.txt")
+    argv = ["audt", "-b", bam, "-v", vcf, "-o", out_path,
+            "--device", "cuda", "--verbose"]
+    reset_launch_counts()
+    plain_calls["consensus_pos"] = 0
+    stdout, stderr = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = launch_counts["consensus_pos"]
+    plain = plain_calls["consensus_pos"]
+    verbose = [l for l in stderr.getvalue().splitlines()
+               if l.startswith("[VERBOSE]")]
+    for l in verbose:
+        print(f"[main] {l}", flush=True)
+    if rc != 0:
+        fail(f"svtrek_tpu_torch.cli audt exited {rc}: "
+             f"{stderr.getvalue()[-2000:]}")
+    with open(out_path) as fh:
+        got = [l.rstrip("\n") for l in fh if l.startswith("(")]
+    os.remove(out_path)
+    stats = dict(re.findall(r"(\w+(?:\+\w+)?)=([\d.]+)s?", " ".join(verbose)))
+    batches = int(stats["batches"])
+
+    t0 = time.perf_counter()
+    want = audt_lines(bam, vcf)
+    print(f"[main] tools/audt_scalar.py: {len(want)} lines in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if got != want:
+        bad = [(a, b) for a, b in zip(want, got) if a != b][:3]
+        fail(f"result lines differ from the scalar audt: {len(got)} vs "
+             f"{len(want)} lines; first differences {bad}")
+    if launches < batches:
+        fail(f"K1 launched {launches} times for {batches} batches")
+    if plain != 0:
+        fail(f"the plain consensus path ran {plain} times on --device cuda")
+    conc = concordance(got)
+    if conc < 0.99:
+        fail(f"concordance_within_5bp {conc:.4f} < 0.99")
+    print(f"[main] {len(got)} result lines byte-identical to the scalar "
+          f"audt; records/s={len(got) / wall:.1f} wall={wall:.3f}s "
+          f"windows={stats['windows']} batches={batches} "
+          f"K1_launches={launches} plain_calls={plain} "
+          f"fallbacks kovf={stats['kovf']} sweep={stats['sweep']} "
+          f"concordance_within_5bp={conc:.4f}", flush=True)
+    print(f"[main] split parse={stats['parse']}s "
+          f"fetch+pack={stats['fetch+pack']}s (worker-seconds) "
+          f"device_wait={stats['device_wait']}s emit={stats['emit']}s "
+          f"total={stats['total']}s", flush=True)
+    return launches
+
+
+def phase_jax_check() -> None:
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib"))
+    shared = sorted(m for m in sys.modules
+                    if m.split(".")[0] == "svtrek_tpu")
+    print(f"[jax] {len(jax_mods)} jax modules loaded; JAX-free host modules "
+          f"shared with svtrek_tpu: {' '.join(shared)}", flush=True)
+    if jax_mods:
+        fail(f"jax modules were loaded: {jax_mods}")
+
+
+def main() -> int:
+    smi = phase_environment()
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
+    import torch
+
+    phase_build()
+    max_err, (ms, plain_ms) = phase_kernel()
+    launches = phase_main_path()
+    phase_jax_check()
+
+    print(json.dumps({"kernels": [{
+        "name": "consensus_pos",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/consensus.cu",
+        "replaces": "svtrek_tpu/ops/sweep_pallas.py:113",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,515 @@
+"""`audt` mode pipeline: VCF + BAM → refined breakpoint records, with the
+device step in PyTorch.
+
+Port of svtrek_tpu/pipeline/audit.py on its host-extract path, the
+default of that package: a pool of producer threads fetches each chunk of
+windows with the native C reader, which also runs the CIGAR evidence walk,
+and packs [B, K] candidate batches (`pipeline.pack.pack_chunk_cand`); this
+thread sends each batch to the device (`ops.audit_step`), keeps a few in
+flight, and emits result lines in input order as records complete.
+Windows the device cannot finish exactly are refined on the host: a
+window with more than K candidates arrives already refined by the C
+scalar consensus, and a window whose sweep outran `sweep_width` goes
+through `svtrek_tpu.oracle.consensus_pos`.
+
+What the JAX pipeline does besides, and this one refuses (`Unsupported`):
+mesh sharding and multi-host runs, `--extract device` and every path
+without the native reader, and `--ins-consensus`.  Each message names the
+ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import queue
+import sys
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import torch
+
+from svtrek_tpu import constants as C
+from svtrek_tpu.config import AudtConfig
+from svtrek_tpu.emit import format_result
+from svtrek_tpu.io.vcf import VcfSkip, VcfTask, iter_vcf_tasks
+from svtrek_tpu.native import native_bam_reader
+from svtrek_tpu.oracle import consensus_pos
+
+from ..device import resolve_device
+from ..ops.audit_step import audit_consensus_step
+from .pack import INT64_MIN, PackedCandBatch, pack_chunk_cand, windows_for_task
+
+NA32 = 0xFFFFFFFF
+
+
+class Unsupported(RuntimeError):
+    """An option or environment this port does not run yet."""
+
+
+def check_supported(cfg: AudtConfig) -> None:
+    """Raise Unsupported for what the port refuses, before any work."""
+    refused = []
+    if cfg.data_shards > 1:
+        refused.append("--data-shards > 1 (mesh sharding runs on one GPU "
+                       "here; ROADMAP queue 1 item 9)")
+    if os.environ.get("SVTREK_COORDINATOR"):
+        refused.append("SVTREK_COORDINATOR (multi-host runs; ROADMAP "
+                       "queue 1 item 9)")
+    if cfg.extract == "device":
+        refused.append("--extract device (device-side evidence walk; "
+                       "ROADMAP queue 1 item 4)")
+    if not cfg.use_native_io:
+        refused.append("--no-native-io (the host-extract path needs the "
+                       "native reader; the other path is ROADMAP queue 1 "
+                       "item 4)")
+    if cfg.ins_consensus:
+        refused.append("--ins-consensus (POA consensus, kernels K2+K3; "
+                       "ROADMAP queue 1 item 5)")
+    if cfg.poa_engine == "graph":
+        refused.append("--poa-engine graph (graph POA; ROADMAP queue 1 "
+                       "item 8)")
+    if refused:
+        raise Unsupported("not supported by svtrek_tpu_torch yet: "
+                          + "; ".join(refused))
+
+
+def open_native_reader(path: str):
+    """The native C BAM reader, or Unsupported when the C library did not
+    build (there is no pure-Python path in the port)."""
+    reader = native_bam_reader(path)
+    if reader is None:
+        raise Unsupported(
+            "the native BAM reader is unavailable (svtrek_tpu/native did not "
+            "build, or the BAM or its index cannot be opened); the port has "
+            "no pure-Python fetch path (ROADMAP queue 1 item 4)")
+    return reader
+
+
+@dataclass
+class AuditResult:
+    task: VcfTask
+    rstart: int = NA32
+    rend: int = NA32
+    emit: bool = True
+    chrom_label: object = None  # --chrom-by-name: print the CHROM name
+    remaining: int = 0          # windows not yet applied (streaming emit)
+
+    def line(self) -> str:
+        chrom = (self.chrom_label if self.chrom_label is not None
+                 else self.task.chrom_index)
+        return format_result(
+            self.task.sv_type, chrom, self.task.pos,
+            self.task.end, self.rstart, self.rend,
+        )
+
+
+@dataclass
+class AuditStats:
+    """Per-stage wall-clock and work counters (--verbose)."""
+
+    parse_s: float = 0.0
+    pack_s: float = 0.0      # producer pool: fetch + evidence walk + pack
+                             # (aggregate worker-seconds)
+    device_s: float = 0.0    # blocked on device results
+    emit_s: float = 0.0
+    total_s: float = 0.0
+    records: int = 0
+    windows: int = 0
+    reads: int = 0
+    batches: int = 0
+    oracle_windows: int = 0  # host-fallback windows, all causes (total)
+    fallback_kovf: int = 0   # candidate count exceeded K (cand_width)
+    fallback_sweep: int = 0  # consensus sweep exceeded sweep_width
+    device: str = ""
+
+    def report(self, err) -> None:
+        print(
+            f"[VERBOSE] records={self.records} windows={self.windows} "
+            f"reads={self.reads} batches={self.batches} "
+            f"oracle_fallbacks={self.oracle_windows} "
+            f"(kovf={self.fallback_kovf} sweep={self.fallback_sweep}) "
+            f"device={self.device}",
+            file=err,
+        )
+        print(
+            f"[VERBOSE] parse={self.parse_s:.3f}s "
+            f"fetch+pack={self.pack_s:.3f}s device_wait={self.device_s:.3f}s "
+            f"emit={self.emit_s:.3f}s total={self.total_s:.3f}s",
+            file=err,
+        )
+
+
+def dispatch_refinement(packed: PackedCandBatch, cfg: AudtConfig,
+                        device: torch.device):
+    """Launch the device step for one packed batch (asynchronous on
+    CUDA); returns the device tensors, or None for an empty batch."""
+    b = packed.batch
+    if b.num_windows == 0:
+        return None
+    return audit_consensus_step(
+        b.locs, b.counts, b.imprecise_pos, device=device,
+        min_count=cfg.consensus_min_count,
+        interval=cfg.consensus_interval,
+        range_=cfg.consensus_interval_range,
+        sweep_width=cfg.sweep_width,
+    )
+
+
+def collect_refinement(packed: PackedCandBatch, dev, cfg: AudtConfig,
+                       stats: AuditStats | None = None) -> list:
+    """Copy one batch's results to the host and apply the exact host
+    fallbacks.  Returns (window, refined) pairs."""
+    if dev is None:
+        return []
+    refined, sweep_ovf = (x.cpu().numpy() for x in dev)
+    out = []
+    for i, w in enumerate(packed.windows):
+        if packed.refined_c[i] != INT64_MIN:
+            # K overflow: the C extractor already ran the exact scalar
+            # consensus over the full candidate set.
+            if stats:
+                stats.oracle_windows += 1
+                stats.fallback_kovf += 1
+            out.append((w, int(packed.refined_c[i])))
+        elif sweep_ovf[i]:
+            # Sweep overflow: exact host consensus over the (<= K, already
+            # sorted) candidates; no re-fetch needed.
+            if stats:
+                stats.oracle_windows += 1
+                stats.fallback_sweep += 1
+            cnt = int(packed.true_counts[i])
+            r = consensus_pos(
+                packed.batch.locs[i, :cnt].tolist(), w.imprecise_pos,
+                cfg.consensus_min_count, cfg.consensus_interval,
+                cfg.consensus_interval_range,
+            )
+            out.append((w, r))
+        else:
+            out.append((w, int(refined[i])))
+    return out
+
+
+def _resume_state(cfg, err):
+    """One streaming scan of the existing output file (--resume): returns
+    (n_done, first_line, last_line) or None, in O(1) memory."""
+    if not (cfg.resume and cfg.output_file
+            and os.path.exists(cfg.output_file)):
+        return None
+    n_done, first, last = 0, None, None
+    with open(cfg.output_file) as fh:
+        for line in fh:
+            if line.strip():
+                if first is None:
+                    first = line.rstrip("\n")
+                last = line.rstrip("\n")
+                n_done += 1
+    return (n_done, first, last) if n_done else None
+
+
+def _task_prefix(task: VcfTask) -> tuple[str, str]:
+    """The record-derived (deterministic) prefix of a result line, in both
+    numeric-chrom and --chrom-by-name flavors."""
+    num = format_result(task.sv_type, task.chrom_index, task.pos,
+                        task.end, NA32, NA32).split(" ref pos:")[0]
+    by_name = format_result(task.sv_type, task.chrom_name, task.pos,
+                            task.end, NA32, NA32).split(" ref pos:")[0]
+    return num, by_name
+
+
+def _check_resume_identity(task: VcfTask, got_line: str, which: str,
+                           cfg, err) -> None:
+    """A resumed output line must belong to the record the count says it
+    does; a different shard split or an edited VCF aborts instead of
+    silently misaligning lines to records."""
+    got = got_line.split(" ref pos:")[0]
+    expect = _task_prefix(task)
+    if got not in expect:
+        print(
+            f"[ERROR] Resume mismatch: {which} line of "
+            f"{cfg.output_file} is {got!r} but record "
+            f"{task.line_index} of this input/shard would emit "
+            f"{expect[0]!r}. The output file belongs to a different "
+            f"input or shard split; refusing to resume.",
+            file=err,
+        )
+        raise SystemExit(1)
+
+
+def run_audit(cfg: AudtConfig, out=None, err=None,
+              collect_lines: bool = True) -> list[str]:
+    """Full audt pipeline on `cfg.device`.  Returns the result lines (also
+    written to ``out`` and cfg.output_file); ``collect_lines=False`` keeps
+    memory flat on whole-genome runs.
+
+    Raises Unsupported for options the port does not run, and
+    device.DeviceUnavailable when the card is asked for and absent."""
+    out = out or sys.stdout
+    err = err or sys.stderr
+    check_supported(cfg)
+    device = resolve_device(cfg.device)
+    stats = AuditStats(device=str(device))
+    t_start = time.perf_counter()
+
+    # Fail fast (bad BAM path, no native library) before the pool starts.
+    # With --chrom-by-name this reader also resolves CHROM names against
+    # the BAM header (the extension over the reference's tid = chrom-1).
+    probe = open_native_reader(cfg.bam_file)
+    tid_cache: dict[str, int] = {}
+
+    def tid_by_name(name: str) -> int:
+        if name not in tid_cache:
+            tid_cache[name] = probe.tid_by_name(name)
+        return tid_cache[name]
+
+    print("[INFO] Started processing variation file.", file=out)
+
+    num_shards = cfg.num_shards or 1
+    shard_index = cfg.shard_index
+    resume_state = _resume_state(cfg, err)
+
+    # Streaming record state (bounded by batches in flight): `pending`
+    # holds kept records in input order with their unapplied window count.
+    # Registration happens in the producer thread strictly before the
+    # record's windows are packed (the queue put/get pair orders it before
+    # any main-thread access).
+    pending_records: deque[AuditResult] = deque()
+    results: dict[int, AuditResult] = {}
+    vcf_rows: dict | None = {} if cfg.refined_vcf else None
+    by_name = cfg.chrom_by_name
+
+    def gen_windows():
+        """Producer-thread stream: VCF → shard filter → resume skip →
+        window expansion, registering one AuditResult per kept record."""
+        skipped = 0
+        first_skipped = last_skipped = None
+        n_done = resume_state[0] if resume_state else 0
+        shard_i = 0
+        with open(cfg.vcf_file, "r") as fh:
+            it = iter_vcf_tasks(fh)
+            while True:
+                t_in = time.perf_counter()
+                item = next(it, None)
+                if item is None:
+                    stats.parse_s += time.perf_counter() - t_in
+                    break
+                if isinstance(item, VcfSkip):
+                    if item.message:
+                        print(item.message, file=err)
+                    stats.parse_s += time.perf_counter() - t_in
+                    continue
+                # --num-shards/--shard-index: record-level scale-out.
+                keep = (shard_i % num_shards) == shard_index
+                shard_i += 1
+                if not keep:
+                    stats.parse_s += time.perf_counter() - t_in
+                    continue
+                t = item
+                wins, emit = windows_for_task(t, cfg)
+                if skipped < n_done:
+                    # --resume: skip records whose lines already exist.
+                    if emit:
+                        skipped += 1
+                        if first_skipped is None:
+                            first_skipped = t
+                        last_skipped = t
+                        if skipped == n_done:
+                            _check_resume_identity(
+                                first_skipped, resume_state[1], "first",
+                                cfg, err)
+                            _check_resume_identity(
+                                last_skipped, resume_state[2], "last",
+                                cfg, err)
+                            print(
+                                f"[INFO] Resume: {n_done} result line(s) "
+                                f"already in {cfg.output_file}; skipping "
+                                f"them.", file=err)
+                    stats.parse_s += time.perf_counter() - t_in
+                    continue
+                stats.records += 1
+                stats.windows += len(wins)
+                res = AuditResult(t, emit=emit, remaining=len(wins))
+                if by_name:
+                    tid = tid_by_name(t.chrom_name)
+                    res.chrom_label = t.chrom_name
+                    if tid < 0:
+                        print(f"[ERROR] CHROM {t.chrom_name!r} not in the "
+                              f"BAM header; record {t.line_index} refines "
+                              f"to NA.", file=err)
+                    for w in wins:
+                        w.tid = tid
+                results[t.line_index] = res
+                pending_records.append(res)
+                stats.parse_s += time.perf_counter() - t_in
+                yield from wins
+        if resume_state and skipped < n_done:
+            print(
+                f"[ERROR] Resume mismatch: {cfg.output_file} has "
+                f"{n_done} result line(s) but this input/shard only "
+                f"produces {skipped}. Refusing to resume.",
+                file=err,
+            )
+            raise SystemExit(1)
+
+    # Bounded batch queue: cfg.thread_number fetch+pack workers, each with
+    # a private BAM handle (BGZF seek state and the native fetch buffers
+    # are not shareable), feed packed batches in order to this thread.
+    # The C fetch and extract release the GIL, so the workers overlap each
+    # other and the device.
+    q: queue.Queue = queue.Queue(maxsize=max(2, cfg.tload_factor))
+    stats_lock = threading.Lock()
+
+    def producer():
+        tls = threading.local()
+
+        def work(chunk):
+            if not hasattr(tls, "reader"):
+                tls.reader = open_native_reader(cfg.bam_file)
+            t0 = time.perf_counter()
+            pb = pack_chunk_cand(chunk, tls.reader, cfg)
+            dt = time.perf_counter() - t0
+            with stats_lock:
+                stats.pack_s += dt  # aggregate worker-seconds
+            return pb
+
+        bw = cfg.batch_windows
+
+        def chunk_stream():
+            chunk = []
+            for w in gen_windows():
+                chunk.append(w)
+                if len(chunk) >= bw:
+                    yield chunk
+                    chunk = []
+            if chunk:
+                yield chunk
+
+        chunks = chunk_stream()
+        n_workers = max(1, cfg.thread_number)
+        try:
+            with ThreadPoolExecutor(
+                n_workers, thread_name_prefix="svtrek-pack"
+            ) as ex:
+                pending = deque(
+                    ex.submit(work, c)
+                    for c in itertools.islice(chunks, n_workers + 2)
+                )
+                while pending:
+                    pb = pending.popleft().result()
+                    nxt = next(chunks, None)
+                    if nxt is not None:
+                        pending.append(ex.submit(work, nxt))
+                    q.put(pb)  # blocks when full → bounds work in flight
+        except BaseException as e:  # surfaced in the consumer loop
+            q.put(e)
+            return
+        q.put(None)
+
+    prod = threading.Thread(target=producer, daemon=True,
+                            name="svtrek-pack-producer")
+    prod.start()
+
+    # --trace-dir: a torch.profiler trace of the batch loop, host and card.
+    trace_dir = cfg.trace_dir
+    prof = None
+    if trace_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+
+    # Streamed, input-ordered emit: lines go to `out` (and the output file)
+    # as soon as every earlier record has completed.
+    lines: list[str] = []
+    file_out = None
+    if cfg.output_file:
+        file_out = open(cfg.output_file,
+                        "a" if cfg.resume else "w")
+
+    def flush_frontier():
+        t0 = time.perf_counter()
+        while pending_records and pending_records[0].remaining == 0:
+            res = pending_records.popleft()
+            del results[res.task.line_index]
+            if not res.emit:
+                continue
+            if vcf_rows is not None:
+                vcf_rows[res.task.line_index] = (res.task, res.rstart,
+                                                 res.rend)
+            line = res.line()
+            if collect_lines:
+                lines.append(line)
+            print(line, file=out)
+            if file_out is not None:
+                file_out.write(line + "\n")
+        stats.emit_s += time.perf_counter() - t0
+
+    def apply(pairs):
+        for w, refined in pairs:
+            res = results[w.record_index]
+            if w.slot == 0:
+                res.rstart = C.u32(refined)
+            else:
+                res.rend = C.u32(refined)
+            res.remaining -= 1
+        flush_frontier()
+
+    # Keep several batches in flight: launches are asynchronous, and each
+    # collect pays one device→host sync.
+    in_flight: deque = deque()
+    depth = max(2, cfg.tload_factor)
+    try:
+        while True:
+            packed = q.get()
+            if isinstance(packed, BaseException):
+                raise packed
+            if packed is None:
+                break
+            in_flight.append((packed, dispatch_refinement(packed, cfg,
+                                                          device)))
+            stats.batches += 1
+            stats.reads += packed.num_reads
+            if len(in_flight) > depth:
+                t0 = time.perf_counter()
+                apply(collect_refinement(*in_flight.popleft(), cfg, stats))
+                stats.device_s += time.perf_counter() - t0
+        # Drain: each outstanding batch's results, in order.
+        t0 = time.perf_counter()
+        while in_flight:
+            apply(collect_refinement(*in_flight.popleft(), cfg, stats))
+        stats.device_s += time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    if prof is not None:
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "audt_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"[INFO] Wrote torch.profiler trace to {path}", file=err)
+    prod.join()
+
+    # Final frontier flush: everything is applied, so all zero-window
+    # records (and any tail) drain here.
+    flush_frontier()
+    if file_out is not None:
+        file_out.close()
+    if pending_records:
+        raise RuntimeError(
+            f"{len(pending_records)} record(s) never completed "
+            f"(first remaining={pending_records[0].remaining}) — "
+            f"window/batch accounting bug")
+
+    print("[INFO] Ended processing variation file", file=out)
+
+    if cfg.refined_vcf:
+        from svtrek_tpu.io.vcf_writer import write_refined_vcf
+
+        write_refined_vcf(cfg.refined_vcf, cfg.vcf_file, vcf_rows)
+
+    stats.total_s = time.perf_counter() - t_start
+    if cfg.verbose:
+        stats.report(err)
+    return lines

@@ -1,0 +1,153 @@
+"""The port's command line (python -m svtrek_tpu_torch.cli): the audt run
+on --device cpu, what it refuses, and that it runs where JAX cannot be
+imported at all (the machine with the card has none)."""
+from __future__ import annotations
+
+import io
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from svtrek_tpu.config import AudtConfig
+from svtrek_tpu.pipeline.audit import run_audit as jax_run_audit
+from svtrek_tpu_torch import cli
+from svtrek_tpu_torch.pipeline import audit as taudit
+from tests.fixtures import PlantedSV, write_fixture
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def audt_fixture(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    svs = [PlantedSV(1, 50_000, 50_400, "DEL", 400),
+           PlantedSV(1, 120_000, 120_001, "INS", 120),
+           PlantedSV(1, 180_000, 180_300, "INV", 300)]
+    bam, vcf = write_fixture(str(d), svs, {1: 300_000}, seed=7)
+    want = jax_run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
+                                    data_shards=1),
+                         out=io.StringIO(), err=io.StringIO())
+    return str(d), bam, vcf, want
+
+
+def test_cli_audt_cpu(audt_fixture, capsys):
+    d, bam, vcf, want = audt_fixture
+    out_path = os.path.join(d, "out.txt")
+    rc = cli.main(["audt", "-b", bam, "-v", vcf, "-o", out_path,
+                   "--device", "cpu", "--verbose", "-t", "2"])
+    assert rc == 0
+    captured = capsys.readouterr()
+    assert [l for l in captured.out.splitlines() if l.startswith("(")] == want
+    assert "[VERBOSE]" in captured.err and "device=cpu" in captured.err
+    with open(out_path) as fh:
+        assert fh.read().splitlines() == want
+
+
+def test_cli_trace_dir_writes_profiler_trace(audt_fixture, capsys):
+    d, bam, vcf, want = audt_fixture
+    trace_dir = os.path.join(d, "trace")
+    rc = cli.main(["audt", "-b", bam, "-v", vcf, "-o",
+                   os.path.join(d, "t.txt"), "--device", "cpu",
+                   "--trace-dir", trace_dir])
+    assert rc == 0
+    assert "torch.profiler trace" in capsys.readouterr().err
+    with open(os.path.join(trace_dir, "audt_trace.json")) as fh:
+        assert "traceEvents" in json.load(fh)
+
+
+REFUSED = {
+    "data_shards": (["--data-shards", "2"], "item 9"),
+    "extract_device": (["--extract", "device"], "item 4"),
+    "no_native_io": (["--no-native-io"], "item 4"),
+    "ins_consensus": (["--ins-consensus"], "item 5"),
+    "poa_graph": (["--poa-engine", "graph"], "item 8"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_cli_refuses_unported_options(audt_fixture, capsys, name):
+    d, bam, vcf, _ = audt_fixture
+    flags, item = REFUSED[name]
+    out_path = os.path.join(d, f"refused_{name}.txt")
+    rc = cli.main(["audt", "-b", bam, "-v", vcf, "-o", out_path,
+                   "--device", "cpu", *flags])
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert "not supported by svtrek_tpu_torch yet" in err
+    assert f"ROADMAP queue 1 {item}" in err
+    assert not os.path.exists(out_path)
+
+
+def test_cli_refuses_coordinator(audt_fixture, capsys, monkeypatch):
+    _, bam, vcf, _ = audt_fixture
+    monkeypatch.setenv("SVTREK_COORDINATOR", "localhost:1234")
+    assert cli.main(["audt", "-b", bam, "-v", vcf, "--device", "cpu"]) == 1
+    assert "SVTREK_COORDINATOR" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", ["scan", "disc"])
+def test_cli_refuses_other_modes(capsys, mode):
+    argv = (["scan", "-b", "x.bam", "-c", "1", "-s", "1", "-e", "2"]
+            if mode == "scan" else ["disc", "-r", "g", "-a", "a", "-q", "q"])
+    assert cli.main(argv) == 1
+    assert f"{mode} mode is not ported" in capsys.readouterr().err
+
+
+def test_missing_native_reader_raises(audt_fixture, monkeypatch, capsys):
+    """No quiet fall back to a pure-Python reader when the C library is
+    unavailable."""
+    d, bam, vcf, _ = audt_fixture
+    monkeypatch.setattr(taudit, "native_bam_reader", lambda path: None)
+    with pytest.raises(taudit.Unsupported, match="native BAM reader"):
+        taudit.run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
+                                    device="cpu"),
+                         out=io.StringIO(), err=io.StringIO())
+    assert cli.main(["audt", "-b", bam, "-v", vcf, "--device", "cpu",
+                     "-o", os.path.join(d, "nonative.txt")]) == 1
+    assert "native BAM reader is unavailable" in capsys.readouterr().err
+
+
+def test_cli_device_cuda_without_card_fails(audt_fixture, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible; this checks the refusal")
+    _, bam, vcf, _ = audt_fixture
+    assert cli.main(["audt", "-b", bam, "-v", vcf, "-o", os.devnull]) == 1
+    assert "no CUDA device is visible" in capsys.readouterr().err
+
+
+_JAX_BLOCKED_RUN = """
+import runpy, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError("jax is blocked in this process: " + name)
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+sys.argv = ["svtrek_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("svtrek_tpu_torch.cli", run_name="__main__")
+finally:
+    sys.stderr.write("JAX_MODULES=%d\\n" % sum(
+        m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules))
+"""
+
+
+def test_cli_runs_with_jax_blocked(audt_fixture):
+    d, bam, vcf, want = audt_fixture
+    out_path = os.path.join(d, "nojax.txt")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_BLOCKED_RUN, "audt", "-b", bam, "-v",
+         vcf, "-o", out_path, "--device", "cpu"],
+        capture_output=True, text=True, env=env, cwd=d, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_MODULES=0" in proc.stderr
+    assert [l for l in proc.stdout.splitlines() if l.startswith("(")] == want
+    with open(out_path) as fh:
+        assert fh.read().splitlines() == want

@@ -1,0 +1,124 @@
+"""tools/audt_scalar.py, the independent scalar `audt` that chip_smoke.py
+holds the port's output to on the card, against the JAX package: its
+consensus and evidence walks against svtrek_tpu.oracle, and its result
+lines against svtrek_tpu.pipeline.audit.run_audit on the planted fixtures,
+the golden harness's random VCF quirk surface and a small copy of the
+smoke's benchmark fixture."""
+from __future__ import annotations
+
+import ast
+import io
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from svtrek_tpu import constants as C
+from svtrek_tpu.config import AudtConfig
+from svtrek_tpu.io.bam import BamRecord, BamWriter
+from svtrek_tpu.oracle import consensus_pos, extract_candidates
+from svtrek_tpu.pipeline.audit import run_audit as jax_run_audit
+from tests.fixtures import write_fixture
+from tests.test_golden_audit_e2e import CHROM_LEN, gen_reads, gen_vcf_lines
+from tests.test_torch_audit import SVS
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import audt_scalar  # noqa: E402
+from bench_e2e import build_fixture  # noqa: E402
+
+KINDS = {C.KIND_DEL_START: audt_scalar.START, C.KIND_DEL_END: audt_scalar.END,
+         C.KIND_INS: audt_scalar.INS, C.KIND_POINT: audt_scalar.POINT}
+
+
+def _jax_lines(bam: str, vcf: str) -> list[str]:
+    return jax_run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
+                                    data_shards=1),
+                         out=io.StringIO(), err=io.StringIO())
+
+
+def test_imports_neither_package():
+    with open(os.path.join(ROOT, "tools", "audt_scalar.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in names if m.startswith(("svtrek", "jax"))]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_consensus_matches_oracle(seed):
+    """Tight clusters, +-600 bp noise and duplicates, at the default and
+    at non-default parameters."""
+    rng = np.random.default_rng(seed)
+    params = [(3, 5, 500), (2, 10, 300), (5, 2, 800)][seed % 3]
+    for _ in range(300):
+        n, center = int(rng.integers(0, 40)), int(rng.integers(1000, 10**8))
+        mode = rng.integers(0, 3, n)
+        locs = (center + np.where(
+            mode == 0, rng.integers(-4, 5, n),
+            np.where(mode == 1, rng.integers(-600, 600, n),
+                     rng.integers(-30, 30, n)))).tolist()
+        pos = center + int(rng.integers(-100, 100))
+        assert audt_scalar.consensus_pos(locs, pos, *params) == \
+            consensus_pos(locs, pos, *params), (locs, pos, params)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_evidence_matches_oracle(kind):
+    """Random reads with every CIGAR op (H and P advance the walk), long
+    I/D ops around the 50 bp thresholds and positions near 2^32."""
+    rng = np.random.default_rng(100 + kind)
+    for _ in range(400):
+        n_ops = int(rng.integers(0, 12))
+        ops = rng.choice([0, 1, 2, 3, 4, 5, 6, 7, 8], n_ops).astype(np.uint8)
+        lens = np.where(rng.random(n_ops) < 0.4,
+                        rng.choice([49, 50, 51, 200], n_ops),
+                        rng.integers(1, 3000, n_ops)).astype(np.uint64)
+        pos = int(rng.choice([int(rng.integers(0, 60_000)),
+                              0xFFFFFFFF - int(rng.integers(0, 20_000))]))
+        s = C.u32(int(rng.integers(0, 40_000)) - 5_000)
+        e = C.u32(s + int(rng.integers(0, 40_000)))
+        want = extract_candidates(
+            kind, [(pos, list(zip(ops.tolist(), lens.tolist())))], s, e)
+        assert audt_scalar.evidence(KINDS[kind], pos, ops, lens, s, e) == \
+            want, (pos, ops, lens, s, e)
+
+
+def test_planted_fixture_lines(tmp_path):
+    bam, vcf = write_fixture(str(tmp_path), SVS, {1: 500_000, 2: 400_000},
+                             seed=2, depth=24, noise=40)
+    want = _jax_lines(bam, vcf)
+    assert len(want) == 7
+    assert audt_scalar.audt_lines(bam, vcf) == want
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_golden_generator_lines(tmp_path, seed):
+    """CIEND= before END=, inferred types, chr prefixes, chrom 0 and X."""
+    rng = np.random.default_rng(seed)
+    reads = gen_reads(rng)
+    vcf = str(tmp_path / "g.vcf")
+    with open(vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n"
+                 + "\n".join(gen_vcf_lines(rng)) + "\n")
+    bam = str(tmp_path / "g.bam")
+    with BamWriter(bam, [("1", CHROM_LEN), ("2", CHROM_LEN)]) as w:
+        for k, (tid, pos, cigar) in enumerate(reads):
+            w.write(BamRecord(name=f"r{k}", flag=0, tid=tid, pos=pos,
+                              mapq=60, cigar=cigar, seq=""))
+    want = _jax_lines(bam, vcf)
+    assert len(want) > 10
+    assert audt_scalar.audt_lines(bam, vcf) == want
+
+
+def test_bench_fixture_lines(tmp_path):
+    """The smoke's fixture generator at 60 records."""
+    bam, vcf, _, _ = build_fixture(str(tmp_path), 60, 4, 100)
+    want = _jax_lines(bam, vcf)
+    assert len(want) == 60
+    assert audt_scalar.audt_lines(bam, vcf) == want
