@@ -8,20 +8,34 @@ last line:
 
 1. environment: torch version, the card's name and power limit; no CUDA
    device is a failure;
-2. build: kernel K1 (svtrek_tpu_torch/csrc/consensus.cu, nvcc for sm_90a)
-   from the sources in this checkout, with ptxas's register report;
+2. build: kernels K1 (svtrek_tpu_torch/csrc/consensus.cu), K2 and K3
+   (csrc/poa.cu), nvcc for sm_90a, one process per source, from the
+   sources in this checkout, with ptxas's register report;
 3. kernel: K1 against its plain PyTorch version on the card at the bench
    shapes, the main path's shape and edge rows, exact integer equality,
    plus 256 rows against tools/audt_scalar.py's scalar consensus;
    CUDA-event times of both;
-4. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
+4. POA kernels: K2 (banded DP pointers) and K3 (traceback) against their
+   plain PyTorch versions on the card, on seeded pair batches (the bench's
+   256-pair call, 4,096 short pairs, a flush-like mix of insert lengths,
+   bands of 256 and 512, degenerate pairs, the query that overruns its
+   target by 37 bases): pointers, cols and ins exactly equal; CUDA-event
+   times of both;
+5. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
    this process, so the launch counts can be read) on the 5,000-record
    synthetic long-read benchmark fixture of tools/bench_e2e.py; its result
    lines must be byte-identical to those of tools/audt_scalar.py (an
    independent scalar audt that decodes the BAM itself), K1 must have run
    once per batch or more, the plain path never, and the refined
    breakpoints must land within 5 bp of the planted truth;
-5. JAX: the script refuses every `jax`/`jaxlib` import from its first
+6. ins-consensus path: `audt --ins-consensus --device cuda --verbose` on
+   the 2,000-site fixture of tools/ins_fixture.py; K1 must have run once
+   per batch and K2 and K3 once per DP batch of every consensus flush, the
+   plain paths never; every line must equal an in-process `--device cpu`
+   run, the part before `, seq:` must be byte-identical to
+   tools/audt_scalar.py, and the `seq:` field equal to its scalar star
+   consensus on a subset of sites from every insert-length class;
+7. JAX: the script refuses every `jax`/`jaxlib` import from its first
    line on, and checks at the end that none was loaded.
 
 The line before the last two is {"kernels": [...]}, then the card's
@@ -70,6 +84,11 @@ KERNEL_SHAPES = [
     (8192, 64, 8), (1024, 1024, 128), (1024, 1024, 8),
 ]
 MAIN_SHAPE = (512, 16, 128)
+# The ins-consensus fixture (tools/ins_fixture.py): sites, seed.
+INS_SITES, INS_SEED = 2000, 0
+# Sites per insert-length class whose consensus tools/audt_scalar.py
+# recomputes (its DP is a Python loop over n*(2*band+1) cells).
+SCALAR_SEQ_PER_CLASS = 2
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
 # in the JAX program, and the scalar consensus, which does not wrap, may
@@ -115,10 +134,10 @@ def phase_build():
     with contextlib.redirect_stderr(report):
         kbuild.build(force=True, verbose=True)
     load_library()
-    print(f"[build] K1 {kbuild.LIB} {time.perf_counter() - t0:.3f}s",
+    print(f"[build] K1 K2 K3 {kbuild.LIB} {time.perf_counter() - t0:.3f}s",
           flush=True)
     for line in report.getvalue().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "entry function")):
             print(f"[build] {line.strip()}", flush=True)
 
 
@@ -211,6 +230,111 @@ def phase_kernel():
     return max_err, main_times
 
 
+def poa_batches(rng):
+    """Seeded (name, targets, queries, band) pair batches of base codes for
+    K2 and K3: the bench's POA call (bench.py:54-56), 4,096 short pairs, a
+    mix of the ins fixture's insert lengths at flush size, bands of up to
+    256 and 512, degenerate pairs, and the m = 1011, n = 1048 pair whose
+    query overruns its target's bucket (tests/test_poa_batch.py:96)."""
+    from ins_fixture import LENGTH_CLASSES, mutate
+
+    def rand(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    def mutated(ts, **kw):
+        return [mutate(rng, t, **kw) for t in ts]
+
+    ts = [rand(1024) for _ in range(256)]
+    yield "bench", ts, mutated(ts, sub=0.05, ins=0.02, dele=0.02), 64
+    ts = [rand(int(rng.integers(50, 401))) for _ in range(4096)]
+    yield "short", ts, mutated(ts), 64
+    shares = np.array([c[0] for c in LENGTH_CLASSES[:4]])
+    cls = rng.choice(4, 2048, p=shares / shares.sum())
+    ts = [rand(int(rng.integers(LENGTH_CLASSES[c][1],
+                                LENGTH_CLASSES[c][2] + 1))) for c in cls]
+    yield "flush", ts, mutated(ts), 64
+    ts = [rand(int(rng.integers(300, 701))) for _ in range(64)]
+    qs = [np.insert(q, len(q) // 2, rand(int(rng.integers(*span))))
+          for q, span in zip(mutated(ts), [(190, 250), (420, 500)] * 32)]
+    yield "wide", ts, qs, 64
+    shapes = [(40, 0), (0, 40), (10, 50), (60, 55), (0, 0), (20, 400),
+              (1, 1), (5, 300)]
+    yield "degenerate", [rand(m) for m, _ in shapes], \
+        [rand(n) for _, n in shapes], 8
+    t = rand(1011)
+    yield "overrun", [t], [np.insert(t, 505, rand(37))], 64
+
+
+def phase_poa_kernels():
+    """K2 and K3 against their plain versions on the card."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import (
+        poa_dp_ptr_cuda, poa_traceback_cuda,
+    )
+    from svtrek_tpu_torch.ops.poa_dp import (
+        dp_ptr_reference, pointers_by_pair, traceback_reference,
+    )
+
+    rng = np.random.default_rng(2027)
+    err = {"dp": 0, "tb": 0}
+    times = {}
+    for name, ts, qs, band in poa_batches(rng):
+        B = len(ts)
+        ms = np.array([len(t) for t in ts], np.int32)
+        ns = np.array([len(q) for q in qs], np.int32)
+        bands = np.maximum(band, np.abs(ns - ms) + 1).astype(np.int32)
+        tpad = np.full((B, max(int(ms.max()), 1)), 5, np.int8)
+        qpad = np.full((B, max(int(ns.max()), 1)), 5, np.int8)
+        for b in range(B):
+            tpad[b, :ms[b]] = ts[b]
+            qpad[b, :ns[b]] = qs[b]
+        args = [torch.from_numpy(a).cuda()
+                for a in (tpad, ms, qpad, ns, bands)]
+        _, m_d, q_d, n_d, b_d = args
+        W = int(bands.max())
+        M = tpad.shape[1]
+
+        def plain_dp():
+            return pointers_by_pair(dp_ptr_reference(*args, W=W), n_d, b_d,
+                                    W=W)
+
+        ptr, offsets = poa_dp_ptr_cuda(*args)
+        want_ptr = plain_dp()
+        cols, ins = poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d,
+                                       M=M)
+        want_cols, want_ins = traceback_reference(ptr, offsets, q_d, m_d,
+                                                  n_d, b_d, M=M)
+        torch.cuda.synchronize()
+        e_dp = int((ptr.int() - want_ptr.int()).abs().max()) \
+            if ptr.numel() else 0
+        e_tb = max(int((cols.int() - want_cols.int()).abs().max()),
+                   int((ins - want_ins).abs().max()))
+        err["dp"], err["tb"] = max(err["dp"], e_dp), max(err["tb"], e_tb)
+        if not torch.equal(ptr, want_ptr):
+            fail(f"K2 pointers differ from the plain version on {name}: "
+                 f"max_abs_err={e_dp}")
+        if not (torch.equal(cols, want_cols) and torch.equal(ins, want_ins)):
+            fail(f"K3 differs from the plain version on {name}: "
+                 f"max_abs_err={e_tb}")
+        line = (f"[poa] {name}: B={B} m {int(ms.min())}-{int(ms.max())} "
+                f"n {int(ns.min())}-{int(ns.max())} band "
+                f"{int(bands.min())}-{W} pointer_bytes={ptr.numel()}: equal")
+        if name in ("bench", "flush"):
+            reps, plain_reps = 20, 2
+            t = (cuda_ms(lambda: poa_dp_ptr_cuda(*args), reps),
+                 cuda_ms(plain_dp, plain_reps),
+                 cuda_ms(lambda: poa_traceback_cuda(
+                     ptr, offsets, q_d, m_d, n_d, b_d, M=M), reps),
+                 cuda_ms(lambda: traceback_reference(
+                     ptr, offsets, q_d, m_d, n_d, b_d, M=M), plain_reps))
+            times[name] = t
+            line += (f"; K2 {t[0]:.4f} ms, plain {t[1]:.4f} ms; K3 "
+                     f"{t[2]:.4f} ms, plain {t[3]:.4f} ms")
+        print(line, flush=True)
+    return err, times
+
+
 def concordance(lines) -> float:
     """bench.py:364-381: share of DEL/INS lines whose every diff is within
     5 bp of the planted truth (INV excluded)."""
@@ -243,9 +367,36 @@ def fixture() -> tuple[str, str]:
     return os.path.join(d, "bench.bam"), os.path.join(d, "bench.vcf")
 
 
-def phase_main_path():
-    from audt_scalar import audt_lines
+def run_cli(argv, tag: str):
+    """svtrek_tpu_torch.cli with --verbose in this process (so the launch
+    counts can be read); prints its [VERBOSE] lines and returns (lines of
+    the output file, the [VERBOSE] stats by name, wall seconds)."""
     from svtrek_tpu_torch import cli
+
+    out_path = os.path.join(tempfile.gettempdir(),
+                            f"svtrek_smoke_out_{os.getpid()}.txt")
+    stderr = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(stderr):
+        rc = cli.main([*argv, "-o", out_path, "--verbose"])
+    wall = time.perf_counter() - t0
+    verbose = [l for l in stderr.getvalue().splitlines()
+               if l.startswith("[VERBOSE]")]
+    for l in verbose:
+        print(f"[{tag}] {l}", flush=True)
+    if rc != 0:
+        fail(f"svtrek_tpu_torch.cli {' '.join(argv)} exited {rc}: "
+             f"{stderr.getvalue()[-2000:]}")
+    with open(out_path) as fh:
+        lines = [l.rstrip("\n") for l in fh if l.startswith("(")]
+    os.remove(out_path)
+    stats = dict(re.findall(r"(\w+(?:\+\w+)?)=([\d.]+)s?", " ".join(verbose)))
+    return lines, stats, wall
+
+
+def phase_main_path() -> None:
+    from audt_scalar import audt_lines
     from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
     from svtrek_tpu_torch.ops.consensus import plain_calls
     from svtrek_tpu_torch.pipeline.audit import open_native_reader
@@ -255,31 +406,12 @@ def phase_main_path():
     open_native_reader(bam)  # builds the native C BAM library at first use
     print(f"[build] native C BAM library {time.perf_counter() - t0:.3f}s",
           flush=True)
-    out_path = os.path.join(tempfile.gettempdir(),
-                            f"svtrek_smoke_out_{os.getpid()}.txt")
-    argv = ["audt", "-b", bam, "-v", vcf, "-o", out_path,
-            "--device", "cuda", "--verbose"]
     reset_launch_counts()
     plain_calls["consensus_pos"] = 0
-    stdout, stderr = io.StringIO(), io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(stdout), \
-            contextlib.redirect_stderr(stderr):
-        rc = cli.main(argv)
-    wall = time.perf_counter() - t0
+    got, stats, wall = run_cli(["audt", "-b", bam, "-v", vcf, "--device",
+                                "cuda"], "main")
     launches = launch_counts["consensus_pos"]
     plain = plain_calls["consensus_pos"]
-    verbose = [l for l in stderr.getvalue().splitlines()
-               if l.startswith("[VERBOSE]")]
-    for l in verbose:
-        print(f"[main] {l}", flush=True)
-    if rc != 0:
-        fail(f"svtrek_tpu_torch.cli audt exited {rc}: "
-             f"{stderr.getvalue()[-2000:]}")
-    with open(out_path) as fh:
-        got = [l.rstrip("\n") for l in fh if l.startswith("(")]
-    os.remove(out_path)
-    stats = dict(re.findall(r"(\w+(?:\+\w+)?)=([\d.]+)s?", " ".join(verbose)))
     batches = int(stats["batches"])
 
     t0 = time.perf_counter()
@@ -307,6 +439,103 @@ def phase_main_path():
           f"fetch+pack={stats['fetch+pack']}s (worker-seconds) "
           f"device_wait={stats['device_wait']}s emit={stats['emit']}s "
           f"total={stats['total']}s", flush=True)
+
+
+def ins_fixture():
+    """The 2,000-site ins-consensus fixture, built once and cached under
+    the temp dir; returns (bam, vcf, sites)."""
+    from ins_fixture import build_ins_fixture
+
+    d = os.path.join(tempfile.gettempdir(),
+                     f"svtrek_smoke_ins{INS_SITES}_s{INS_SEED}")
+    marker = os.path.join(d, "done")
+    if not os.path.exists(marker):
+        t0 = time.perf_counter()
+        build_ins_fixture(d, INS_SITES, INS_SEED)
+        open(marker, "w").close()
+        print(f"[fixture] {INS_SITES} INS sites built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    with open(os.path.join(d, "sites.json")) as fh:
+        sites = json.load(fh)
+    return os.path.join(d, "ins.bam"), os.path.join(d, "ins.vcf"), sites
+
+
+def scalar_subset(sites) -> set[int]:
+    """SCALAR_SEQ_PER_CLASS sites of every insert-length class with one
+    allele, the cheapest first (reads x length), plus the cheapest
+    two-allele site and the first site with 2 reads."""
+    picked = set()
+    for cls in sorted({s["class"] for s in sites}):
+        ids = sorted((i for i, s in enumerate(sites)
+                      if s["class"] == cls and s["alleles"] == 1
+                      and s["reads"] > 2),
+                     key=lambda i: sites[i]["reads"] * sites[i]["length"])
+        picked.update(ids[:SCALAR_SEQ_PER_CLASS])
+    two = sorted((i for i, s in enumerate(sites) if s["alleles"] == 2),
+                 key=lambda i: sites[i]["reads"] * sites[i]["length"])
+    picked.update(two[:1])
+    picked.update([i for i, s in enumerate(sites) if s["reads"] == 2][:1])
+    return picked
+
+
+def phase_ins_path():
+    """`audt --ins-consensus` on the card: launch counts, the --device cpu
+    run, and tools/audt_scalar.py."""
+    from audt_scalar import audt_lines
+    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from svtrek_tpu_torch.ops import consensus, poa_dp
+
+    bam, vcf, sites = ins_fixture()
+    argv = ["audt", "-b", bam, "-v", vcf, "--ins-consensus"]
+    reset_launch_counts()
+    for calls in (consensus.plain_calls, poa_dp.plain_calls):
+        for k in calls:
+            calls[k] = 0
+    got, stats, wall = run_cli([*argv, "--device", "cuda"], "ins")
+    launches = dict(launch_counts)
+    plain = sum(consensus.plain_calls.values()) + \
+        sum(poa_dp.plain_calls.values())
+    batches = int(stats["batches"])
+    dp_calls, flushes = (int(stats.get(k, 0)) for k in ("dp_calls", "flushes"))
+    if launches["consensus_pos"] < batches:
+        fail(f"K1 launched {launches['consensus_pos']} times for {batches} "
+             f"batches")
+    if dp_calls < max(flushes, 1) or min(
+            launches["poa_dp_ptr"], launches["poa_traceback"]) < dp_calls:
+        fail(f"K2/K3 launched {launches['poa_dp_ptr']}/"
+             f"{launches['poa_traceback']} times for {dp_calls} DP batches "
+             f"in {flushes} consensus flushes")
+    if plain != 0:
+        fail(f"a plain path ran {plain} times on --device cuda")
+    cons_sites, cons_s = int(stats["sites"]), float(stats["time"])
+    print(f"[ins] {len(got)} lines, records/s={len(got) / wall:.1f} "
+          f"wall={wall:.3f}s; consensus sites={cons_sites} "
+          f"cons_s={cons_s:.3f}s sites/s={cons_sites / cons_s:.1f}; "
+          f"launches K1={launches['consensus_pos']} "
+          f"K2={launches['poa_dp_ptr']} K3={launches['poa_traceback']} "
+          f"plain_calls={plain}", flush=True)
+
+    cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"], "ins cpu")
+    if cpu != got:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"--device cuda and --device cpu lines differ: {bad}")
+    print(f"[ins] --device cpu: {len(cpu)} lines equal, wall "
+          f"{cpu_wall:.3f}s", flush=True)
+
+    subset = scalar_subset(sites)
+    t0 = time.perf_counter()
+    want = audt_lines(bam, vcf, ins_consensus=True, seq_lines=subset)
+    if [l.split(", seq:")[0] for l in got] != \
+            [l.split(", seq:")[0] for l in want]:
+        fail("the lines before ', seq:' differ from tools/audt_scalar.py")
+    bad = [i for i in subset if got[i] != want[i]]
+    if bad:
+        fail(f"seq differs from the scalar consensus at sites {bad[:5]}: "
+             f"{got[bad[0]][:200]} vs {want[bad[0]][:200]}")
+    classes = sorted({sites[i]["class"] for i in subset})
+    print(f"[ins] tools/audt_scalar.py: {len(want)} lines byte-identical "
+          f"before ', seq:'; seq equal on {len(subset)} sites (classes "
+          f"{classes}) in {time.perf_counter() - t0:.1f}s", flush=True)
     return launches
 
 
@@ -328,18 +557,39 @@ def main() -> int:
 
     phase_build()
     max_err, (ms, plain_ms) = phase_kernel()
-    launches = phase_main_path()
+    poa_err, poa_times = phase_poa_kernels()
+    phase_main_path()
+    launches = phase_ins_path()
     phase_jax_check()
 
+    k2_ms, k2_plain, k3_ms, k3_plain = poa_times["flush"]
     print(json.dumps({"kernels": [{
         "name": "consensus_pos",
         "route": "cuda",
         "source": "svtrek_tpu_torch/csrc/consensus.cu",
         "replaces": "svtrek_tpu/ops/sweep_pallas.py:113",
-        "launches": launches,
+        "launches": launches["consensus_pos"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "poa_dp_ptr",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/poa.cu",
+        "replaces": "svtrek_tpu/ops/poa_pallas.py:165",
+        "launches": launches["poa_dp_ptr"],
+        "max_abs_err": poa_err["dp"],
+        "ms": k2_ms,
+        "plain_ms": k2_plain,
+    }, {
+        "name": "poa_traceback",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/poa.cu",
+        "replaces": "svtrek_tpu/ops/poa_pallas.py:319",
+        "launches": launches["poa_traceback"],
+        "max_abs_err": poa_err["tb"],
+        "ms": k3_ms,
+        "plain_ms": k3_plain,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

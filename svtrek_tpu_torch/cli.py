@@ -1,10 +1,13 @@
 """Command line of the port: `python -m svtrek_tpu_torch.cli audt ...`.
 
 The flags are `svtrek_tpu`'s (svtrek_tpu.cli.build_parser) plus
-`--device {cuda,cpu}`: cuda (the default) runs the consensus on the card
-through kernel K1 and fails where there is no card; cpu runs the plain
-PyTorch path.  `scan` and `disc`, and the `audt` options the port does not
-run yet, exit with an error that names the ROADMAP item porting them.
+`--device {cuda,cpu}`: cuda (the default) runs the device steps on the
+card through the CUDA kernels (K1 for the breakpoint consensus; K2 and K3
+for the `--ins-consensus` star POA) and fails where there is no card; cpu
+runs the plain PyTorch path.  `scan` and `disc`, and the `audt` options
+the port does not run yet (`--data-shards` > 1, `--extract device`,
+`--no-native-io`, `--poa-engine graph`), exit with an error that names the
+ROADMAP item porting them.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
                if isinstance(a, argparse._SubParsersAction))
     sub.choices["audt"].add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cuda = the CUDA kernel on the card (default; an error where "
+        help="cuda = the CUDA kernels on the card (default; an error where "
              "there is none), cpu = the plain PyTorch path")
     return ap
 

@@ -2,9 +2,10 @@
 
 The library is built from `csrc/` at the first launch (`build.build`) and
 loaded once.  Each wrapper takes CUDA tensors only, checks them, allocates
-its outputs with `torch.empty`, launches on the current stream and raises
-if the launch fails.  `launch_counts` counts each wrapper's launches, so a
-run can show that its main path went through the kernels.
+its outputs (filled where the kernel expects it), launches on the current
+stream and raises if the launch fails.  `launch_counts` counts each
+wrapper's launches, so a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import ctypes as ct
 import torch
 
 # Kernel launches per wrapper since the last reset_launch_counts().
-launch_counts: dict[str, int] = {"consensus_pos": 0}
+launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
+                                 "poa_traceback": 0}
+# The widest per-pair band K2 takes: its two score rows per warp must fit
+# in the shared memory of one block (csrc/poa.cu).
+POA_MAX_BAND = 2048
 
 _LIB = None
 
@@ -36,22 +41,47 @@ def load_library():
             ptr, ptr, ptr, ct.c_int, ct.c_int, ct.c_int,
             ct.c_int, ct.c_int, ct.c_int, ptr, ptr, ptr,
         ]
+        lib.svtrek_poa_dp_ptr.restype = ct.c_int
+        lib.svtrek_poa_dp_ptr.argtypes = [
+            ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
+            ct.c_int, ct.c_int, ptr,
+        ]
+        lib.svtrek_poa_traceback.restype = ct.c_int
+        lib.svtrek_poa_traceback.argtypes = [
+            ptr, ptr, ptr, ct.c_int, ptr, ptr, ptr, ct.c_int, ct.c_int,
+            ptr, ptr, ptr,
+        ]
         lib.svtrek_cuda_error_string.restype = ct.c_char_p
         lib.svtrek_cuda_error_string.argtypes = [ct.c_int]
         _LIB = lib
     return _LIB
 
 
-def _check_i32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           dtype=torch.int32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.int32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _launched(name: str, lib, rc: int) -> None:
+    """Raise if a launch failed; else count it."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{lib.svtrek_cuda_error_string(rc).decode()} ({rc})")
+    launch_counts[name] += 1
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {t.device}")
 
 
 def consensus_pos_cuda(locs: torch.Tensor, n: torch.Tensor,
@@ -64,18 +94,16 @@ def consensus_pos_cuda(locs: torch.Tensor, n: torch.Tensor,
     n [B] int32 valid counts (<= K); pos [B] int32.  Returns (refined [B]
     int32 with -1 = NA, overflow [B] bool), equal to
     `ops.consensus.consensus_pos_batch_reference`."""
-    if locs.device.type != "cuda":
-        raise ValueError(f"consensus_pos_cuda takes CUDA tensors, got "
-                         f"{locs.device}")
+    _require_cuda("consensus_pos_cuda", locs)
     if locs.dim() != 2 or locs.shape[1] == 0:
         raise ValueError(f"locs must be [B, K] with K >= 1, got "
                          f"{tuple(locs.shape)}")
     if sweep_width < 1:
         raise ValueError(f"sweep_width must be >= 1, got {sweep_width}")
     B, K = locs.shape
-    _check_i32("locs", locs, (B, K), locs.device)
-    _check_i32("n", n, (B,), locs.device)
-    _check_i32("pos", pos, (B,), locs.device)
+    _check("locs", locs, (B, K), locs.device)
+    _check("n", n, (B,), locs.device)
+    _check("pos", pos, (B,), locs.device)
     refined = torch.empty(B, dtype=torch.int32, device=locs.device)
     overflow = torch.empty(B, dtype=torch.bool, device=locs.device)
     if B == 0:
@@ -87,9 +115,111 @@ def consensus_pos_cuda(locs: torch.Tensor, n: torch.Tensor,
             locs.data_ptr(), n.data_ptr(), pos.data_ptr(), B, K,
             min(sweep_width, K), min_count, interval, range_,
             refined.data_ptr(), overflow.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"consensus_pos kernel launch failed: "
-            f"{lib.svtrek_cuda_error_string(rc).decode()} ({rc})")
-    launch_counts["consensus_pos"] += 1
+    _launched("consensus_pos", lib, rc)
     return refined, overflow
+
+
+def poa_ptr_offsets(ns: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
+    """Byte offsets [B+1] int64 of each pair's pointer rows in K2's output:
+    pair b holds ns[b] rows of 2*bands[b]+1 codes."""
+    sizes = ns.long() * (2 * bands.long() + 1)
+    return torch.cat([sizes.new_zeros(1), torch.cumsum(sizes, 0)])
+
+
+def _pair_args(tpad, ms, qpad, ns, bands) -> tuple[int, int, int]:
+    """Check the types and shapes of a pair batch; returns (B, M, N)."""
+    if tpad.dim() != 2 or qpad.dim() != 2:
+        raise ValueError(f"tpad and qpad must be [B, M] and [B, N], got "
+                         f"{tuple(tpad.shape)} and {tuple(qpad.shape)}")
+    (B, M), N = tpad.shape, qpad.shape[1]
+    dev = tpad.device
+    _check("tpad", tpad, (B, M), dev, torch.int8)
+    _check("qpad", qpad, (B, N), dev, torch.int8)
+    for name, t in (("ms", ms), ("ns", ns), ("bands", bands)):
+        _check(name, t, (B,), dev)
+    return B, M, N
+
+
+def _bounds(M: int, N: int, ms, ns, bands, offsets) -> tuple[int, int]:
+    """Raise unless 0 <= m <= M, 0 <= n <= N and |n - m| <= band <=
+    POA_MAX_BAND for every pair (the walk starts inside the band); returns
+    (max band, offsets[-1]) from one host read."""
+    stats = torch.stack([ms.max(), ns.max(), bands.max(), ms.min(),
+                         ns.min(), ((ns - ms).abs() - bands).max()]).long()
+    max_m, max_n, max_band, min_m, min_n, outside, total = torch.cat(
+        [stats, offsets[-1:]]).tolist()
+    if min(min_m, min_n) < 0 or max_m > M or max_n > N or outside > 0 \
+            or max_band > POA_MAX_BAND:
+        raise ValueError(
+            f"pair lengths or bands out of range: m in [{min_m}, {max_m}] "
+            f"(M={M}), n in [{min_n}, {max_n}] (N={N}), max band "
+            f"{max_band} (at most {POA_MAX_BAND}), max |n - m| - band "
+            f"{outside} (at most 0)")
+    return max_band, total
+
+
+def poa_dp_ptr_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
+                    ns: torch.Tensor, bands: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K2 (csrc/poa.cu): the banded DP's pointer rows of every pair.
+
+    tpad [B, M] / qpad [B, N] int8 bases padded with 5; ms, ns, bands [B]
+    int32.  Returns (ptr, offsets): pair b's row i (1..n) lies at
+    ptr[offsets[b] + (i-1)*(2*band+1) :][: 2*band+1], its cell k at target
+    column j = i + k - band, with the codes of
+    `ops.poa_dp.dp_ptr_reference` (0 diag, 1 up, 2 left)."""
+    _require_cuda("poa_dp_ptr_cuda", tpad)
+    B, M, N = _pair_args(tpad, ms, qpad, ns, bands)
+    offsets = poa_ptr_offsets(ns, bands)
+    if B == 0:
+        return torch.empty(0, dtype=torch.int8, device=tpad.device), offsets
+    max_band, total = _bounds(M, N, ms, ns, bands, offsets)
+    ptr = torch.empty(total, dtype=torch.int8, device=tpad.device)
+    lib = load_library()
+    with torch.cuda.device(tpad.device):
+        stream = torch.cuda.current_stream(tpad.device).cuda_stream
+        rc = lib.svtrek_poa_dp_ptr(
+            tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), N,
+            ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(),
+            ptr.data_ptr(), B, max_band, stream)
+    _launched("poa_dp_ptr", lib, rc)
+    return ptr, offsets
+
+
+def poa_traceback_cuda(ptr: torch.Tensor, offsets: torch.Tensor,
+                       qpad: torch.Tensor, ms: torch.Tensor, ns: torch.Tensor,
+                       bands: torch.Tensor, *, M: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K3 (csrc/poa.cu): the traceback of every pair over K2's
+    pointers.  Returns (cols [B, M] int8: the query base aligned to each
+    target column, -1 = gap; ins [B, M+1] int32: query bases inserted
+    before each column), equal to `ops.poa_dp.traceback_reference`."""
+    _require_cuda("poa_traceback_cuda", ptr)
+    if qpad.dim() != 2:
+        raise ValueError(f"qpad must be [B, N], got {tuple(qpad.shape)}")
+    B, N = qpad.shape
+    dev = ptr.device
+    _check("qpad", qpad, (B, N), dev, torch.int8)
+    _check("offsets", offsets, (B + 1,), dev, torch.int64)
+    for name, t in (("ms", ms), ("ns", ns), ("bands", bands)):
+        _check(name, t, (B,), dev)
+    if ptr.dim() != 1 or ptr.dtype != torch.int8:
+        raise ValueError(f"ptr must be 1-D int8, got {ptr.dtype} "
+                         f"{tuple(ptr.shape)}")
+    cols = torch.full((B, M), -1, dtype=torch.int8, device=dev)
+    ins = torch.zeros((B, M + 1), dtype=torch.int32, device=dev)
+    if B == 0:
+        return cols, ins
+    _, total = _bounds(M, N, ms, ns, bands, offsets)
+    if total != ptr.numel():
+        raise ValueError(f"ptr holds {ptr.numel()} bytes, offsets say "
+                         f"{total}")
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.svtrek_poa_traceback(
+            ptr.data_ptr(), offsets.data_ptr(), qpad.data_ptr(), N,
+            ms.data_ptr(), ns.data_ptr(), bands.data_ptr(), B, M,
+            cols.data_ptr(), ins.data_ptr(), stream)
+    _launched("poa_traceback", lib, rc)
+    return cols, ins

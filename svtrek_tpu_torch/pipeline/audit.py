@@ -12,10 +12,15 @@ window with more than K candidates arrives already refined by the C
 scalar consensus, and a window whose sweep outran `sweep_width` goes
 through `svtrek_tpu.oracle.consensus_pos`.
 
+With `--ins-consensus`, each refined INS record also gets the consensus of
+the inserted bases its supporting reads carry: the native reader decodes
+them from SEQ, and one batched star-POA call (`ops.poa_batch`, kernels K2
+and K3 on the card) covers every site completed by a collected batch.
+
 What the JAX pipeline does besides, and this one refuses (`Unsupported`):
 mesh sharding and multi-host runs, `--extract device` and every path
-without the native reader, and `--ins-consensus`.  Each message names the
-ROADMAP item that ports it.
+without the native reader, and `--poa-engine graph`.  Each message names
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 from svtrek_tpu import constants as C
 from svtrek_tpu.config import AudtConfig
+from svtrek_tpu.constants import SVType
 from svtrek_tpu.emit import format_result
 from svtrek_tpu.io.vcf import VcfSkip, VcfTask, iter_vcf_tasks
 from svtrek_tpu.native import native_bam_reader
@@ -40,7 +46,10 @@ from svtrek_tpu.oracle import consensus_pos
 
 from ..device import resolve_device
 from ..ops.audit_step import audit_consensus_step
-from .pack import INT64_MIN, PackedCandBatch, pack_chunk_cand, windows_for_task
+from ..ops.poa_batch import consensus_sequence_batch
+from .pack import (
+    INT64_MIN, PackedCandBatch, pack_chunk_cand, window_tid, windows_for_task,
+)
 
 NA32 = 0xFFFFFFFF
 
@@ -65,9 +74,6 @@ def check_supported(cfg: AudtConfig) -> None:
         refused.append("--no-native-io (the host-extract path needs the "
                        "native reader; the other path is ROADMAP queue 1 "
                        "item 4)")
-    if cfg.ins_consensus:
-        refused.append("--ins-consensus (POA consensus, kernels K2+K3; "
-                       "ROADMAP queue 1 item 5)")
     if cfg.poa_engine == "graph":
         refused.append("--poa-engine graph (graph POA; ROADMAP queue 1 "
                        "item 8)")
@@ -96,14 +102,21 @@ class AuditResult:
     emit: bool = True
     chrom_label: object = None  # --chrom-by-name: print the CHROM name
     remaining: int = 0          # windows not yet applied (streaming emit)
+    # --ins-consensus: POA consensus of the inserted sequence
+    needs_seq: bool = False
+    cons_tid: int = -1
+    seq: str | None = None      # None = unresolved; "" = no consensus
 
     def line(self) -> str:
         chrom = (self.chrom_label if self.chrom_label is not None
                  else self.task.chrom_index)
-        return format_result(
+        text = format_result(
             self.task.sv_type, chrom, self.task.pos,
             self.task.end, self.rstart, self.rend,
         )
+        if self.needs_seq:
+            text += f", seq: {self.seq if self.seq else 'NA'}"
+        return text
 
 
 @dataclass
@@ -115,6 +128,10 @@ class AuditStats:
                              # (aggregate worker-seconds)
     device_s: float = 0.0    # blocked on device results
     emit_s: float = 0.0
+    cons_s: float = 0.0      # --ins-consensus: seq fetch + POA batches
+    cons_sites: int = 0      # INS sites given a consensus sequence
+    cons_flushes: int = 0    # batched consensus calls
+    cons_dp_calls: int = 0   # DP batches those calls sent to the device
     total_s: float = 0.0
     records: int = 0
     windows: int = 0
@@ -140,6 +157,13 @@ class AuditStats:
             f"emit={self.emit_s:.3f}s total={self.total_s:.3f}s",
             file=err,
         )
+        if self.cons_sites:
+            print(
+                f"[VERBOSE] ins_consensus sites={self.cons_sites} "
+                f"time={self.cons_s:.3f}s flushes={self.cons_flushes} "
+                f"dp_calls={self.cons_dp_calls}",
+                file=err,
+            )
 
 
 def dispatch_refinement(packed: PackedCandBatch, cfg: AudtConfig,
@@ -190,6 +214,37 @@ def collect_refinement(packed: PackedCandBatch, dev, cfg: AudtConfig,
         else:
             out.append((w, int(refined[i])))
     return out
+
+
+def _resolve_ins_consensus(records: list[AuditResult], reader,
+                           cfg: AudtConfig, device: torch.device,
+                           stats: AuditStats) -> None:
+    """Attach a POA consensus of the inserted sequence to each refined INS
+    record (svtrek_tpu/pipeline/audit.py:406-448).  Per record: reads
+    overlapping the refined position whose >= 50 bp I op lands within
+    consensus_interval of it contribute their inserted bases (the native
+    reader's SEQ decode); one batched consensus call on ``device`` covers
+    all records.  res.seq = "" when there is no consensus (printed NA)."""
+    t0 = time.perf_counter()
+    interval = cfg.consensus_interval
+    seq_lists: list[list[str]] = []
+    for res in records:
+        r = int(C.u32(res.rstart))
+        lo, hi = r - interval, r + interval
+        if res.cons_tid < 0:
+            seq_lists.append([])
+            continue
+        seq_lists.append(reader.ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
+                                         C.SV_MIN_LENGTH, lo, hi))
+    counts = {"dp_calls": 0}
+    for res, s in zip(records, consensus_sequence_batch(
+            seq_lists, device=device, counts=counts)):
+        res.seq = s or ""
+        if s:
+            stats.cons_sites += 1
+    stats.cons_flushes += 1
+    stats.cons_dp_calls += counts["dp_calls"]
+    stats.cons_s += time.perf_counter() - t0
 
 
 def _resume_state(cfg, err):
@@ -266,6 +321,12 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
     print("[INFO] Started processing variation file.", file=out)
 
+    # --ins-consensus: a dedicated main-thread reader for SEQ extraction
+    # (the probe reader serves the producer's tid lookups, and BGZF cursor
+    # state is not thread-safe).
+    cons_reader = open_native_reader(cfg.bam_file) if cfg.ins_consensus \
+        else None
+
     num_shards = cfg.num_shards or 1
     shard_index = cfg.shard_index
     resume_state = _resume_state(cfg, err)
@@ -340,6 +401,9 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
                               f"to NA.", file=err)
                     for w in wins:
                         w.tid = tid
+                if cfg.ins_consensus and t.sv_type == SVType.INS and emit:
+                    res.needs_seq = True
+                    res.cons_tid = window_tid(wins[0]) if wins else -1
                 results[t.line_index] = res
                 pending_records.append(res)
                 stats.parse_s += time.perf_counter() - t_in
@@ -432,6 +496,16 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     def flush_frontier():
         t0 = time.perf_counter()
         while pending_records and pending_records[0].remaining == 0:
+            head = pending_records[0]
+            if (head.needs_seq and head.seq is None
+                    and C.u32(head.rstart) != NA32):
+                # Resolve every completed-but-unemitted INS site in one
+                # batched POA call: one per collected device batch.
+                batch = [r for r in pending_records
+                         if r.remaining == 0 and r.needs_seq
+                         and r.seq is None and C.u32(r.rstart) != NA32]
+                _resolve_ins_consensus(batch, cons_reader, cfg, device,
+                                       stats)
             res = pending_records.popleft()
             del results[res.task.line_index]
             if not res.emit:

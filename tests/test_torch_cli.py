@@ -1,6 +1,7 @@
 """The port's command line (python -m svtrek_tpu_torch.cli): the audt run
-on --device cpu, what it refuses, and that it runs where JAX cannot be
-imported at all (the machine with the card has none)."""
+on --device cpu, with and without --ins-consensus, what it refuses, and
+that it runs where JAX cannot be imported at all (the machine with the
+card has none)."""
 from __future__ import annotations
 
 import io
@@ -63,7 +64,6 @@ REFUSED = {
     "data_shards": (["--data-shards", "2"], "item 9"),
     "extract_device": (["--extract", "device"], "item 4"),
     "no_native_io": (["--no-native-io"], "item 4"),
-    "ins_consensus": (["--ins-consensus"], "item 5"),
     "poa_graph": (["--poa-engine", "graph"], "item 8"),
 }
 
@@ -80,6 +80,25 @@ def test_cli_refuses_unported_options(audt_fixture, capsys, name):
     assert "not supported by svtrek_tpu_torch yet" in err
     assert f"ROADMAP queue 1 {item}" in err
     assert not os.path.exists(out_path)
+
+
+def test_cli_ins_consensus_cpu(audt_fixture, capsys):
+    """--ins-consensus runs (it was refused before kernels K2 and K3 were
+    ported): the planted INS line gains its seq field, as in the JAX
+    package, and the other lines are unchanged."""
+    d, bam, vcf, plain = audt_fixture
+    want = jax_run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
+                                    data_shards=1, ins_consensus=True),
+                         out=io.StringIO(), err=io.StringIO())
+    out_path = os.path.join(d, "ins_consensus.txt")
+    assert cli.main(["audt", "-b", bam, "-v", vcf, "-o", out_path,
+                     "--device", "cpu", "--ins-consensus"]) == 0
+    out = capsys.readouterr().out
+    assert [l for l in out.splitlines() if l.startswith("(")] == want
+    assert [l.split(", seq:")[0] for l in want] == plain
+    assert sum(", seq: " in l for l in want) == 1
+    with open(out_path) as fh:
+        assert fh.read().splitlines() == want
 
 
 def test_cli_refuses_coordinator(audt_fixture, capsys, monkeypatch):

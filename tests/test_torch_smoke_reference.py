@@ -1,14 +1,17 @@
 """tools/audt_scalar.py, the independent scalar `audt` that chip_smoke.py
 holds the port's output to on the card, against the JAX package: its
-consensus and evidence walks against svtrek_tpu.oracle, and its result
-lines against svtrek_tpu.pipeline.audit.run_audit on the planted fixtures,
-the golden harness's random VCF quirk surface and a small copy of the
-smoke's benchmark fixture."""
+consensus and evidence walks against svtrek_tpu.oracle, its insert
+collection against the native reader and its star consensus against
+svtrek_tpu.ops.poa, and its result lines against
+svtrek_tpu.pipeline.audit.run_audit on the planted fixtures, the golden
+harness's random VCF quirk surface, small copies of the smoke's benchmark
+and ins-consensus fixtures, and with --ins-consensus."""
 from __future__ import annotations
 
 import ast
 import io
 import os
+import random
 import sys
 
 import numpy as np
@@ -17,9 +20,14 @@ import pytest
 from svtrek_tpu import constants as C
 from svtrek_tpu.config import AudtConfig
 from svtrek_tpu.io.bam import BamRecord, BamWriter
+from svtrek_tpu.native import native_bam_reader
+from svtrek_tpu.ops.poa import consensus_sequence
 from svtrek_tpu.oracle import consensus_pos, extract_candidates
 from svtrek_tpu.pipeline.audit import run_audit as jax_run_audit
 from tests.fixtures import write_fixture
+from tests.test_ins_consensus import _mutate as _mutate_ins
+from tests.test_ins_consensus import _rand_seq
+from tests.test_ins_consensus import build_fixture as build_ins_site
 from tests.test_golden_audit_e2e import CHROM_LEN, gen_reads, gen_vcf_lines
 from tests.test_torch_audit import SVS
 
@@ -28,14 +36,15 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import audt_scalar  # noqa: E402
 from bench_e2e import build_fixture  # noqa: E402
+from ins_fixture import build_ins_fixture  # noqa: E402
 
 KINDS = {C.KIND_DEL_START: audt_scalar.START, C.KIND_DEL_END: audt_scalar.END,
          C.KIND_INS: audt_scalar.INS, C.KIND_POINT: audt_scalar.POINT}
 
 
-def _jax_lines(bam: str, vcf: str) -> list[str]:
+def _jax_lines(bam: str, vcf: str, **kw) -> list[str]:
     return jax_run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
-                                    data_shards=1),
+                                    data_shards=1, **kw),
                          out=io.StringIO(), err=io.StringIO())
 
 
@@ -122,3 +131,55 @@ def test_bench_fixture_lines(tmp_path):
     want = _jax_lines(bam, vcf)
     assert len(want) == 60
     assert audt_scalar.audt_lines(bam, vcf) == want
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_star_consensus_matches_poa(seed):
+    """Random clusters: noisy copies, empty and single members, identical
+    members, two alleles of different lengths, non-ACGT bases."""
+    rng = random.Random(seed)
+    for k in range(25):
+        base = _rand_seq(rng, rng.randint(20, 260))
+        cluster = [_mutate_ins(rng, base, sub=0.05, ind=0.04)
+                   for _ in range(rng.randint(0, 7))]
+        if k % 4 == 0:
+            cluster += [base + _rand_seq(rng, 90)] * 2 + [""]
+        if k % 5 == 0:
+            cluster.append(base.replace("A", "R", 3))
+        assert audt_scalar.star_consensus(cluster) == \
+            consensus_sequence(cluster), (seed, k)
+
+
+def test_ins_seqs_match_native_reader(tmp_path):
+    bam, _, sites = build_ins_fixture(str(tmp_path), 12, seed=5)
+    scalar = audt_scalar.Bam(bam, with_seq=True)
+    native = native_bam_reader(bam)
+    rng = np.random.default_rng(1)
+    for site in sites:
+        for lo in (site["pos"] - 8, site["pos"] - 3, site["pos"] + 1):
+            hi = lo + int(rng.integers(0, 12))
+            assert audt_scalar.ins_seqs(scalar, 0, lo, hi) == \
+                native.ins_seqs(0, max(lo, 0), hi + 1, C.SV_MIN_LENGTH,
+                                lo, hi), (site, lo, hi)
+    assert audt_scalar.ins_seqs(scalar, 3, 0, 10 ** 6) == []
+
+
+@pytest.mark.parametrize("case", ["clean", "noisy", "depth2", "sites"])
+def test_ins_consensus_lines(tmp_path, case):
+    """--ins-consensus lines against the JAX package on
+    tests/test_ins_consensus.py's fixtures and 24 sites of
+    tools/ins_fixture.py; seq_lines limits the seq field to those lines."""
+    if case == "sites":
+        bam, vcf, _ = build_ins_fixture(str(tmp_path), 24, seed=3)
+    else:
+        depth, noisy = {"clean": (10, False), "noisy": (10, True),
+                        "depth2": (2, False)}[case]
+        bam, vcf = build_ins_site(str(tmp_path),
+                                  _rand_seq(random.Random(11), 90),
+                                  depth=depth, noisy=noisy, seed=11)
+    want = _jax_lines(bam, vcf, ins_consensus=True)
+    assert audt_scalar.audt_lines(bam, vcf, ins_consensus=True) == want
+    some = audt_scalar.audt_lines(bam, vcf, ins_consensus=True,
+                                  seq_lines={0})
+    assert some[0] == want[0]
+    assert some[1:] == [l.split(", seq:")[0] for l in want[1:]]

@@ -17,12 +17,19 @@ can hold either package's output to the reference semantics
   region iterator gives them;
 - the CIGAR evidence walks, refinement.c:103-325, and the clustering
   consensus, refinement.c:41-101, with their quirks;
-- result lines, audit.c:175-236.
+- result lines, audit.c:175-236;
+- with `--ins-consensus`, the framework's consensus of the inserted
+  sequence on each INS line: the inserts of >= 50 bp that reads carry
+  within `INTERVAL` of the refined position (the refine_ins walk's
+  reference position, refinement.c:137-139), decoded from SEQ, and the
+  star consensus of svtrek_tpu/ops/poa.py::consensus_sequence (majority
+  length mode, length-medoid seed, banded alignment with insertion
+  recovery, two voting rounds).
 
 It runs the reference's defaults (params.h:27-41) and none of the
-framework's extensions (--refine-inv, --chrom-by-name, ...).
+framework's other extensions (--refine-inv, --chrom-by-name, ...).
 
-    python tools/audt_scalar.py BAM VCF     # prints the result lines
+    python tools/audt_scalar.py [--ins-consensus] BAM VCF
 """
 from __future__ import annotations
 
@@ -39,6 +46,13 @@ RANGE, INTERVAL, MIN_COUNT, SV_MIN = 500, 5, 3, 50
 M32 = 0xFFFFFFFF
 OP_I, OP_D, OP_S = 1, 2, 4
 REF_OPS = (0, 2, 3, 7, 8)  # M D N = X: the reference span (htslib endpos)
+QUERY_OPS = (0, 1, 4, 7, 8)  # M I S = X: the ops that consume SEQ
+NT16 = "=ACMGRSVTWYHKDBN"  # BAM 4-bit SEQ codes
+# The star consensus (svtrek_tpu/ops/poa.py): scores, band, the longest
+# seed it aligns, voting rounds.
+MATCH, MISMATCH, GAP = 2, -4, -2
+POA_BAND, POA_MAX_LEN, POA_ROUNDS = 64, 4096, 2
+BASE_CODE = {"A": 0, "C": 1, "G": 2, "T": 3}
 # The reference's four refine_* entry points (refinement.c:103/169/231/278).
 START, END, POINT, INS = "start", "end", "point", "ins"
 
@@ -106,9 +120,10 @@ def windows(sv: str, pos: int, end: int):
 
 
 class Bam:
-    """Every placed read of a BAM, by tid: start, end and CIGAR."""
+    """Every placed read of a BAM, by tid: start, end and CIGAR, and with
+    ``with_seq`` its 4-bit SEQ bytes and length."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, with_seq: bool = False):
         by_tid: dict[int, list] = {}
         with gzip.open(path, "rb") as f:
             magic, l_text = struct.unpack("<4si", f.read(8))
@@ -121,16 +136,19 @@ class Bam:
                 f.read(l_name + 4)
             while len(head := f.read(4)) == 4:
                 rec = f.read(struct.unpack("<i", head)[0])
-                tid, pos, l_name, _, _, n_cig = struct.unpack_from(
-                    "<iiBBHH", rec)
+                tid, pos, l_name, _, _, n_cig, _, l_seq = struct.unpack_from(
+                    "<iiBBHHHi", rec)
                 if tid < 0:
                     continue
                 cig = np.frombuffer(rec, np.uint32, n_cig, 32 + l_name)
                 ops, lens = (cig & 0xF).astype(np.uint8), cig >> 4
                 span = int(lens[np.isin(ops, REF_OPS)].sum())
-                by_tid.setdefault(tid, []).append(
-                    (pos, pos + span if span > 0 else pos + 1, ops,
-                     lens.astype(np.uint64)))
+                read = (pos, pos + span if span > 0 else pos + 1, ops,
+                        lens.astype(np.uint64))
+                if with_seq:
+                    at = 32 + l_name + 4 * n_cig
+                    read += (l_seq, rec[at:at + (l_seq + 1) // 2])
+                by_tid.setdefault(tid, []).append(read)
         self.reads = {}
         for tid, rs in by_tid.items():
             rs.sort(key=lambda r: r[0])  # stable: file order within a pos
@@ -215,6 +233,138 @@ def consensus_pos(locs, pos: int, min_count: int = MIN_COUNT,
     return best[0] if dist[0] < dist[1] else best[1]
 
 
+def ins_seqs(bam: Bam, tid: int, lo: int, hi: int) -> list[str]:
+    """The inserted bases of every I op >= 50 bp whose reference position
+    lies in [lo, hi], from the reads overlapping [max(lo, 0), hi + 1), in
+    file order.  The position advances on every op but I and S, in uint32
+    (refinement.c:137-139); an op that runs past SEQ is skipped."""
+    out = []
+    for pos, _, ops, lens, l_seq, nib in bam.fetch(tid, max(lo, 0), hi + 1):
+        if l_seq <= 0:
+            continue
+        rp, qpos = pos, 0
+        for op, ln in zip(ops.tolist(), lens.tolist()):
+            if op == OP_I and ln >= SV_MIN and lo <= rp <= hi \
+                    and qpos + ln <= l_seq:
+                out.append("".join(
+                    NT16[nib[q >> 1] >> 4 if q % 2 == 0 else nib[q >> 1] & 15]
+                    for q in range(qpos, qpos + ln)))
+            if op not in (OP_I, OP_S):
+                rp = u32(rp + ln)
+            if op in QUERY_OPS:
+                qpos += ln
+    return out
+
+
+def _codes(seq: str) -> list[int]:
+    """Base codes A C G T = 0..3, anything else 4 (N)."""
+    return [BASE_CODE.get(c, 4) for c in seq.upper()]
+
+
+def align_ins(t: list[int], q: list[int], band: int):
+    """Global alignment of q onto t within |i - j| <= max(band, |n-m|+1):
+    the query base on each target column (-1 = gap) and the query bases
+    inserted before each column boundary 0..m.  Ties go to the diagonal,
+    then to the query gap; the target gap wins only when strictly
+    better."""
+    n, m = len(q), len(t)
+    band = max(band, abs(n - m) + 1)
+    neg = -10 ** 9
+    prev = [GAP * j if j <= band else neg for j in range(m + 1)]
+    moves = [bytearray([2]) * (m + 1)]
+    for i in range(1, n + 1):
+        cur = [neg] * (m + 1)
+        mv = bytearray(m + 1)
+        if i <= band:
+            cur[0], mv[0] = GAP * i, 1
+        qi = q[i - 1]
+        for j in range(max(1, i - band), min(m, i + band) + 1):
+            best = prev[j - 1] + (MATCH if t[j - 1] == qi else MISMATCH)
+            move = 0
+            if prev[j] + GAP > best:
+                best, move = prev[j] + GAP, 1
+            if cur[j - 1] + GAP > best:
+                best, move = cur[j - 1] + GAP, 2
+            cur[j], mv[j] = best, move
+        moves.append(mv)
+        prev = cur
+    cols, ins = [-1] * m, [[] for _ in range(m + 1)]
+    i, j = n, m
+    while i > 0 or j > 0:
+        move = moves[i][j]
+        if i > 0 and j > 0 and move == 0:
+            cols[j - 1] = q[i - 1]
+            i, j = i - 1, j - 1
+        elif i > 0 and move == 1:
+            ins[j].insert(0, q[i - 1])
+            i -= 1
+        else:
+            j -= 1
+    return cols, ins
+
+
+def _vote(cons: str, members: list[str]) -> str:
+    """One round: align every member to cons and vote per column (a gap
+    majority drops it) and per boundary (an insert seen in more than half
+    the members is kept; the first of equal counts wins)."""
+    t = _codes(cons)
+    m = len(t)
+    votes = [[0] * 6 for _ in range(m)]
+    ins_votes: list[dict] = [{} for _ in range(m + 1)]
+    for s in members:
+        if s == cons:
+            for j, c in enumerate(t):
+                votes[j][c] += 1
+            continue
+        cols, ins = align_ins(t, _codes(s[:4 * m]), POA_BAND)
+        for j, c in enumerate(cols):
+            votes[j][c if c >= 0 else 5] += 1
+        for j, seg in enumerate(ins):
+            if seg:
+                key = "".join("ACGTN"[c] for c in seg)
+                ins_votes[j][key] = ins_votes[j].get(key, 0) + 1
+    out = []
+    for j in range(m + 1):
+        if ins_votes[j]:
+            seg, count = max(ins_votes[j].items(), key=lambda kv: kv[1])
+            if count > len(members) // 2:
+                out.append(seg)
+        if j < m:
+            best = votes[j].index(max(votes[j]))
+            if best != 5:
+                out.append("ACGTN"[best])
+    return "".join(out)
+
+
+def star_consensus(seqs: list[str]) -> str:
+    """The consensus of a site's inserts ("" for none): the largest group
+    of lengths linked within max(10, 10 %) of each other, its length
+    medoid as the seed, then voting rounds until the seed stops
+    changing."""
+    seqs = [s for s in seqs if s]
+    if len(seqs) < 2:
+        return seqs[0] if seqs else ""
+    order = sorted(range(len(seqs)), key=lambda i: len(seqs[i]))
+    groups = [[order[0]]]
+    for a, b in zip(order, order[1:]):
+        if len(seqs[b]) - len(seqs[a]) <= max(10, len(seqs[a]) // 10):
+            groups[-1].append(b)
+        else:
+            groups.append([b])
+    members = [seqs[i] for i in sorted(max(groups, key=len))]
+    if len(members) == 1:
+        return members[0]
+    cons = sorted(members, key=len)[len(members) // 2]
+    if len(cons) > POA_MAX_LEN:
+        return cons
+    for _ in range(POA_ROUNDS):
+        new = _vote(cons, members)
+        if not new or new == cons:
+            break
+        cons = new
+    return cons
+
+
 def result_line(sv: str, chrom: int, pos: int, end: int, r0: int,
                 r1: int) -> str:
     """audit.c's printf of one record; r0/r1 are uint32, M32 for NA."""
@@ -231,10 +381,13 @@ def result_line(sv: str, chrom: int, pos: int, end: int, r0: int,
             f"diff end: {e[1]}")
 
 
-def audt_lines(bam_path: str, vcf_path: str) -> list[str]:
+def audt_lines(bam_path: str, vcf_path: str, ins_consensus: bool = False,
+               seq_lines=None) -> list[str]:
     """The reference's result lines for a VCF against a BAM, in input
-    order."""
-    bam = Bam(bam_path)
+    order.  With ``ins_consensus`` each INS line ends in `, seq: S` (NA
+    without a refined position or a consensus); ``seq_lines``, when given,
+    limits that to the lines of those indices."""
+    bam = Bam(bam_path, with_seq=ins_consensus)
     lines = []
     with open(vcf_path) as fh:
         for raw in fh:
@@ -250,15 +403,23 @@ def audt_lines(bam_path: str, vcf_path: str) -> list[str]:
             res = [M32, M32]
             for slot, (kind, s, e, ipos) in enumerate(wins):
                 cands = [] if kind == POINT else [
-                    c for rpos, _, ops, lens in bam.fetch(
+                    c for rpos, _, ops, lens, *_ in bam.fetch(
                         chrom - 1, u32(s - 1), u32(e - 1))
                     for c in evidence(kind, rpos, ops, lens, s, e)]
                 res[slot] = u32(consensus_pos(cands, ipos))
-            lines.append(result_line(sv, chrom, pos, end, *res))
+            line = result_line(sv, chrom, pos, end, *res)
+            if ins_consensus and sv == "INS" and (
+                    seq_lines is None or len(lines) in seq_lines):
+                seq = "" if res[0] == M32 or chrom < 1 else star_consensus(
+                    ins_seqs(bam, chrom - 1, res[0] - INTERVAL,
+                             res[0] + INTERVAL))
+                line += f", seq: {seq or 'NA'}"
+            lines.append(line)
     return lines
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3:
-        sys.exit("usage: audt_scalar.py BAM VCF")
-    print("\n".join(audt_lines(sys.argv[1], sys.argv[2])))
+    args = [a for a in sys.argv[1:] if a != "--ins-consensus"]
+    if len(args) != 2:
+        sys.exit("usage: audt_scalar.py [--ins-consensus] BAM VCF")
+    print("\n".join(audt_lines(*args, "--ins-consensus" in sys.argv)))

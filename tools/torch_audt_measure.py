@@ -1,12 +1,15 @@
 #!/usr/bin/env python
 """End-to-end split of the PyTorch port's `audt` run on one card.
 
-    python tools/torch_audt_measure.py [--trace-dir chiprun_out/trace]
+    python tools/torch_audt_measure.py [--ins-consensus] [--trace-dir DIR]
 
 On chip_smoke.py's 5,000-record fixture (built there, or reused from the
 temp dir), runs `python -m svtrek_tpu_torch.cli audt --verbose` in this
 process with --device cuda and --device cpu alternating, then twice with
-`-t 8`, printing each run's wall time and `AuditStats` split.  A last run
+`-t 8`, printing each run's wall time and `AuditStats` split.  With
+`--ins-consensus` it runs chip_smoke.py's 2,000-site ins-consensus
+fixture instead, with `--ins-consensus --device cuda` twice (a
+`--device cpu` run takes minutes; chip_smoke.py makes one).  A last run
 under `--trace-dir` writes a torch.profiler trace and prints its summary:
 the traced window, the events and time per category, the device events by
 name, and the card's busy and idle share of the window.  A trace slows the
@@ -32,6 +35,7 @@ import chip_smoke  # noqa: E402  (blocks jax imports, builds the fixture)
 RUNS = [["--device", "cuda"], ["--device", "cpu"],
         ["--device", "cuda"], ["--device", "cpu"],
         ["--device", "cuda", "-t", "8"], ["--device", "cuda", "-t", "8"]]
+INS_RUNS = [["--ins-consensus", "--device", "cuda"]] * 2
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -83,15 +87,22 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace-dir", default=os.path.join(ROOT, "chiprun_out",
                                                          "trace"))
+    ap.add_argument("--ins-consensus", action="store_true",
+                    help="measure the ins-consensus path on its fixture")
     args = ap.parse_args()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip(), flush=True)
-    bam, vcf = chip_smoke.fixture()
-    for flags in RUNS:
+    if args.ins_consensus:
+        bam, vcf, _ = chip_smoke.ins_fixture()
+        runs, traced = INS_RUNS, INS_RUNS[0]
+    else:
+        bam, vcf = chip_smoke.fixture()
+        runs, traced = RUNS, ["--device", "cuda"]
+    for flags in runs:
         run_cli(bam, vcf, flags)
-    run_cli(bam, vcf, ["--device", "cuda", "--trace-dir", args.trace_dir])
+    run_cli(bam, vcf, [*traced, "--trace-dir", args.trace_dir])
     summarize_trace(os.path.join(args.trace_dir, "audt_trace.json"))
 
 
