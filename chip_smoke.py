@@ -9,8 +9,9 @@ last line:
 1. environment: torch version, the card's name and power limit; no CUDA
    device is a failure;
 2. build: kernels K1 (svtrek_tpu_torch/csrc/consensus.cu), K2 and K3
-   (csrc/poa.cu), nvcc for sm_90a, one process per source, from the
-   sources in this checkout, with ptxas's register report;
+   (csrc/poa.cu) and K4 (csrc/step_probe.cu), nvcc for sm_90a, one
+   process per source, from the sources in this checkout, with ptxas's
+   register report;
 3. kernel: K1 against its plain PyTorch version on the card at the bench
    shapes, the main path's shape and edge rows, exact integer equality,
    plus 256 rows against tools/audt_scalar.py's scalar consensus;
@@ -21,25 +22,45 @@ last line:
    bands of 256 and 512, degenerate pairs, the query that overruns its
    target by 37 bases): pointers, cols and ins exactly equal; CUDA-event
    times of both;
-5. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
+5. step probe: K4 against its plain version on the default input of
+   tools/torch_step_overhead.py (1280 x 256 x 256) and on int8 over its
+   whole range at 1000 x 100 x WP, with WP and base alignments that take
+   each of K4's 16-, 4- and 1-byte loads, every rows_per in 1, 2, 4, 8,
+   in one launch and in one launch per step, exactly equal; then the
+   probe's own path
+   (tools/torch_step_overhead.py's measure, K4 in both launch modes beside
+   the plain version, CUDA-event medians), which must launch K4;
+6. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
    this process, so the launch counts can be read) on the 5,000-record
    synthetic long-read benchmark fixture of tools/bench_e2e.py; its result
    lines must be byte-identical to those of tools/audt_scalar.py (an
    independent scalar audt that decodes the BAM itself), K1 must have run
    once per batch or more, the plain path never, and the refined
    breakpoints must land within 5 bp of the planted truth;
-6. ins-consensus path: `audt --ins-consensus --device cuda --verbose` on
+7. ins-consensus path: `audt --ins-consensus --device cuda --verbose` on
    the 2,000-site fixture of tools/ins_fixture.py; K1 must have run once
    per batch and K2 and K3 once per DP batch of every consensus flush, the
    plain paths never; every line must equal an in-process `--device cpu`
    run, the part before `, seq:` must be byte-identical to
    tools/audt_scalar.py, and the `seq:` field equal to its scalar star
    consensus on a subset of sites from every insert-length class;
-7. JAX: the script refuses every `jax`/`jaxlib` import from its first
+8. disc path: `disc --device cuda` (svtrek_tpu_torch.pipeline.discover,
+   in this process, configured by the CLI's parser) on the 500,000-read
+   fixture of tools/bench_disc.py; the scan must run on the card in every
+   batch, K2 and K3 once per DP batch of the insertion consensus, the
+   plain paths never; every line must equal an in-process `--device cpu`
+   run, the part before `, seq:` must be byte-identical to
+   tools/disc_scalar.py (an independent scalar disc on the Python GAF
+   projection) and the `seq:` field equal to its scalar star consensus on
+   8 insertion clusters, the largest among them;
+9. JAX: the script refuses every `jax`/`jaxlib` import from its first
    line on, and checks at the end that none was loaded.
 
-The line before the last two is {"kernels": [...]}, then the card's
-nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
+The line before the last two is {"kernels": [...]}: each kernel's launches
+on its path (K1 the ins-consensus audt, K2 and K3 disc, K4 the probe), its
+largest difference from the plain version, and its CUDA-event time beside
+the plain version's; then the card's nvidia-smi name and power limit, then
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -48,7 +69,6 @@ import io
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -89,6 +109,22 @@ INS_SITES, INS_SEED = 2000, 0
 # Sites per insert-length class whose consensus tools/audt_scalar.py
 # recomputes (its DP is a Python loop over n*(2*band+1) cells).
 SCALAR_SEQ_PER_CLASS = 2
+# K4's checks (N, B, WP, fill, byte offset of the base from a 16-byte
+# boundary): tools/torch_step_overhead.py's default input
+# (tools/pallas_step_overhead.py's, integers in [0, 3)), which takes the
+# 16-byte loads; then int8 over its whole range [-128, 127], at a WP that
+# takes the 4-byte loads (200), at one that takes the 1-byte loads (203),
+# and at WP 256 on a base 4 and 1 bytes off the boundary, which take the
+# 4-byte and the 1-byte loads.
+PROBE_CHECKS = [
+    (1280, 256, 256, "tool", 0), (1000, 100, 200, "full", 0),
+    (1000, 100, 203, "full", 0), (1000, 100, 256, "full", 4),
+    (1000, 100, 256, "full", 1),
+]
+# The disc fixture (tools/bench_disc.py): reads, seed; and how many
+# insertion clusters tools/disc_scalar.py recomputes the consensus of.
+DISC_READS, DISC_SEED = 500_000, 0
+SCALAR_SEQ_CLUSTERS = 8
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
 # in the JAX program, and the scalar consensus, which does not wrap, may
@@ -134,7 +170,8 @@ def phase_build():
     with contextlib.redirect_stderr(report):
         kbuild.build(force=True, verbose=True)
     load_library()
-    print(f"[build] K1 K2 K3 {kbuild.LIB} {time.perf_counter() - t0:.3f}s",
+    print(f"[build] K1 K2 K3 K4 {kbuild.LIB} "
+          f"{time.perf_counter() - t0:.3f}s",
           flush=True)
     for line in report.getvalue().splitlines():
         if any(w in line for w in ("registers", "spill", "entry function")):
@@ -164,29 +201,12 @@ def kernel_rows(rng, B: int, K: int):
     return locs, n, pos
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() in milliseconds, after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_kernel():
     import torch
 
     from audt_scalar import consensus_pos
     from svtrek_tpu_torch.kernels import consensus_pos_cuda
+    from torch_step_overhead import cuda_ms
     from svtrek_tpu_torch.ops.consensus import consensus_pos_batch_reference
 
     rng = np.random.default_rng(2026)
@@ -275,6 +295,7 @@ def phase_poa_kernels():
     from svtrek_tpu_torch.ops.poa_dp import (
         dp_ptr_reference, pointers_by_pair, traceback_reference,
     )
+    from torch_step_overhead import cuda_ms
 
     rng = np.random.default_rng(2027)
     err = {"dp": 0, "tb": 0}
@@ -333,6 +354,76 @@ def phase_poa_kernels():
                      f"{t[2]:.4f} ms, plain {t[3]:.4f} ms")
         print(line, flush=True)
     return err, times
+
+
+def probe_check_input(N: int, B: int, WP: int, fill: str, offset: int):
+    """A K4 check's int8 [N, B, WP] input on the card, its base `offset`
+    bytes past a 16-byte boundary; returns (ptr, the bytes K4 loads at a
+    time, as csrc/step_probe.cu chooses them)."""
+    import torch
+
+    from torch_step_overhead import probe_input
+
+    if fill == "tool":
+        src = probe_input(N, B, WP)
+    else:
+        src = torch.from_numpy(np.random.default_rng(2028).integers(
+            -128, 127, (N, B, WP), dtype=np.int8, endpoint=True)).cuda()
+    buf = torch.empty(N * B * WP + 16, dtype=torch.int8, device="cuda")
+    skip = (offset - buf.data_ptr()) % 16
+    ptr = buf[skip:skip + N * B * WP].view(N, B, WP)
+    ptr.copy_(src)
+    addr = ptr.data_ptr()
+    if addr % 16 != offset:
+        fail(f"K4 check input: base at {addr % 16} bytes, wanted {offset}")
+    vec = 16 if WP % 16 == 0 and addr % 16 == 0 else \
+        4 if WP % 4 == 0 and addr % 4 == 0 else 1
+    return ptr, vec
+
+
+def phase_step_probe():
+    """K4 against its plain version, then the probe's own path."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from svtrek_tpu_torch.ops.step_probe import (
+        step_probe, step_probe_reference,
+    )
+    from torch_step_overhead import measure, report
+
+    max_err = 0
+    loads = set()
+    for N, B, WP, fill, offset in PROBE_CHECKS:
+        ptr, vec = probe_check_input(N, B, WP, fill, offset)
+        loads.add(vec)
+        for rp in (1, 2, 4, 8):
+            if N % rp:
+                continue
+            want = step_probe_reference(ptr, rp)
+            for per_step in (False, True):
+                got = step_probe(ptr, rp, per_step_launches=per_step)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(got, want):
+                    fail(f"K4 differs from the plain version at N={N} B={B} "
+                         f"WP={WP} fill={fill} offset={offset} rows_per={rp} "
+                         f"per_step_launches={per_step}: max_abs_err={err}")
+        print(f"[probe] N={N} B={B} WP={WP} fill={fill} base offset "
+              f"{offset} ({vec}-byte loads): K4 equal to the plain version "
+              f"at rows_per 1, 2, 4, 8, one launch and per-step launches",
+              flush=True)
+    if loads != {1, 4, 16}:
+        fail(f"the K4 checks took the {sorted(loads)}-byte loads only")
+    N, B, WP = PROBE_CHECKS[0][:3]
+    reset_launch_counts()
+    rows = measure(N, B, WP)
+    launches = launch_counts["step_probe"]
+    if launches < 1:
+        fail("the step probe's path never launched K4")
+    for line in report(N, rows):
+        print(f"[probe] {line}", flush=True)
+    return max_err, launches, rows[0]
 
 
 def concordance(lines) -> float:
@@ -539,6 +630,131 @@ def phase_ins_path():
     return launches
 
 
+def disc_fixture() -> list[str]:
+    """tools/bench_disc.py's fixture at DISC_READS reads, built once and
+    cached under the temp dir; returns the CLI's input flags."""
+    from bench_disc import build_fixture
+
+    d = os.path.join(tempfile.gettempdir(),
+                     f"svtrek_smoke_disc{DISC_READS}_s{DISC_SEED}")
+    marker = os.path.join(d, "done")
+    if not os.path.exists(marker):
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        build_fixture(d, DISC_READS, seed=DISC_SEED)
+        open(marker, "w").close()
+        print(f"[fixture] disc: {DISC_READS} reads built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return ["-r", os.path.join(d, "bench.gfa"), "-a",
+            os.path.join(d, "bench.gaf"), "-q", os.path.join(d, "bench.fq")]
+
+
+def run_disc(inputs: list[str], device: str):
+    """`disc --device <device>` in this process through the port's CLI
+    parser; returns (lines, stats, wall seconds)."""
+    from svtrek_tpu_torch import cli
+    from svtrek_tpu_torch.pipeline.discover import run_discover
+
+    out_path = os.path.join(tempfile.gettempdir(),
+                            f"svtrek_smoke_disc_{os.getpid()}.txt")
+    args = cli.build_parser().parse_args(
+        ["disc", *inputs, "-o", out_path, "--device", device])
+    stats: dict = {}
+    t0 = time.perf_counter()
+    lines = run_discover(cli.disc_config_from_args(args), out=io.StringIO(),
+                         err=io.StringIO(), device=args.device, stats=stats)
+    wall = time.perf_counter() - t0
+    with open(out_path) as fh:
+        if fh.read().splitlines() != lines:
+            fail(f"disc --device {device}: the output file differs from "
+                 f"the returned lines")
+    for p in (out_path, out_path + ".ckpt.npz"):
+        os.remove(p)
+    return lines, stats, wall
+
+
+def scalar_clusters(cl) -> set[int]:
+    """SCALAR_SEQ_CLUSTERS insertion clusters: the largest, and the others
+    spread evenly over the support ranking."""
+    ins = sorted((i for i, c in enumerate(cl) if c[0] == "INS"),
+                 key=lambda i: (cl[i][3], i))
+    k = min(SCALAR_SEQ_CLUSTERS, len(ins))
+    return {ins[-1]} | {ins[(j * (len(ins) - 1)) // max(k - 1, 1)]
+                        for j in range(k)}
+
+
+def phase_disc():
+    """`disc` on the card: where the scan ran, the K2/K3 launches, the
+    --device cpu run, and tools/disc_scalar.py."""
+    import disc_scalar
+    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from svtrek_tpu_torch.ops import discover, poa_dp
+
+    inputs = disc_fixture()
+    reset_launch_counts()
+    for calls in (discover.scan_calls, poa_dp.plain_calls):
+        for k in calls:
+            calls[k] = 0
+    got, st, wall = run_disc(inputs, "cuda")
+    launches = dict(launch_counts)
+    scans = dict(discover.scan_calls)
+    plain = sum(poa_dp.plain_calls.values())
+    batches, dp_calls = st["scan_batches"], st["dp_calls"]
+    if batches < 1 or scans.get("cuda", 0) != batches or \
+            sum(scans.values()) != batches:
+        fail(f"the disc scan ran {scans} for {batches} batches")
+    if dp_calls < 1 or min(launches["poa_dp_ptr"],
+                           launches["poa_traceback"]) < dp_calls:
+        fail(f"K2/K3 launched {launches['poa_dp_ptr']}/"
+             f"{launches['poa_traceback']} times for {dp_calls} DP batches")
+    if plain != 0:
+        fail(f"the plain POA path ran {plain} times on --device cuda")
+    print(f"[disc] {len(got)} lines ({st['clusters']} clusters, "
+          f"{st['ins_clusters']} INS), reads={st['reads']} "
+          f"reads/s={st['reads'] / wall:.1f} wall={wall:.3f}s; "
+          f"scan_batches={batches} on cuda, rescans={st['rescans']} "
+          f"host_reads={st['host_reads']} breakpoints={st['breakpoints']}; "
+          f"launches K2={launches['poa_dp_ptr']} "
+          f"K3={launches['poa_traceback']} for dp_calls={dp_calls}, "
+          f"plain_calls={plain}", flush=True)
+    print(f"[disc] split detect={st['detect_s']:.3f}s (scan_wait="
+          f"{st['scan_wait_s']:.3f}s) cluster={st['cluster_s']:.3f}s "
+          f"consensus={st['consensus_s']:.3f}s emit={st['emit_s']:.3f}s "
+          f"total={st['total_s']:.3f}s", flush=True)
+
+    cpu, cst, cpu_wall = run_disc(inputs, "cpu")
+    if cpu != got:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"disc --device cuda and --device cpu lines differ: "
+             f"{len(got)} vs {len(cpu)} lines; {bad}")
+    print(f"[disc] --device cpu: {len(cpu)} lines equal, wall "
+          f"{cpu_wall:.3f}s (consensus {cst['consensus_s']:.3f}s)",
+          flush=True)
+
+    gfa, gaf, fq = inputs[1::2]
+    t0 = time.perf_counter()
+    cl = disc_scalar.clusters(disc_scalar.signals(gfa, gaf))
+    t_proj = time.perf_counter() - t0
+    subset = scalar_clusters(cl)
+    want = disc_scalar.disc_lines(fq, cl, seq_clusters=subset)
+    prefix = [l.split(", seq:")[0] for l in got]
+    if prefix != [l.split(", seq:")[0] for l in want]:
+        bad = [(a, b) for a, b in zip(want, prefix)
+               if a.split(", seq:")[0] != b][:2]
+        fail(f"the lines before ', seq:' differ from tools/disc_scalar.py: "
+             f"{len(got)} vs {len(want)} lines; {bad}")
+    bad = [i for i in subset if got[i] != want[i]]
+    if bad or len(subset) < min(SCALAR_SEQ_CLUSTERS, st["ins_clusters"]):
+        fail(f"seq differs from the scalar consensus at clusters {bad[:5]} "
+             f"of {sorted(subset)}")
+    print(f"[disc] tools/disc_scalar.py: {len(want)} lines byte-identical "
+          f"before ', seq:' (Python projection {t_proj:.1f}s); seq equal on "
+          f"{len(subset)} INS clusters of support "
+          f"{sorted(cl[i][3] for i in subset)} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
+
+
 def phase_jax_check() -> None:
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -558,8 +774,10 @@ def main() -> int:
     phase_build()
     max_err, (ms, plain_ms) = phase_kernel()
     poa_err, poa_times = phase_poa_kernels()
+    probe_err, probe_launches, probe = phase_step_probe()
     phase_main_path()
     launches = phase_ins_path()
+    disc_launches = phase_disc()
     phase_jax_check()
 
     k2_ms, k2_plain, k3_ms, k3_plain = poa_times["flush"]
@@ -577,7 +795,7 @@ def main() -> int:
         "route": "cuda",
         "source": "svtrek_tpu_torch/csrc/poa.cu",
         "replaces": "svtrek_tpu/ops/poa_pallas.py:165",
-        "launches": launches["poa_dp_ptr"],
+        "launches": disc_launches["poa_dp_ptr"],
         "max_abs_err": poa_err["dp"],
         "ms": k2_ms,
         "plain_ms": k2_plain,
@@ -586,10 +804,19 @@ def main() -> int:
         "route": "cuda",
         "source": "svtrek_tpu_torch/csrc/poa.cu",
         "replaces": "svtrek_tpu/ops/poa_pallas.py:319",
-        "launches": launches["poa_traceback"],
+        "launches": disc_launches["poa_traceback"],
         "max_abs_err": poa_err["tb"],
         "ms": k3_ms,
         "plain_ms": k3_plain,
+    }, {
+        "name": "step_probe",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/step_probe.cu",
+        "replaces": "tools/pallas_step_overhead.py:55",
+        "launches": probe_launches,
+        "max_abs_err": probe_err,
+        "ms": probe["one_ms"],
+        "plain_ms": probe["plain_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ import torch
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
-                                 "poa_traceback": 0}
+                                 "poa_traceback": 0, "step_probe": 0}
 # The widest per-pair band K2 takes: its two score rows per warp must fit
 # in the shared memory of one block (csrc/poa.cu).
 POA_MAX_BAND = 2048
@@ -50,6 +50,10 @@ def load_library():
         lib.svtrek_poa_traceback.argtypes = [
             ptr, ptr, ptr, ct.c_int, ptr, ptr, ptr, ct.c_int, ct.c_int,
             ptr, ptr, ptr,
+        ]
+        lib.svtrek_step_probe.restype = ct.c_int
+        lib.svtrek_step_probe.argtypes = [
+            ptr, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ptr, ptr,
         ]
         lib.svtrek_cuda_error_string.restype = ct.c_char_p
         lib.svtrek_cuda_error_string.argtypes = [ct.c_int]
@@ -223,3 +227,30 @@ def poa_traceback_cuda(ptr: torch.Tensor, offsets: torch.Tensor,
             cols.data_ptr(), ins.data_ptr(), stream)
     _launched("poa_traceback", lib, rc)
     return cols, ins
+
+
+def step_probe_cuda(ptr: torch.Tensor, rows_per: int, s0: int, s1: int,
+                    out: torch.Tensor) -> torch.Tensor:
+    """Kernel K4 (csrc/step_probe.cu): walk steps [s0, s1) of the step
+    probe, each step reading rows_per rows of ptr [N, B, WP] int8, and add
+    the per-b sums into out[:, 0] of out [B, 128] int32.  The launch with
+    s0 == 0 initialises out (column 0 = its sum, columns 1-127 = 0); a
+    launch with s0 > 0 adds to column 0.  Returns out."""
+    _require_cuda("step_probe_cuda", ptr)
+    if ptr.dim() != 3:
+        raise ValueError(f"ptr must be [N, B, WP], got {tuple(ptr.shape)}")
+    N, B, WP = ptr.shape
+    _check("ptr", ptr, (N, B, WP), ptr.device, torch.int8)
+    _check("out", out, (B, 128), ptr.device)
+    if rows_per < 1 or N % rows_per:
+        raise ValueError(f"rows_per {rows_per} must divide N = {N}")
+    if not 0 <= s0 <= s1 <= N // rows_per:
+        raise ValueError(f"step range [{s0}, {s1}) is outside "
+                         f"[0, {N // rows_per}]")
+    lib = load_library()
+    with torch.cuda.device(ptr.device):
+        stream = torch.cuda.current_stream(ptr.device).cuda_stream
+        rc = lib.svtrek_step_probe(ptr.data_ptr(), B, WP, rows_per, s0, s1,
+                                   out.data_ptr(), stream)
+    _launched("step_probe", lib, rc)
+    return out

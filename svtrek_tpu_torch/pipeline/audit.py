@@ -47,6 +47,7 @@ from svtrek_tpu.oracle import consensus_pos
 from ..device import resolve_device
 from ..ops.audit_step import audit_consensus_step
 from ..ops.poa_batch import consensus_sequence_batch
+from ..refusals import Unsupported, raise_refused
 from .pack import (
     INT64_MIN, PackedCandBatch, pack_chunk_cand, window_tid, windows_for_task,
 )
@@ -54,32 +55,17 @@ from .pack import (
 NA32 = 0xFFFFFFFF
 
 
-class Unsupported(RuntimeError):
-    """An option or environment this port does not run yet."""
-
-
 def check_supported(cfg: AudtConfig) -> None:
     """Raise Unsupported for what the port refuses, before any work."""
-    refused = []
-    if cfg.data_shards > 1:
-        refused.append("--data-shards > 1 (mesh sharding runs on one GPU "
-                       "here; ROADMAP queue 1 item 9)")
-    if os.environ.get("SVTREK_COORDINATOR"):
-        refused.append("SVTREK_COORDINATOR (multi-host runs; ROADMAP "
-                       "queue 1 item 9)")
+    extra = []
     if cfg.extract == "device":
-        refused.append("--extract device (device-side evidence walk; "
-                       "ROADMAP queue 1 item 4)")
+        extra.append("--extract device (device-side evidence walk; "
+                     "ROADMAP queue 1 item 4)")
     if not cfg.use_native_io:
-        refused.append("--no-native-io (the host-extract path needs the "
-                       "native reader; the other path is ROADMAP queue 1 "
-                       "item 4)")
-    if cfg.poa_engine == "graph":
-        refused.append("--poa-engine graph (graph POA; ROADMAP queue 1 "
-                       "item 8)")
-    if refused:
-        raise Unsupported("not supported by svtrek_tpu_torch yet: "
-                          + "; ".join(refused))
+        extra.append("--no-native-io (the host-extract path needs the "
+                     "native reader; the other path is ROADMAP queue 1 "
+                     "item 4)")
+    raise_refused(cfg, *extra)
 
 
 def open_native_reader(path: str):

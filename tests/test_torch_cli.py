@@ -1,9 +1,10 @@
 """The port's command line (python -m svtrek_tpu_torch.cli): the audt run
-on --device cpu, with and without --ins-consensus, what it refuses, and
-that it runs where JAX cannot be imported at all (the machine with the
-card has none)."""
+on --device cpu, with and without --ins-consensus, the disc run against
+svtrek_tpu's CLI, what it refuses, and that it runs where JAX cannot be
+imported at all (the machine with the card has none)."""
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -13,6 +14,7 @@ import sys
 import pytest
 import torch
 
+from svtrek_tpu import cli as jax_cli
 from svtrek_tpu.config import AudtConfig
 from svtrek_tpu.pipeline.audit import run_audit as jax_run_audit
 from svtrek_tpu_torch import cli
@@ -20,6 +22,9 @@ from svtrek_tpu_torch.pipeline import audit as taudit
 from tests.fixtures import PlantedSV, write_fixture
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+from bench_disc import build_fixture as build_disc_fixture  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -110,10 +115,21 @@ def test_cli_refuses_coordinator(audt_fixture, capsys, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["scan", "disc"])
 def test_cli_refuses_other_modes(capsys, mode):
-    argv = (["scan", "-b", "x.bam", "-c", "1", "-s", "1", "-e", "2"]
-            if mode == "scan" else ["disc", "-r", "g", "-a", "a", "-q", "q"])
-    assert cli.main(argv) == 1
-    assert f"{mode} mode is not ported" in capsys.readouterr().err
+    """scan is refused, naming the ROADMAP item that ports it; disc is
+    ported, and a missing input gets svtrek_tpu.cli's file check."""
+    if mode == "scan":
+        assert cli.main(["scan", "-b", "x.bam", "-c", "1", "-s", "1",
+                         "-e", "2"]) == 1
+        err = capsys.readouterr().err
+        assert "scan mode is not ported" in err
+        assert "ROADMAP queue 1 item 7" in err
+        return
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["disc", "-r", "g", "-a", "a", "-q", "q", "--device",
+                  "cpu"])
+    assert exc.value.code == 1
+    err = capsys.readouterr().err
+    assert "File couldn't be opened g" in err and "not ported" not in err
 
 
 def test_missing_native_reader_raises(audt_fixture, monkeypatch, capsys):
@@ -170,3 +186,77 @@ def test_cli_runs_with_jax_blocked(audt_fixture):
     assert [l for l in proc.stdout.splitlines() if l.startswith("(")] == want
     with open(out_path) as fh:
         assert fh.read().splitlines() == want
+
+
+@pytest.fixture(scope="module")
+def disc_fixture(tmp_path_factory):
+    """tools/bench_disc.py's fixture at 3,000 reads and svtrek_tpu's CLI
+    lines for it."""
+    d = str(tmp_path_factory.mktemp("torch_cli_disc"))
+    gfa, gaf, fq = build_disc_fixture(d, 3000, seed=1)
+    out_path = os.path.join(d, "jax.txt")
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        assert jax_cli.main(["disc", "-r", gfa, "-a", gaf, "-q", fq, "-o",
+                             out_path, "--data-shards", "1"]) == 0
+    want = [l for l in stdout.getvalue().splitlines()
+            if l.startswith("(DISC")]
+    return d, ["-r", gfa, "-a", gaf, "-q", fq], want
+
+
+def test_cli_disc_cpu(disc_fixture, capsys):
+    d, inputs, want = disc_fixture
+    out_path = os.path.join(d, "disc.txt")
+    assert cli.main(["disc", *inputs, "-o", out_path, "--device", "cpu"]) \
+        == 0
+    out = capsys.readouterr().out
+    assert [l for l in out.splitlines() if l.startswith("(DISC")] == want
+    assert any(", seq: " in l and "seq: NA" not in l for l in want)
+    with open(out_path) as fh:
+        assert fh.read().splitlines() == want
+    assert os.path.exists(out_path + ".ckpt.npz")
+
+
+DISC_REFUSED = {
+    "poa_graph": (["--poa-engine", "graph"], {}, "item 8"),
+    "data_shards": (["--data-shards", "2"], {}, "item 9"),
+    "coordinator": ([], {"SVTREK_COORDINATOR": "localhost:1234"}, "item 9"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DISC_REFUSED))
+def test_cli_disc_refuses_unported_options(disc_fixture, capsys,
+                                           monkeypatch, name):
+    d, inputs, _ = disc_fixture
+    flags, env, item = DISC_REFUSED[name]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    out_path = os.path.join(d, f"refused_{name}.txt")
+    assert cli.main(["disc", *inputs, "-o", out_path, "--device", "cpu",
+                     *flags]) == 1
+    err = capsys.readouterr().err
+    assert "not supported by svtrek_tpu_torch yet" in err
+    assert f"ROADMAP queue 1 {item}" in err
+    assert not os.path.exists(out_path)
+
+
+def test_cli_disc_device_cuda_without_card_fails(disc_fixture, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible; this checks the refusal")
+    d, inputs, _ = disc_fixture
+    assert cli.main(["disc", *inputs, "-o", os.path.join(d, "c.txt")]) == 1
+    assert "no CUDA device is visible" in capsys.readouterr().err
+
+
+def test_cli_disc_runs_with_jax_blocked(disc_fixture):
+    d, inputs, want = disc_fixture
+    out_path = os.path.join(d, "nojax_disc.txt")
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_BLOCKED_RUN, "disc", *inputs, "-o",
+         out_path, "--device", "cpu"],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=ROOT),
+        cwd=d, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_MODULES=0" in proc.stderr
+    assert [l for l in proc.stdout.splitlines()
+            if l.startswith("(DISC")] == want

@@ -5,7 +5,10 @@ collection against the native reader and its star consensus against
 svtrek_tpu.ops.poa, and its result lines against
 svtrek_tpu.pipeline.audit.run_audit on the planted fixtures, the golden
 harness's random VCF quirk surface, small copies of the smoke's benchmark
-and ins-consensus fixtures, and with --ins-consensus."""
+and ins-consensus fixtures, and with --ins-consensus.  Likewise
+tools/disc_scalar.py, the smoke's independent disc, against
+svtrek_tpu.pipeline.discover.run_discover: every line, `seq:` on every
+cluster."""
 from __future__ import annotations
 
 import ast
@@ -35,6 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import audt_scalar  # noqa: E402
+import disc_scalar  # noqa: E402
+from bench_disc import build_fixture as build_disc_fixture  # noqa: E402
 from bench_e2e import build_fixture  # noqa: E402
 from ins_fixture import build_ins_fixture  # noqa: E402
 
@@ -181,5 +186,39 @@ def test_ins_consensus_lines(tmp_path, case):
     assert audt_scalar.audt_lines(bam, vcf, ins_consensus=True) == want
     some = audt_scalar.audt_lines(bam, vcf, ins_consensus=True,
                                   seq_lines={0})
+    assert some[0] == want[0]
+    assert some[1:] == [l.split(", seq:")[0] for l in want[1:]]
+
+
+def test_disc_scalar_imports_only_the_python_projection():
+    with open(os.path.join(ROOT, "tools", "disc_scalar.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert sorted(m for m in names if m.startswith(("svtrek", "jax"))) == \
+        ["svtrek_tpu.io.gaf", "svtrek_tpu.io.gfa"]
+
+
+@pytest.mark.parametrize("case", ["triple", "bench"])
+def test_disc_scalar_lines(tmp_path, case):
+    """tests/test_torch_discover.py's fixture (INS through an alt segment,
+    DEL, a mapq-0 read, a read on a missing node) and tools/bench_disc.py's
+    at 10,000 reads; then the seq field limited to one cluster."""
+    from svtrek_tpu.config import DiscConfig
+    from svtrek_tpu.pipeline.discover import run_discover
+    from tests.test_torch_discover import _disc_triple
+
+    gfa, gaf, fq = (_disc_triple(tmp_path) if case == "triple" else
+                    build_disc_fixture(str(tmp_path), 10_000, seed=2))
+    want = run_discover(DiscConfig(gfa_file=gfa, gaf_file=gaf, fq_file=fq,
+                                   data_shards=1),
+                        out=io.StringIO(), err=io.StringIO())
+    cl = disc_scalar.clusters(disc_scalar.signals(gfa, gaf))
+    assert disc_scalar.disc_lines(fq, cl) == want
+    assert len(want) >= 2 and any("seq: NA" not in l for l in want
+                                  if "INS" in l)
+    some = disc_scalar.disc_lines(fq, cl, seq_clusters={0})
     assert some[0] == want[0]
     assert some[1:] == [l.split(", seq:")[0] for l in want[1:]]

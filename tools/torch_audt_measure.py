@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""End-to-end split of the PyTorch port's `audt` run on one card.
+"""End-to-end split of the PyTorch port's `audt` and `disc` runs on one
+card.
 
-    python tools/torch_audt_measure.py [--ins-consensus] [--trace-dir DIR]
+    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--trace-dir DIR]
 
 On chip_smoke.py's 5,000-record fixture (built there, or reused from the
 temp dir), runs `python -m svtrek_tpu_torch.cli audt --verbose` in this
@@ -9,7 +10,10 @@ process with --device cuda and --device cpu alternating, then twice with
 `-t 8`, printing each run's wall time and `AuditStats` split.  With
 `--ins-consensus` it runs chip_smoke.py's 2,000-site ins-consensus
 fixture instead, with `--ins-consensus --device cuda` twice (a
-`--device cpu` run takes minutes; chip_smoke.py makes one).  A last run
+`--device cpu` run takes minutes; chip_smoke.py makes one).  With
+`--disc` it runs `disc` on chip_smoke.py's 500,000-read disc fixture,
+--device cuda, cpu, cuda, printing each run's wall time and stats.  A last
+run
 under `--trace-dir` writes a torch.profiler trace and prints its summary:
 the traced window, the events and time per category, the device events by
 name, and the card's busy and idle share of the window.  A trace slows the
@@ -36,6 +40,7 @@ RUNS = [["--device", "cuda"], ["--device", "cpu"],
         ["--device", "cuda"], ["--device", "cpu"],
         ["--device", "cuda", "-t", "8"], ["--device", "cuda", "-t", "8"]]
 INS_RUNS = [["--ins-consensus", "--device", "cuda"]] * 2
+DISC_RUNS = ["cuda", "cpu", "cuda"]
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -55,6 +60,28 @@ def run_cli(bam: str, vcf: str, flags: list[str]) -> None:
           flush=True)
     if rc != 0:
         sys.exit(f"audt failed: {err.getvalue()[-2000:]}")
+
+
+def measure_disc(trace_dir: str) -> None:
+    import torch
+
+    inputs = chip_smoke.disc_fixture()
+    for device in DISC_RUNS:
+        lines, st, wall = chip_smoke.run_disc(inputs, device)
+        split = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in sorted(st.items()))
+        print(f"disc --device {device}: {len(lines)} lines, wall "
+              f"{wall:.4f}s {split}", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, wall = chip_smoke.run_disc(inputs, "cuda")
+    print(f"disc --device cuda under torch.profiler: wall {wall:.4f}s",
+          flush=True)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "disc_trace.json")
+    prof.export_chrome_trace(path)
+    summarize_trace(path)
 
 
 def summarize_trace(path: str) -> None:
@@ -89,11 +116,16 @@ def main() -> None:
                                                          "trace"))
     ap.add_argument("--ins-consensus", action="store_true",
                     help="measure the ins-consensus path on its fixture")
+    ap.add_argument("--disc", action="store_true",
+                    help="measure disc on chip_smoke.py's disc fixture")
     args = ap.parse_args()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip(), flush=True)
+    if args.disc:
+        measure_disc(args.trace_dir)
+        return
     if args.ins_consensus:
         bam, vcf, _ = chip_smoke.ins_fixture()
         runs, traced = INS_RUNS, INS_RUNS[0]
