@@ -16,23 +16,31 @@ last line:
    shapes, the main path's shape and edge rows, exact integer equality,
    plus 256 rows against tools/audt_scalar.py's scalar consensus;
    CUDA-event times of both;
-4. POA kernels: K2 (banded DP pointers) and K3 (traceback) against their
-   plain PyTorch versions on the card, on seeded pair batches (the bench's
-   256-pair call, 4,096 short pairs, a flush-like mix of insert lengths,
-   bands of 256 and 512, degenerate pairs, the query that overruns its
-   target by 37 bases): pointers, cols and ins exactly equal; CUDA-event
-   times of both;
+4. POA kernels: K2 (banded DP pointers: its strip kernel and its chunked
+   kernel) and K3 (traceback) against their plain PyTorch versions on the
+   card, on seeded pair batches (the bench's 256-pair call, 4,096 short
+   pairs, a flush-like mix of insert lengths, bands of 256 and 512,
+   degenerate pairs, the query that overruns its target by 37 bases, bands
+   of 513-2,048 that take both K2 kernels): pointers, cols and ins exactly
+   equal; CUDA-event times of both, of K2's launch plan alone, of K2's
+   replaced design (the chunked kernel over every pair, through its C
+   entry point) and the bounds of K2 and K3, and the profiler's time of
+   the kernels alone, without the wrappers' host work;
 5. step probe: K4 against its plain version on the default input of
    tools/torch_step_overhead.py (1280 x 256 x 256) and on int8 over its
    whole range at 1000 x 100 x WP, with WP and base alignments that take
-   each of K4's 16-, 4- and 1-byte loads, every rows_per in 1, 2, 4, 8,
-   in one launch and in one launch per step, exactly equal; then the
-   probe's own path
+   each of K4's 16-, 4- and 1-byte loads, and at rows of more than the
+   1,024 vectors a block reads at a time with each load width, every
+   rows_per in 1, 2, 4, 8, in one launch and in one launch per step,
+   exactly equal, and K4's replaced design (one warp per b row, through
+   its C entry point) too; then the probe's own path
    (tools/torch_step_overhead.py's measure, K4 in both launch modes beside
-   the plain version, CUDA-event medians), which must launch K4;
+   the plain version and the one library call, CUDA-event medians), which
+   must launch K4, and K4's replaced design and bound beside it;
 6. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
    this process, so the launch counts can be read) on the 5,000-record
-   synthetic long-read benchmark fixture of tools/bench_e2e.py; its result
+   synthetic long-read benchmark fixture of tools/bench_e2e.py (built by
+   its copy on the port's BAM writer, tools/torch_fixtures.py); its result
    lines must be byte-identical to those of tools/audt_scalar.py (an
    independent scalar audt that decodes the BAM itself), K1 must have run
    once per batch or more, the plain path never, and the refined
@@ -53,13 +61,21 @@ last line:
    tools/disc_scalar.py (an independent scalar disc on the Python GAF
    projection) and the `seq:` field equal to its scalar star consensus on
    8 insertion clusters, the largest among them;
-9. JAX: the script refuses every `jax`/`jaxlib` import from its first
-   line on, and checks at the end that none was loaded.
+9. standalone: the script refuses every import of `jax`, `jaxlib` and the
+   JAX package `svtrek_tpu` from its first line on, and checks at the end
+   that none was loaded.
 
 The line before the last two is {"kernels": [...]}: each kernel's launches
 on its path (K1 the ins-consensus audt, K2 and K3 disc, K4 the probe), its
-largest difference from the plain version, and its CUDA-event time beside
-the plain version's; then the card's nvidia-smi name and power limit, then
+largest difference from the plain version, its CUDA-event time beside the
+plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
+over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
+call's time where one computes the same function (`library_ms`, K4's
+torch.sum) and the time of the design this one replaced (`ms_before`, K2
+and K4).  Those are CUDA-event times of one wrapper call, which also hold
+the host's work inside it (the K2/K3 plan, the ctypes call);
+`device_ms` and `device_ms_before` are torch.profiler's time of the
+kernels alone.  Then the card's nvidia-smi name and power limit, then
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -75,16 +91,21 @@ import tempfile
 import time
 
 
-class _NoJax:
-    """Refuses jax and jaxlib: the port must run where neither exists."""
+# The port stands alone: it runs where there is no JAX, and it imports
+# nothing of the JAX package.
+BLOCKED = ("jax", "jaxlib", "svtrek_tpu")
+
+
+class _Blocked:
+    """Refuses jax, jaxlib and svtrek_tpu (not svtrek_tpu_torch)."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax is blocked in chip_smoke.py: {name}")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked in chip_smoke.py")
         return None
 
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _Blocked())
 
 import numpy as np  # noqa: E402
 
@@ -115,11 +136,14 @@ SCALAR_SEQ_PER_CLASS = 2
 # 16-byte loads; then int8 over its whole range [-128, 127], at a WP that
 # takes the 4-byte loads (200), at one that takes the 1-byte loads (203),
 # and at WP 256 on a base 4 and 1 bytes off the boundary, which take the
-# 4-byte and the 1-byte loads.
+# 4-byte and the 1-byte loads; last, rows wider than the 1,024 vectors a
+# block reads at a time (WP / load bytes > 1,024: one b row a tile, read in
+# more than one pass) at each load width.
 PROBE_CHECKS = [
     (1280, 256, 256, "tool", 0), (1000, 100, 200, "full", 0),
     (1000, 100, 203, "full", 0), (1000, 100, 256, "full", 4),
-    (1000, 100, 256, "full", 1),
+    (1000, 100, 256, "full", 1), (16, 5, 2049, "full", 0),
+    (16, 5, 4100, "full", 0), (16, 3, 16400, "full", 0),
 ]
 # The disc fixture (tools/bench_disc.py): reads, seed; and how many
 # insertion clusters tools/disc_scalar.py recomputes the consensus of.
@@ -139,6 +163,60 @@ EDGE_ROWS = [
     ([1, 2, 3], -2**31 + 3),
     ([-2**31, -2**31 + 1, -2**31 + 2], 2**31 - 1),
 ]
+
+
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
+# its 700 W limit): HBM3 at 3.35 TB/s, and int32 at 132 SMs x 64 int32
+# lanes x 1.98 GHz boost (the clock of the data sheet's 67 TFLOP/s
+# float32: 132 x 128 lanes x 2 x 1.98 GHz).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for a kernel's work: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its int32 operations over the integer rate;
+    and which of the two it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def device_ms(fn, kernel: str, reps: int = 5) -> float | None:
+    """The card's time (ms) in the kernels whose name holds ``kernel``, per
+    fn() call, from torch.profiler (a wrapper's CUDA-event time also holds
+    the host work between its launches); None where the profiler records
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # The kernels' own spans, from the trace as tools/torch_audt_measure.py
+    # reads it (the event table can leave out a kernel launched through
+    # ctypes).
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+    us = sum(e.get("dur", 0) for e in events
+             if e.get("cat") == "kernel" and kernel in e.get("name", ""))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def fail(msg: str) -> None:
@@ -233,7 +311,15 @@ def phase_kernel():
               f"refined_rows={int((got >= 0).sum())} K1 {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms", flush=True)
         if (B, K, sw) == MAIN_SHAPE:
-            main_times = (ms, plain_ms)
+            # Bytes: locs [B, K], n, pos in, refined [B] int32 and
+            # overflow [B] bool out.  Operations: one int32 compare per
+            # candidate, the least a consensus over them takes.
+            alone = device_ms(lambda: consensus_pos_cuda(*args, **kw),
+                              "consensus_pos_kernel", 20)
+            print(f"[kernel] main shape: K1 alone (profiler) "
+                  f"{fmt_ms(alone)}", flush=True)
+            main_times = (ms, plain_ms, alone,
+                          *bound(B * K * 4 + B * 13, B * K))
         if (B, K, sw) == (8192, 64, 128):
             got_h, ovf_h = got.cpu().numpy(), got_ovf.cpu().numpy()
             checked = 0
@@ -254,8 +340,11 @@ def poa_batches(rng):
     """Seeded (name, targets, queries, band) pair batches of base codes for
     K2 and K3: the bench's POA call (bench.py:54-56), 4,096 short pairs, a
     mix of the ins fixture's insert lengths at flush size, bands of up to
-    256 and 512, degenerate pairs, and the m = 1011, n = 1048 pair whose
-    query overruns its target's bucket (tests/test_poa_batch.py:96)."""
+    256 and 512, degenerate pairs, the m = 1011, n = 1048 pair whose
+    query overruns its target's bucket (tests/test_poa_batch.py:96), and
+    bands of 513-2,048 on both sides of kernels.POA_STRIP_MAX_BAND (both of
+    K2's kernels), degenerate pairs and bands above m + n among them.  A
+    band is one per batch or one per pair."""
     from ins_fixture import LENGTH_CLASSES, mutate
 
     def rand(n):
@@ -283,14 +372,92 @@ def poa_batches(rng):
         [rand(n) for _, n in shapes], 8
     t = rand(1011)
     yield "overrun", [t], [np.insert(t, 505, rand(37))], 64
+    shapes = [(300, 310), (0, 50), (60, 0), (400, 380), (5, 9), (0, 0),
+              (250, 260), (120, 90)] * 3
+    ts = [rand(m) for m, _ in shapes]
+    qs = [mutate(rng, t)[:n] if n <= m else
+          np.concatenate([mutate(rng, t), rand(n)])[:n]
+          for t, (m, n) in zip(ts, shapes)]
+    wide = [513, 520, 527, 528, 600, 1024, 1500, 2048]
+    yield "wide2k", ts, qs, np.array(
+        wide + rng.integers(513, 2049, len(shapes) - len(wide)).tolist())
+
+
+def poa_bounds(ms, ns, bands, M, N, cols=None):
+    """K2's and, with its outputs, K3's bound (ms, resource) on a batch.
+
+    K2 reads tpad [B, M], qpad [B, N] and ms, ns, bands [B] int32, writes
+    the pointers, sum of n*(2*band+1) bytes, and does 12 int32 operations a
+    cell: diag (add, base compare, select), up (add), the pointer's
+    compare, the max, the left gap's prefix max (subtract, max, add), its
+    compare, the score's and the code's selects.  K3 reads qpad, ms, ns,
+    bands, the offsets [B+1] int64 and one pointer a step of its walk
+    (n + m - matches steps a pair), writes cols [B, M] int8 and ins
+    [B, M+1] int32, and does 4 int32 operations a step (index, compare,
+    two updates)."""
+    B = len(ms)
+    cells = int((ns.astype(np.int64) * (2 * bands.astype(np.int64) + 1))
+                .sum())
+    k2 = bound(B * M + B * N + 12 * B + cells, 12 * cells)
+    if cols is None:
+        return k2, None
+    steps = int(ns.sum()) + int(ms.sum()) - int((cols >= 0).sum())
+    k3 = bound(B * N + 12 * B + 8 * (B + 1) + steps + B * M
+               + 4 * B * (M + 1), 4 * steps)
+    return k2, k3
+
+
+def launch_failed(name: str, lib, rc: int) -> None:
+    if rc != 0:
+        fail(f"{name} launch failed: "
+             f"{lib.svtrek_cuda_error_string(rc).decode()} ({rc})")
+
+
+def k2_before(tpad, ms, qpad, ns, bands, max_band: int):
+    """K2's replaced design: its chunked kernel over every pair in input
+    order, in one launch, through the library's C entry point (the port's
+    wrapper gives it only the pairs whose band is above
+    POA_STRIP_MAX_BAND).  Returns the pointers."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import load_library, poa_ptr_offsets
+
+    (B, M), dev = tpad.shape, tpad.device
+    offsets = poa_ptr_offsets(ns, bands)
+    ptr = torch.empty(int(offsets[-1]), dtype=torch.int8, device=dev)
+    order = torch.arange(B, dtype=torch.int32, device=dev)
+    lib = load_library()
+    launch_failed("K2's chunked kernel", lib, lib.svtrek_poa_dp_ptr_chunked(
+        tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), qpad.shape[1],
+        ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(), ptr.data_ptr(),
+        order.data_ptr(), B, max_band,
+        torch.cuda.current_stream(dev).cuda_stream))
+    return ptr
+
+
+def k4_before(ptr, rows_per: int, out):
+    """K4's replaced design (one warp per b row) over all steps in one
+    launch, through the library's C entry point svtrek_step_probe_warp (the
+    port's wrapper never launches it).  Returns out."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import load_library
+
+    N, B, WP = ptr.shape
+    lib = load_library()
+    launch_failed("K4's replaced design", lib, lib.svtrek_step_probe_warp(
+        ptr.data_ptr(), B, WP, rows_per, 0, N // rows_per, out.data_ptr(),
+        torch.cuda.current_stream(ptr.device).cuda_stream))
+    return out
 
 
 def phase_poa_kernels():
-    """K2 and K3 against their plain versions on the card."""
+    """K2 and K3 against their plain versions on the card, and K2's
+    replaced design (its chunked kernel over every pair) beside it."""
     import torch
 
     from svtrek_tpu_torch.kernels import (
-        poa_dp_ptr_cuda, poa_traceback_cuda,
+        POA_STRIP_MAX_BAND, poa_dp_plan, poa_dp_ptr_cuda, poa_traceback_cuda,
     )
     from svtrek_tpu_torch.ops.poa_dp import (
         dp_ptr_reference, pointers_by_pair, traceback_reference,
@@ -321,6 +488,7 @@ def phase_poa_kernels():
                                     W=W)
 
         ptr, offsets = poa_dp_ptr_cuda(*args)
+        before = k2_before(*args, W)
         want_ptr = plain_dp()
         cols, ins = poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d,
                                        M=M)
@@ -335,23 +503,57 @@ def phase_poa_kernels():
         if not torch.equal(ptr, want_ptr):
             fail(f"K2 pointers differ from the plain version on {name}: "
                  f"max_abs_err={e_dp}")
+        if not torch.equal(before, want_ptr):
+            fail(f"K2's chunked kernel differs from the plain version on "
+                 f"{name}")
         if not (torch.equal(cols, want_cols) and torch.equal(ins, want_ins)):
             fail(f"K3 differs from the plain version on {name}: "
                  f"max_abs_err={e_tb}")
+        n_wide = int((bands > POA_STRIP_MAX_BAND).sum())
+        if name == "wide2k" and not 0 < n_wide < B:
+            fail(f"wide2k takes one of K2's kernels only: {n_wide} of {B} "
+                 f"pairs above band {POA_STRIP_MAX_BAND}")
         line = (f"[poa] {name}: B={B} m {int(ms.min())}-{int(ms.max())} "
                 f"n {int(ns.min())}-{int(ns.max())} band "
-                f"{int(bands.min())}-{W} pointer_bytes={ptr.numel()}: equal")
+                f"{int(bands.min())}-{W} ({B - n_wide} strip, {n_wide} "
+                f"chunked) pointer_bytes={ptr.numel()}: equal")
         if name in ("bench", "flush"):
             reps, plain_reps = 20, 2
-            t = (cuda_ms(lambda: poa_dp_ptr_cuda(*args), reps),
-                 cuda_ms(plain_dp, plain_reps),
-                 cuda_ms(lambda: poa_traceback_cuda(
-                     ptr, offsets, q_d, m_d, n_d, b_d, M=M), reps),
-                 cuda_ms(lambda: traceback_reference(
-                     ptr, offsets, q_d, m_d, n_d, b_d, M=M), plain_reps))
+            k2b, k3b = poa_bounds(ms, ns, bands, M, qpad.shape[1],
+                                  cols=cols.cpu().numpy())
+            def k2():
+                return poa_dp_ptr_cuda(*args)
+
+            def k2_chunked():
+                return k2_before(*args, W)
+
+            def k3():
+                return poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d,
+                                          M=M)
+
+            t = {"k2": cuda_ms(k2, reps),
+                 "k2_plan": cuda_ms(lambda: poa_dp_plan(
+                     M, qpad.shape[1], m_d, n_d, b_d), reps),
+                 "k2_before": cuda_ms(k2_chunked, reps),
+                 "k2_plain": cuda_ms(plain_dp, plain_reps),
+                 "k3": cuda_ms(k3, reps),
+                 "k3_plain": cuda_ms(lambda: traceback_reference(
+                     ptr, offsets, q_d, m_d, n_d, b_d, M=M), plain_reps),
+                 "k2_bound": k2b, "k3_bound": k3b}
+            dev = {"K2": device_ms(k2, "poa_dp_ptr"),
+                   "K2 before": device_ms(k2_chunked, "poa_dp_ptr"),
+                   "K3": device_ms(k3, "poa_traceback")}
+            t["k2_device"], t["k2_before_device"], t["k3_device"] = \
+                dev.values()
             times[name] = t
-            line += (f"; K2 {t[0]:.4f} ms, plain {t[1]:.4f} ms; K3 "
-                     f"{t[2]:.4f} ms, plain {t[3]:.4f} ms")
+            line += (f"; K2 {t['k2']:.4f} ms (its plan alone "
+                     f"{t['k2_plan']:.4f} ms; before: chunked "
+                     f"{t['k2_before']:.4f} ms), plain {t['k2_plain']:.4f} "
+                     f"ms, bound {k2b[0]:.4f} ms ({k2b[1]}); K3 "
+                     f"{t['k3']:.4f} ms, plain {t['k3_plain']:.4f} ms, "
+                     f"bound {k3b[0]:.4f} ms ({k3b[1]}); kernel time alone "
+                     f"(profiler): " + ", ".join(
+                         f"{k} {fmt_ms(v)}" for k, v in dev.items()))
         print(line, flush=True)
     return err, times
 
@@ -382,14 +584,17 @@ def probe_check_input(N: int, B: int, WP: int, fill: str, offset: int):
 
 
 def phase_step_probe():
-    """K4 against its plain version, then the probe's own path."""
+    """K4 against its plain version, then the probe's own path, and K4's
+    replaced design (one warp per b row) beside it."""
     import torch
 
-    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from svtrek_tpu_torch.ops.step_probe import (
-        step_probe, step_probe_reference,
+    from svtrek_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, step_probe_cuda,
     )
-    from torch_step_overhead import measure, report
+    from svtrek_tpu_torch.ops.step_probe import (
+        COLS, step_probe, step_probe_reference,
+    )
+    from torch_step_overhead import cuda_ms, measure, probe_input, report
 
     max_err = 0
     loads = set()
@@ -409,6 +614,11 @@ def phase_step_probe():
                     fail(f"K4 differs from the plain version at N={N} B={B} "
                          f"WP={WP} fill={fill} offset={offset} rows_per={rp} "
                          f"per_step_launches={per_step}: max_abs_err={err}")
+            old = k4_before(ptr, rp, torch.empty(
+                (B, COLS), dtype=torch.int32, device="cuda"))
+            if not torch.equal(old, want):
+                fail(f"K4's replaced design differs from the plain version "
+                     f"at N={N} B={B} WP={WP} rows_per={rp}")
         print(f"[probe] N={N} B={B} WP={WP} fill={fill} base offset "
               f"{offset} ({vec}-byte loads): K4 equal to the plain version "
               f"at rows_per 1, 2, 4, 8, one launch and per-step launches",
@@ -423,7 +633,25 @@ def phase_step_probe():
         fail("the step probe's path never launched K4")
     for line in report(N, rows):
         print(f"[probe] {line}", flush=True)
-    return max_err, launches, rows[0]
+    ptr = probe_input(N, B, WP)
+    out = torch.empty((B, COLS), dtype=torch.int32, device="cuda")
+    one = rows[0]  # rows_per 1: N steps in one launch
+    one["ms_before"] = cuda_ms(lambda: k4_before(ptr, 1, out), 20)
+    one["device_ms"] = device_ms(lambda: step_probe_cuda(ptr, 1, 0, N, out),
+                                 "step_probe_kernel", 20)
+    one["device_ms_before"] = device_ms(lambda: k4_before(ptr, 1, out),
+                                        "step_probe_warp_kernel", 20)
+    # Bytes: ptr read once, out [B, 128] int32 written; one add a byte.
+    one["bound_ms"], one["bound_by"] = bound(N * B * WP + B * COLS * 4,
+                                             N * B * WP)
+    print(f"[probe] rows_per 1, one launch: K4 {one['one_ms']:.4f} ms, "
+          f"before (one warp per b row) {one['ms_before']:.4f} ms, library "
+          f"torch.sum {one['library_ms']:.4f} ms, plain "
+          f"{one['plain_ms']:.4f} ms, bound {one['bound_ms']:.4f} ms "
+          f"({one['bound_by']}, {N * B * WP} bytes); kernel time alone "
+          f"(profiler): K4 {fmt_ms(one['device_ms'])}, before "
+          f"{fmt_ms(one['device_ms_before'])}", flush=True)
+    return max_err, launches, one
 
 
 def concordance(lines) -> float:
@@ -442,7 +670,7 @@ def concordance(lines) -> float:
 
 
 def fixture() -> tuple[str, str]:
-    from bench_e2e import build_fixture
+    from torch_fixtures import build_fixture
 
     d = os.path.join(tempfile.gettempdir(),
                      f"svtrek_smoke_r{RECORDS}_d{DEPTH}_o{OPS_PER_READ}_alla")
@@ -756,14 +984,11 @@ def phase_disc():
 
 
 def phase_jax_check() -> None:
-    jax_mods = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib"))
-    shared = sorted(m for m in sys.modules
-                    if m.split(".")[0] == "svtrek_tpu")
-    print(f"[jax] {len(jax_mods)} jax modules loaded; JAX-free host modules "
-          f"shared with svtrek_tpu: {' '.join(shared)}", flush=True)
-    if jax_mods:
-        fail(f"jax modules were loaded: {jax_mods}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print(f"[jax] {len(loaded)} modules of jax, jaxlib or svtrek_tpu loaded",
+          flush=True)
+    if loaded:
+        fail(f"modules of jax, jaxlib or svtrek_tpu were loaded: {loaded}")
 
 
 def main() -> int:
@@ -772,7 +997,7 @@ def main() -> int:
     import torch
 
     phase_build()
-    max_err, (ms, plain_ms) = phase_kernel()
+    max_err, (ms, plain_ms, k1_alone, k1_bound, k1_by) = phase_kernel()
     poa_err, poa_times = phase_poa_kernels()
     probe_err, probe_launches, probe = phase_step_probe()
     phase_main_path()
@@ -780,7 +1005,7 @@ def main() -> int:
     disc_launches = phase_disc()
     phase_jax_check()
 
-    k2_ms, k2_plain, k3_ms, k3_plain = poa_times["flush"]
+    flush = poa_times["flush"]
     print(json.dumps({"kernels": [{
         "name": "consensus_pos",
         "route": "cuda",
@@ -790,6 +1015,12 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
+        "ms_before": None,
+        "device_ms": k1_alone,
+        "device_ms_before": None,
     }, {
         "name": "poa_dp_ptr",
         "route": "cuda",
@@ -797,8 +1028,14 @@ def main() -> int:
         "replaces": "svtrek_tpu/ops/poa_pallas.py:165",
         "launches": disc_launches["poa_dp_ptr"],
         "max_abs_err": poa_err["dp"],
-        "ms": k2_ms,
-        "plain_ms": k2_plain,
+        "ms": flush["k2"],
+        "plain_ms": flush["k2_plain"],
+        "bound_ms": flush["k2_bound"][0],
+        "bound_by": flush["k2_bound"][1],
+        "library_ms": None,
+        "ms_before": flush["k2_before"],
+        "device_ms": flush["k2_device"],
+        "device_ms_before": flush["k2_before_device"],
     }, {
         "name": "poa_traceback",
         "route": "cuda",
@@ -806,8 +1043,14 @@ def main() -> int:
         "replaces": "svtrek_tpu/ops/poa_pallas.py:319",
         "launches": disc_launches["poa_traceback"],
         "max_abs_err": poa_err["tb"],
-        "ms": k3_ms,
-        "plain_ms": k3_plain,
+        "ms": flush["k3"],
+        "plain_ms": flush["k3_plain"],
+        "bound_ms": flush["k3_bound"][0],
+        "bound_by": flush["k3_bound"][1],
+        "library_ms": None,
+        "ms_before": None,
+        "device_ms": flush["k3_device"],
+        "device_ms_before": None,
     }, {
         "name": "step_probe",
         "route": "cuda",
@@ -817,6 +1060,12 @@ def main() -> int:
         "max_abs_err": probe_err,
         "ms": probe["one_ms"],
         "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"],
+        "bound_by": probe["bound_by"],
+        "library_ms": probe["library_ms"],
+        "ms_before": probe["ms_before"],
+        "device_ms": probe["device_ms"],
+        "device_ms_before": probe["device_ms_before"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

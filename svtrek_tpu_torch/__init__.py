@@ -1,19 +1,23 @@
 """svtrek_tpu_torch — the PyTorch + CUDA port of svtrek_tpu.
 
 Runs `audt` (refine imprecise SV breakpoints of a VCF against long-read
-BAM evidence) with its device step on an NVIDIA Hopper card.  The host
-half is shared with `svtrek_tpu` where that package's modules are free of
-JAX (config, constants, emit, io, native, oracle, the CLI parser); the
-rest is ported here:
+BAM evidence, optionally with the insertion consensus) and `disc` (SV
+discovery on graph alignments) with their device steps on an NVIDIA Hopper
+card.  It stands alone: the host modules it shares semantics with are its
+own copies of the JAX package's, under the same module names.
 
+- config.py, constants.py, emit.py, io/, native/, oracle/
+              copies of the JAX package's host modules (the native C
+              library builds into `_build/`)
 - device.py   the device policy (`--device cuda|cpu`)
 - csrc/       hand-written CUDA kernels; kernels/ builds and binds them
-- ops/        the consensus op: kernel K1 on CUDA tensors, plain PyTorch
-              on CPU tensors
-- pipeline/   the host-extract window packer and the `audt` pipeline
-- cli.py      `python -m svtrek_tpu_torch.cli audt ...`
+- ops/        the device ops: a CUDA kernel on CUDA tensors where the op
+              has one, plain PyTorch on CPU tensors
+- pipeline/   the `audt` and `disc` pipelines and the window packer
+- cli.py      `python -m svtrek_tpu_torch.cli {audt,disc} ...`
 
-This package imports `torch` and never `jax`.
+This package imports `torch` and never `jax`, nor anything of the JAX
+package.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Command line of the port: `python -m svtrek_tpu_torch.cli {audt,disc} ...`.
 
-The flags are `svtrek_tpu`'s (svtrek_tpu.cli.build_parser) plus
-`--device {cuda,cpu}` on `audt` and `disc`: cuda (the default) runs the
+The flags are the JAX package's (its `cli.build_parser`, copied here with
+its option names and defaults) plus `--device {cuda,cpu}` on `audt` and
+`disc`: cuda (the default) runs the
 device steps on the card, through the CUDA kernels where the step has one
 (K1 for the breakpoint consensus; K2 and K3 for the star POA of
 `--ins-consensus` and of disc's insertion clusters), and fails where there
@@ -15,22 +16,160 @@ from __future__ import annotations
 import argparse
 import sys
 
-from svtrek_tpu import cli as tpu_cli
-from svtrek_tpu.config import AudtConfig, DiscConfig
+from . import constants as C
+from .config import AudtConfig, DiscConfig
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("-o", "--output", default="svtrek.out",
+                   help="Output filename [Default: svtrek.out]")
+    p.add_argument("-t", dest="threads", type=int, default=C.THREAD_NUMBER,
+                   help=f"Thread number [Default: {C.THREAD_NUMBER}]")
+    p.add_argument("--verbose", action="store_true", default=False)
+    p.add_argument("--consensus-interval-range", type=int,
+                   default=C.CONSENSUS_INTERVAL_RANGE)
+    p.add_argument("--consensus-interval", type=int,
+                   default=C.CONSENSUS_INTERVAL)
+    p.add_argument("--consensus-min-count", type=int,
+                   default=C.CONSENSUS_MIN_COUNT)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    ap = tpu_cli.build_parser()
-    ap.prog = "svtrek_tpu_torch"
-    ap.description = "SV audit (audt) and discovery (disc) on PyTorch + CUDA."
-    sub = next(a for a in ap._actions
-               if isinstance(a, argparse._SubParsersAction))
-    for mode in ("audt", "disc"):
-        sub.choices[mode].add_argument(
+    ap = argparse.ArgumentParser(
+        prog="svtrek_tpu_torch",
+        description="SV audit (audt) and discovery (disc) on PyTorch + CUDA.",
+    )
+    sub = ap.add_subparsers(dest="mode")
+
+    audt = sub.add_parser("audt", help="Audit reported variations on VCF using BAM.")
+    audt.add_argument("-b", "--bam", required=True)
+    audt.add_argument("-v", "--vcf", required=True)
+    _add_common(audt)
+    audt.add_argument("--wider-interval", type=int, default=C.WIDER_INTERVAL)
+    audt.add_argument("--median-interval", type=int, default=C.MEDIAN_INTERVAL)
+    audt.add_argument("--narrow-interval", type=int, default=C.NARROW_INTERVAL)
+    audt.add_argument("--batch-windows", type=int, default=512,
+                      help="[TPU] windows per device batch")
+    audt.add_argument("--max-candidates", type=int, default=1024,
+                      help="[TPU] consensus candidate capacity per window")
+    audt.add_argument("--no-native-io", action="store_true",
+                      help="[TPU] disable the C BAM reader fast path")
+    audt.add_argument("--chrom-by-name", action="store_true",
+                      help="[TPU] resolve VCF CHROM names against the BAM "
+                      "header (chr-prefix tolerant) instead of the "
+                      "reference's numeric tid = chrom-1 assumption; "
+                      "also prints the CHROM name in result lines")
+    audt.add_argument("--extract", choices=("auto", "host", "device"),
+                      default="auto",
+                      help="[TPU] evidence-walk placement: host = C walk "
+                      "ships only candidates (default with native IO), "
+                      "device = ship packed CIGARs to the accelerator")
+    audt.add_argument("--cand-width", type=int, default=128,
+                      help="[TPU] host-extract per-window candidate "
+                      "capacity (overflow refines exactly in C)")
+    audt.add_argument("--sweep-width", type=int, default=128,
+                      help="[TPU] consensus sweep anchor budget "
+                      "(overflow falls back exactly to the host)")
+    audt.add_argument("--refined-vcf", default="",
+                      help="[TPU] write a refined VCF (SVELDT=SUCCESS/"
+                           "PARTIAL/INCORRECT) to this path")
+    audt.add_argument("--data-shards", type=int, default=0,
+                      help="[TPU] mesh shards per device batch "
+                           "(0 = all local devices)")
+    audt.add_argument("--num-shards", type=int, default=1,
+                      help="[TPU] split records across N independent "
+                           "jobs/hosts (whole-genome scale-out)")
+    audt.add_argument("--shard-index", type=int, default=0,
+                      help="[TPU] which record shard this job owns")
+    audt.add_argument("--resume", action="store_true", default=False,
+                      help="[TPU] append to --output, skipping records "
+                           "whose result lines are already there")
+    audt.add_argument("--trace-dir", default="",
+                      help="[TPU] write a jax.profiler trace of the "
+                           "batch loop to this directory")
+    audt.add_argument("--ins-consensus", action="store_true", default=False,
+                      help="[TPU] emit a POA consensus of the inserted "
+                           "sequence on refined INS lines (', seq: ...'):"
+                           " the audt-mode partial-order-alignment path "
+                           "the reference's unused abPOA submodule "
+                           "intends; default off = exact output parity")
+    audt.add_argument("--poa-engine", choices=("star", "graph"),
+                      default="star",
+                      help="[TPU] consensus engine for --ins-consensus: "
+                           "star = iteratively-refined star MSA "
+                           "(default; measured quality >= POA on ONT-"
+                           "realistic divergence), graph = true "
+                           "partial-order alignment")
+    audt.add_argument("--refine-inv", action="store_true", default=False,
+                      help="[TPU] real INV refinement: soft-clip + D>50 "
+                           "evidence at both breakpoints through the "
+                           "consensus (the reference intends this but its "
+                           "refine_point collects nothing, so INV always "
+                           "prints NA; default off = exact parity)")
+
+    scan = sub.add_parser(
+        "scan",
+        help="Windowed INS discovery over a BAM region "
+             "(the reference's dead sliding_window_ins made real).",
+    )
+    scan.add_argument("-b", "--bam", required=True)
+    scan.add_argument("-c", "--chrom", required=True,
+                      help="Numeric chromosome (1-based, tid = chrom-1), "
+                      "or a reference name with --chrom-by-name")
+    scan.add_argument("-s", "--start", type=int, required=True)
+    scan.add_argument("-e", "--end", type=int, required=True)
+    _add_common(scan)
+    scan.add_argument("--window-size", type=int, default=1000)
+    scan.add_argument("--slide-size", type=int, default=1)
+    scan.add_argument("--batch-windows", type=int, default=8192,
+                      help="[TPU] sub-windows per device batch")
+    scan.add_argument("--no-native-io", action="store_true")
+    scan.add_argument("--chrom-by-name", action="store_true",
+                      help="[TPU] resolve -c against the BAM header "
+                      "(chr-prefix tolerant) instead of the reference's "
+                      "numeric tid = chrom-1 assumption")
+
+    disc = sub.add_parser("disc", help="Variation discovery on graph alignment result.")
+    disc.add_argument("-r", "--gfa", required=True)
+    disc.add_argument("-a", "--gaf", required=True)
+    disc.add_argument("-q", "--fq", required=True)
+    _add_common(disc)
+    disc.add_argument("--sv-min-length", type=int, default=C.SV_MIN_LENGTH,
+                      help="[TPU] minimum SV length for discovery")
+    disc.add_argument("--cluster-window", type=int, default=100,
+                      help="[TPU] max gap (bp) between consecutive sorted "
+                           "signals chained into one cluster")
+    disc.add_argument("--resume", action="store_true", default=False,
+                      help="[TPU] restore the detection phase from "
+                           "<output>.ckpt.npz (written on every run with "
+                           "an output file; invalidated when the GFA/GAF "
+                           "inputs change)")
+    disc.add_argument("--data-shards", type=int, default=0,
+                      help="[TPU] mesh shards per detection batch "
+                           "(0 = all local devices)")
+    disc.add_argument("--poa-engine", choices=("star", "graph"),
+                      default="star",
+                      help="[TPU] INS consensus engine (see audt "
+                           "--poa-engine)")
+    for p in (audt, disc):
+        p.add_argument(
             "--device", choices=("cuda", "cpu"), default="cuda",
             help="cuda = the CUDA kernels on the card (default; an error "
                  "where there is none), cpu = the plain PyTorch path")
     return ap
+
+
+def validate_file(filename: str, message: str):
+    """Reference: init.c:35-47 (but exits cleanly instead of crashing on
+    fclose(NULL) as the C would)."""
+    import os
+
+    if not filename:
+        print(message, file=sys.stderr)
+        raise SystemExit(1)
+    if not os.path.exists(filename):
+        print(f"[ERROR]: File couldn't be opened {filename}", file=sys.stderr)
+        raise SystemExit(1)
 
 
 def config_from_args(args) -> AudtConfig:
@@ -64,7 +203,7 @@ def config_from_args(args) -> AudtConfig:
 
 
 def disc_config_from_args(args) -> DiscConfig:
-    """svtrek_tpu.cli's disc mapping (its main, mode "disc")."""
+    """The disc mapping of the JAX package's CLI (its main, mode "disc")."""
     return DiscConfig(
         gfa_file=args.gfa, gaf_file=args.gaf, fq_file=args.fq,
         output_file=args.output, thread_number=args.threads,
@@ -99,9 +238,9 @@ def main(argv=None) -> int:
             from .pipeline.audit import run_audit
 
             cfg = config_from_args(args)
-            tpu_cli.validate_file(cfg.bam_file,
+            validate_file(cfg.bam_file,
                                   "[ERROR] BAM file is not provided.")
-            tpu_cli.validate_file(cfg.vcf_file,
+            validate_file(cfg.vcf_file,
                                   "[ERROR] VCF file is not provided.")
             # Lines stream to stdout and the output file; not also held.
             run_audit(cfg, collect_lines=False)
@@ -109,11 +248,11 @@ def main(argv=None) -> int:
             from .pipeline.discover import run_discover
 
             cfg = disc_config_from_args(args)
-            tpu_cli.validate_file(cfg.gfa_file,
+            validate_file(cfg.gfa_file,
                                   "[ERROR] r/GFA file is not provided.")
-            tpu_cli.validate_file(cfg.gaf_file,
+            validate_file(cfg.gaf_file,
                                   "[ERROR] GAF file is not provided.")
-            tpu_cli.validate_file(cfg.fq_file,
+            validate_file(cfg.fq_file,
                                   "[ERROR] FASTQ file is not provided.")
             run_discover(cfg, device=args.device)
     except (Unsupported, DeviceUnavailable) as e:

@@ -16,11 +16,19 @@ import torch
 # Kernel launches per wrapper since the last reset_launch_counts().
 launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
                                  "poa_traceback": 0, "step_probe": 0}
-# The widest per-pair band K2 takes: its two score rows per warp must fit
-# in the shared memory of one block (csrc/poa.cu).
+# The widest per-pair band K2 takes: its chunked kernel's two score rows
+# per warp must fit in the shared memory of one block (csrc/poa.cu).
 POA_MAX_BAND = 2048
+# K2's strip kernel: the strip widths S it is built for (one warp per pair,
+# S score cells a lane), and the widest band they hold (32 * 33 cells >=
+# 2 * 527 + 1).  Wider bands take the chunked kernel.  csrc/poa.cu holds
+# the same table.
+POA_STRIPS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 33)
+POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
 
 _LIB = None
+# poa_strip_widths' lookup table on each device it has run on.
+_STRIP_BY_NEED: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -41,20 +49,28 @@ def load_library():
             ptr, ptr, ptr, ct.c_int, ct.c_int, ct.c_int,
             ct.c_int, ct.c_int, ct.c_int, ptr, ptr, ptr,
         ]
-        lib.svtrek_poa_dp_ptr.restype = ct.c_int
-        lib.svtrek_poa_dp_ptr.argtypes = [
+        lib.svtrek_poa_dp_ptr_strip.restype = ct.c_int
+        lib.svtrek_poa_dp_ptr_strip.argtypes = [
             ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
-            ct.c_int, ct.c_int, ptr,
+            ptr, ptr, ct.c_int, ptr,
         ]
+        lib.svtrek_poa_dp_ptr_chunked.restype = ct.c_int
+        lib.svtrek_poa_dp_ptr_chunked.argtypes = [
+            ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
+            ptr, ct.c_int, ct.c_int, ptr,
+        ]
+        lib.svtrek_poa_strip_max_band.restype = ct.c_int
+        if lib.svtrek_poa_strip_max_band() != POA_STRIP_MAX_BAND:
+            raise RuntimeError("csrc/poa.cu and kernels.POA_STRIPS differ")
         lib.svtrek_poa_traceback.restype = ct.c_int
         lib.svtrek_poa_traceback.argtypes = [
             ptr, ptr, ptr, ct.c_int, ptr, ptr, ptr, ct.c_int, ct.c_int,
             ptr, ptr, ptr,
         ]
-        lib.svtrek_step_probe.restype = ct.c_int
-        lib.svtrek_step_probe.argtypes = [
-            ptr, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ptr, ptr,
-        ]
+        for fn in (lib.svtrek_step_probe, lib.svtrek_step_probe_warp):
+            fn.restype = ct.c_int
+            fn.argtypes = [ptr, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                           ct.c_int, ptr, ptr]
         lib.svtrek_cuda_error_string.restype = ct.c_char_p
         lib.svtrek_cuda_error_string.argtypes = [ct.c_int]
         _LIB = lib
@@ -144,22 +160,70 @@ def _pair_args(tpad, ms, qpad, ns, bands) -> tuple[int, int, int]:
     return B, M, N
 
 
-def _bounds(M: int, N: int, ms, ns, bands, offsets) -> tuple[int, int]:
+def poa_strip_widths(bands: torch.Tensor) -> torch.Tensor:
+    """Each pair's strip width S for K2's strip kernel: the smallest of
+    POA_STRIPS with 32*S >= 2*band+1, or 0 for a band above
+    POA_STRIP_MAX_BAND (the chunked kernel's).  int32 [B], on bands'
+    device."""
+    need = (2 * bands.long() + 32) // 32  # ceil((2*band+1) / 32)
+    by_need = _STRIP_BY_NEED.get(bands.device)
+    if by_need is None:
+        # by_need[c]: the smallest strip width >= c cells a lane, 0 past
+        # them; copied to each device once.
+        by_need = _STRIP_BY_NEED[bands.device] = torch.tensor(
+            [min((w for w in POA_STRIPS if w >= c), default=0)
+             for c in range(POA_STRIPS[-1] + 2)], dtype=torch.int32,
+            device=bands.device)
+    return by_need[need.clamp(max=POA_STRIPS[-1] + 1)]
+
+
+def poa_work_order(ns: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
+    """K2's work list, int32 [B]: the pairs of the strip kernel, then those
+    of the chunked kernel, each by n*(2*band+1) descending (ties in input
+    order), so that the longest chains of rows start first."""
+    work = ns.long() * (2 * bands.long() + 1)
+    wide = (bands > POA_STRIP_MAX_BAND).long()
+    return torch.argsort(wide * (1 << 42) - work, stable=True).to(torch.int32)
+
+
+def _check_pairs(M: int, N: int, ms, ns, bands, *more) -> tuple[int, list]:
     """Raise unless 0 <= m <= M, 0 <= n <= N and |n - m| <= band <=
-    POA_MAX_BAND for every pair (the walk starts inside the band); returns
-    (max band, offsets[-1]) from one host read."""
-    stats = torch.stack([ms.max(), ns.max(), bands.max(), ms.min(),
-                         ns.min(), ((ns - ms).abs() - bands).max()]).long()
-    max_m, max_n, max_band, min_m, min_n, outside, total = torch.cat(
-        [stats, offsets[-1:]]).tolist()
-    if min(min_m, min_n) < 0 or max_m > M or max_n > N or outside > 0 \
-            or max_band > POA_MAX_BAND:
+    POA_MAX_BAND for every pair (the walk starts inside the band).  The
+    checks reduce on the device; their results and the 0-d tensors ``more``
+    come to the host in one read.  Returns (the widest band, more as
+    ints)."""
+    m, n, band = ms.long(), ns.long(), bands.long()
+    highs = torch.stack([-m, m, -n, n, band, (n - m).abs() - band]).amax(1)
+    neg_lo_m, hi_m, neg_lo_n, hi_n, hi_band, outside, *rest = torch.cat(
+        [highs, *(t.long().reshape(1) for t in more)]).tolist()
+    lo_m, lo_n = -neg_lo_m, -neg_lo_n
+    if lo_m < 0 or lo_n < 0 or hi_m > M or hi_n > N or outside > 0 \
+            or hi_band > POA_MAX_BAND:
         raise ValueError(
-            f"pair lengths or bands out of range: m in [{min_m}, {max_m}] "
-            f"(M={M}), n in [{min_n}, {max_n}] (N={N}), max band "
-            f"{max_band} (at most {POA_MAX_BAND}), max |n - m| - band "
-            f"{outside} (at most 0)")
-    return max_band, total
+            f"pair lengths or bands out of range: m in [{lo_m}, {hi_m}] "
+            f"(M={M}), n in [{lo_n}, {hi_n}] (N={N}), max band {hi_band} "
+            f"(at most {POA_MAX_BAND}), max |n - m| - band {outside} (at "
+            f"most 0)")
+    return hi_band, rest
+
+
+def poa_dp_plan(M: int, N: int, ms: torch.Tensor, ns: torch.Tensor,
+                bands: torch.Tensor):
+    """K2's launch plan, made on the pairs' device: (offsets [B+1] int64 of
+    `poa_ptr_offsets`, the work list [B] int32 of `poa_work_order`, the
+    strip widths [B] int32 of `poa_strip_widths`, the widest band, the
+    pointer bytes, the number of strip pairs).  The last three come to the
+    host with the range checks of `_check_pairs`, in one read, which raises
+    for a pair the kernels do not take.  Its cost is host dispatch, one
+    launch per op, so the lengths are cast to int64 once: the helpers'
+    own casts are then no-ops."""
+    m, n, band = ms.long(), ns.long(), bands.long()
+    offsets = poa_ptr_offsets(n, band)
+    strips = poa_strip_widths(band)
+    order = poa_work_order(n, band)
+    max_band, (total, n_strip) = _check_pairs(
+        M, N, m, n, band, offsets[-1], (strips > 0).sum())
+    return offsets, order, strips, max_band, total, n_strip
 
 
 def poa_dp_ptr_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
@@ -171,22 +235,35 @@ def poa_dp_ptr_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
     int32.  Returns (ptr, offsets): pair b's row i (1..n) lies at
     ptr[offsets[b] + (i-1)*(2*band+1) :][: 2*band+1], its cell k at target
     column j = i + k - band, with the codes of
-    `ops.poa_dp.dp_ptr_reference` (0 diag, 1 up, 2 left)."""
+    `ops.poa_dp.dp_ptr_reference` (0 diag, 1 up, 2 left).
+
+    The plan (`poa_dp_plan`) is made on the device, with one host read.
+    The pairs with a band up to POA_STRIP_MAX_BAND run in one launch of
+    the strip kernel, the wider ones in one launch of the chunked kernel."""
     _require_cuda("poa_dp_ptr_cuda", tpad)
     B, M, N = _pair_args(tpad, ms, qpad, ns, bands)
-    offsets = poa_ptr_offsets(ns, bands)
+    dev = tpad.device
     if B == 0:
-        return torch.empty(0, dtype=torch.int8, device=tpad.device), offsets
-    max_band, total = _bounds(M, N, ms, ns, bands, offsets)
-    ptr = torch.empty(total, dtype=torch.int8, device=tpad.device)
+        return (torch.empty(0, dtype=torch.int8, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+    offsets, order, strips, max_band, total, n_strip = poa_dp_plan(
+        M, N, ms, ns, bands)
+    ptr = torch.empty(total, dtype=torch.int8, device=dev)
     lib = load_library()
-    with torch.cuda.device(tpad.device):
-        stream = torch.cuda.current_stream(tpad.device).cuda_stream
-        rc = lib.svtrek_poa_dp_ptr(
-            tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), N,
+    args = (tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), N,
             ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(),
-            ptr.data_ptr(), B, max_band, stream)
-    _launched("poa_dp_ptr", lib, rc)
+            ptr.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if n_strip:
+            rc = lib.svtrek_poa_dp_ptr_strip(
+                *args, order.data_ptr(), strips.data_ptr(), n_strip, stream)
+            _launched("poa_dp_ptr", lib, rc)
+        if n_strip < B:
+            rc = lib.svtrek_poa_dp_ptr_chunked(
+                *args, order[n_strip:].data_ptr(), B - n_strip, max_band,
+                stream)
+            _launched("poa_dp_ptr", lib, rc)
     return ptr, offsets
 
 
@@ -214,7 +291,7 @@ def poa_traceback_cuda(ptr: torch.Tensor, offsets: torch.Tensor,
     ins = torch.zeros((B, M + 1), dtype=torch.int32, device=dev)
     if B == 0:
         return cols, ins
-    _, total = _bounds(M, N, ms, ns, bands, offsets)
+    _, (total,) = _check_pairs(M, N, ms, ns, bands, offsets[-1])
     if total != ptr.numel():
         raise ValueError(f"ptr holds {ptr.numel()} bytes, offsets say "
                          f"{total}")

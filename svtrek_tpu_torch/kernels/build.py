@@ -4,7 +4,7 @@ Every `csrc/*.cu` file is compiled by nvcc for Hopper (sm_90a), one nvcc
 process per file, all in parallel, and linked into one shared library with
 a plain C interface, `_build/libsvtrek_cuda.so`, which `kernels` loads
 with ctypes.  The library is rebuilt when any source is
-newer than it, like `svtrek_tpu.native.build`.  Nothing is compiled at
+newer than it, like `svtrek_tpu_torch.native.build`.  Nothing is compiled at
 import: the first kernel launch builds.
 """
 from __future__ import annotations

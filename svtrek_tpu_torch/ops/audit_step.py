@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from svtrek_tpu import constants as C
+from .. import constants as C
 
 from .consensus import consensus_pos_batch
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from svtrek_tpu import constants as C
+from .. import constants as C
 
 from .sweep import abs_i32, sweep_fold, wrap_i32
 

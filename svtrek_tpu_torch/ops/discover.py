@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from svtrek_tpu.constants import (
+from ..constants import (
     CIGAR_D, CIGAR_EQ, CIGAR_I, CIGAR_M, CIGAR_S, CIGAR_X,
 )
 

@@ -10,7 +10,7 @@ flight, and emits result lines in input order as records complete.
 Windows the device cannot finish exactly are refined on the host: a
 window with more than K candidates arrives already refined by the C
 scalar consensus, and a window whose sweep outran `sweep_width` goes
-through `svtrek_tpu.oracle.consensus_pos`.
+through `oracle.consensus_pos`.
 
 With `--ins-consensus`, each refined INS record also gets the consensus of
 the inserted bases its supporting reads carry: the native reader decodes
@@ -36,13 +36,13 @@ from dataclasses import dataclass
 
 import torch
 
-from svtrek_tpu import constants as C
-from svtrek_tpu.config import AudtConfig
-from svtrek_tpu.constants import SVType
-from svtrek_tpu.emit import format_result
-from svtrek_tpu.io.vcf import VcfSkip, VcfTask, iter_vcf_tasks
-from svtrek_tpu.native import native_bam_reader
-from svtrek_tpu.oracle import consensus_pos
+from .. import constants as C
+from ..config import AudtConfig
+from ..constants import SVType
+from ..emit import format_result
+from ..io.vcf import VcfSkip, VcfTask, iter_vcf_tasks
+from ..native import native_bam_reader
+from ..oracle import consensus_pos
 
 from ..device import resolve_device
 from ..ops.audit_step import audit_consensus_step
@@ -71,13 +71,14 @@ def check_supported(cfg: AudtConfig) -> None:
 def open_native_reader(path: str):
     """The native C BAM reader, or Unsupported when the C library did not
     build (there is no pure-Python path in the port)."""
-    reader = native_bam_reader(path)
-    if reader is None:
+    try:
+        return native_bam_reader(path)
+    except OSError as e:
         raise Unsupported(
-            "the native BAM reader is unavailable (svtrek_tpu/native did not "
-            "build, or the BAM or its index cannot be opened); the port has "
-            "no pure-Python fetch path (ROADMAP queue 1 item 4)")
-    return reader
+            f"the native BAM reader is unavailable ({e}; svtrek_tpu_torch/"
+            f"native did not build, or the BAM or its index cannot be "
+            f"opened); the port has no pure-Python fetch path (ROADMAP "
+            f"queue 1 item 4)") from e
 
 
 @dataclass
@@ -565,7 +566,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     print("[INFO] Ended processing variation file", file=out)
 
     if cfg.refined_vcf:
-        from svtrek_tpu.io.vcf_writer import write_refined_vcf
+        from ..io.vcf_writer import write_refined_vcf
 
         write_refined_vcf(cfg.refined_vcf, cfg.vcf_file, vcf_rows)
 

@@ -31,10 +31,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from svtrek_tpu.config import DiscConfig
-from svtrek_tpu.io.fastq import iter_fastq, reverse_complement
-from svtrek_tpu.io.gaf import Breakpoint, iter_gaf
-from svtrek_tpu.io.gfa import parse_gfa
+from ..config import DiscConfig
+from ..io.fastq import iter_fastq, reverse_complement
+from ..io.gaf import Breakpoint, iter_gaf
+from ..io.gfa import parse_gfa
 
 from ..device import resolve_device
 from ..ops.discover import (
@@ -155,7 +155,7 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
     result depends on them.  ``use_device_scan=False`` runs everything
     through the host scalar scan (`io.gaf.scan_breakpoints`), as the JAX
     package's ``device=False``."""
-    from svtrek_tpu.io.gaf import scan_breakpoints
+    from ..io.gaf import scan_breakpoints
 
     if not use_device_scan:
         out: list[Breakpoint] = []
@@ -212,7 +212,7 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
 
 def _scan_csr_rows(b, rows, min_len: int) -> list[Breakpoint]:
     """Exact host scalar scan of native-batch rows (the fallback paths)."""
-    from svtrek_tpu.io.gaf import ProjectedRead, scan_breakpoints
+    from ..io.gaf import ProjectedRead, scan_breakpoints
 
     out: list[Breakpoint] = []
     for i in rows:
@@ -231,7 +231,7 @@ def detect_breakpoints_native(reader, min_len: int, batch_reads: int = 8192,
                               *, device: torch.device | str = "cpu",
                               stats: dict | None = None
                               ) -> list[Breakpoint]:
-    """Device scan fed by the C GAF projector (svtrek_tpu/io/gaf_native.py).
+    """Device scan fed by the C GAF projector (io/gaf_native.py).
 
     Each CSR batch ships its flat run arrays as they are, and the device
     scatters them into the padded layout; reads of more than
@@ -398,14 +398,14 @@ def _load_ckpt(cfg: DiscConfig) -> list[Breakpoint] | None:
 
 def open_native_gaf(path: str, gfa):
     """The native C GAF projector, or Unsupported when it cannot load."""
-    from svtrek_tpu.io.gaf_native import NativeGafReader
+    from ..io.gaf_native import NativeGafReader
 
     try:
         return NativeGafReader(path, gfa)
     except OSError as e:
         raise Unsupported(
-            f"the native GAF reader is unavailable ({e}; svtrek_tpu/native "
-            f"did not build, or the GAF cannot be opened); the port takes "
+            f"the native GAF reader is unavailable ({e}; "
+            f"svtrek_tpu_torch/native did not build, or the GAF cannot be opened); the port takes "
             f"the Python parse only when asked (use_native_parse=False)"
         ) from e
 

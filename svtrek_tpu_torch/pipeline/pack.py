@@ -6,9 +6,8 @@ A JAX-free copy of the host-extract subset of svtrek_tpu/pipeline/pack.py
 `PackedCandBatch`, `pack_chunk_cand`, `_pow2`), single-device only.  It is
 copied rather than imported because svtrek_tpu/pipeline/pack.py imports
 `ops.audit_step`, and through it every JAX op, at module load
-(pack.py:40); a machine with the card has no JAX.  tests/test_torch_pack.py
-holds the copy equal to the original; ROADMAP queue 1 item 12 moves the
-shared part to a JAX-free module and removes this copy.
+(pack.py:40); a machine with the card has no JAX.  It is the port's own
+code; tests/test_torch_pack.py holds it equal to the original.
 
 Each accepted VCF record expands into 1-2 refine windows:
 
@@ -29,12 +28,12 @@ from typing import Sequence
 
 import numpy as np
 
-from svtrek_tpu import constants as C
-from svtrek_tpu.config import AudtConfig
-from svtrek_tpu.constants import (
+from .. import constants as C
+from ..config import AudtConfig
+from ..constants import (
     KIND_DEL_END, KIND_DEL_START, KIND_INS, KIND_INV_END, KIND_POINT, SVType,
 )
-from svtrek_tpu.io.vcf import VcfTask
+from ..io.vcf import VcfTask
 
 INT64_MIN = np.iinfo(np.int64).min
 _I32_PAD = 0x7FFFFFFF

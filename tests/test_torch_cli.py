@@ -136,7 +136,11 @@ def test_missing_native_reader_raises(audt_fixture, monkeypatch, capsys):
     """No quiet fall back to a pure-Python reader when the C library is
     unavailable."""
     d, bam, vcf, _ = audt_fixture
-    monkeypatch.setattr(taudit, "native_bam_reader", lambda path: None)
+
+    def no_lib(path):
+        raise OSError("native library unavailable")
+
+    monkeypatch.setattr(taudit, "native_bam_reader", no_lib)
     with pytest.raises(taudit.Unsupported, match="native BAM reader"):
         taudit.run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
                                     device="cpu"),

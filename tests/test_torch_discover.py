@@ -20,11 +20,12 @@ import torch
 
 from svtrek_tpu.config import DiscConfig
 from svtrek_tpu.io.gaf import Breakpoint, ProjectedRead
-from svtrek_tpu.io.gaf_native import NativeGafReader
+from svtrek_tpu.io.gaf_native import NativeGafReader as JaxNativeGafReader
 from svtrek_tpu.io.gfa import parse_gfa
 from svtrek_tpu.ops import discover as jops
 from svtrek_tpu.ops.audit_step import csr_to_padded as jax_csr_to_padded
 from svtrek_tpu.pipeline import discover as jpipe
+from svtrek_tpu_torch.io.gaf_native import NativeGafReader
 from svtrek_tpu_torch.ops import discover as tops
 from svtrek_tpu_torch.ops.audit_step import csr_to_padded
 from svtrek_tpu_torch.pipeline import discover as tpipe
@@ -260,7 +261,7 @@ def _cig_ops(cig: str) -> list[str]:
 def test_detect_breakpoints_native(tmp_path):
     gfa_path, gaf = _native_gaf(tmp_path, 211)
     gfa = parse_gfa(gfa_path)
-    ja, ta = NativeGafReader(gaf, gfa), NativeGafReader(gaf, gfa)
+    ja, ta = JaxNativeGafReader(gaf, gfa), NativeGafReader(gaf, gfa)
     stats = {}
     try:
         want = jpipe.detect_breakpoints_native(ja, 50, batch_reads=64,

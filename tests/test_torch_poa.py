@@ -283,3 +283,103 @@ def test_host_helpers_match_jax():
         c2, i2 = jpoa.banded_align_ins(t, q, 8)
         np.testing.assert_array_equal(c1, c2)
         assert i1 == i2
+
+
+def test_strip_widths_give_every_pair_one_class():
+    """K2's dispatch: every band up to POA_MAX_BAND gets the smallest strip
+    width S with 32*S >= 2*band+1, or 0 (the chunked kernel) above
+    POA_STRIP_MAX_BAND, never both."""
+    bands = torch.arange(0, kernels.POA_MAX_BAND + 1, dtype=torch.int32)
+    strips = kernels.poa_strip_widths(bands)
+    width = 2 * bands + 1
+    strip_cls = strips > 0
+    assert torch.equal(strip_cls, bands <= kernels.POA_STRIP_MAX_BAND)
+    assert (32 * strips[strip_cls] >= width[strip_cls]).all()
+    table = torch.tensor(kernels.POA_STRIPS)
+    smaller = torch.cat([torch.zeros(1, dtype=table.dtype), table[:-1]])
+    pos = torch.bucketize(strips[strip_cls], table)
+    assert torch.equal(table[pos], strips[strip_cls].long())
+    assert (32 * smaller[pos] < width[strip_cls]).all()  # the smallest fit
+    assert set(strips.tolist()) == set(kernels.POA_STRIPS) | {0}
+    assert strips.dtype == torch.int32
+
+
+@pytest.mark.parametrize("case", [
+    "ok", "m_over_M", "n_over_N", "m_negative", "outside_band",
+    "band_over_max"])
+def test_check_pairs_reads_the_plan_and_refuses_bad_pairs(case):
+    """K2's and K3's range check reduces on the tensors' device and reads
+    the widest band, the pointer bytes and the number of strip pairs back
+    at once; a pair outside the range the kernels take raises.  K2's plan
+    is made of the helpers the other tests hold to the plain DP."""
+    ms = torch.tensor([40, 0, 10, 60, 300], dtype=torch.int32)
+    ns = torch.tensor([0, 40, 50, 55, 290], dtype=torch.int32)
+    bands = torch.tensor([41, 41, 41, 8, 600], dtype=torch.int32)
+    M, N = 300, 290
+    if case == "m_over_M":
+        M = 299
+    elif case == "n_over_N":
+        N = 289
+    elif case == "m_negative":
+        ms[1] = -1
+    elif case == "outside_band":
+        bands[2] = 39  # |50 - 10| = 40
+    elif case == "band_over_max":
+        bands[4] = kernels.POA_MAX_BAND + 1
+    offsets = kernels.poa_ptr_offsets(ns, bands)
+    strips = kernels.poa_strip_widths(bands)
+    args = (M, N, ms, ns, bands, offsets[-1], (strips > 0).sum())
+    if case != "ok":
+        with pytest.raises(ValueError, match="out of range"):
+            kernels._check_pairs(*args)
+        with pytest.raises(ValueError, match="out of range"):
+            kernels.poa_dp_plan(M, N, ms, ns, bands)
+        return
+    max_band, (total, n_strip) = kernels._check_pairs(*args)
+    assert (max_band, n_strip) == (600, 4)
+    assert total == int((ns.long() * (2 * bands.long() + 1)).sum())
+    assert all(isinstance(v, int) for v in (max_band, total, n_strip))
+    p_off, p_order, p_strips, *p_rest = kernels.poa_dp_plan(M, N, ms, ns,
+                                                            bands)
+    assert torch.equal(p_off, offsets) and torch.equal(p_strips, strips)
+    assert torch.equal(p_order, kernels.poa_work_order(ns, bands))
+    assert p_rest == [max_band, total, n_strip]
+
+
+@pytest.mark.parametrize("name", ["1", "3", "degenerate", "overrun", "wide"])
+def test_work_order_scattered_back_equals_input_order(name):
+    """The plain DP over the pairs in K2's work-list order, each pair's
+    rows scattered back to its input-order offset, equals the plain DP in
+    input order; the list is a permutation with the strip kernel's pairs
+    first, each group longest first."""
+    if name == "wide":  # bands on both sides of POA_STRIP_MAX_BAND
+        rng = np.random.default_rng(8)
+        ms = rng.integers(0, 90, 12).astype(np.int32)
+        ns = rng.integers(0, 90, 12).astype(np.int32)
+        bands = np.array([8, 600, 64, 527, 528, 1000, 200, 2048, 16, 513,
+                          100, 700], np.int32)
+        tpad = rng.integers(0, 4, (12, 90)).astype(np.int8)
+        qpad = rng.integers(0, 4, (12, 90)).astype(np.int8)
+        W = int(bands.max())
+    else:
+        tpad, ms, qpad, ns, bands, W = _case(name)
+    args = _t(tpad, ms, qpad, ns, bands)
+    n_t, b_t = args[3], args[4]
+    want = poa_dp.pointers_by_pair(poa_dp.dp_ptr_reference(*args, W=W),
+                                   n_t, b_t, W=W)
+    order = kernels.poa_work_order(n_t, b_t).long()
+    assert sorted(order.tolist()) == list(range(len(ms)))
+    wide = (b_t > kernels.POA_STRIP_MAX_BAND)[order]
+    assert not (wide[:-1] & ~wide[1:]).any()  # strip pairs first
+    work = (n_t.long() * (2 * b_t.long() + 1))[order]
+    same = wide[:-1] == wide[1:]
+    assert (work[:-1][same] >= work[1:][same]).all()
+    perm = [a[order] for a in args]
+    got_perm = poa_dp.pointers_by_pair(poa_dp.dp_ptr_reference(*perm, W=W),
+                                       perm[3], perm[4], W=W)
+    offsets = kernels.poa_ptr_offsets(n_t, b_t)
+    perm_off = kernels.poa_ptr_offsets(perm[3], perm[4])
+    got = torch.empty_like(want)
+    for p, b in enumerate(order.tolist()):
+        got[offsets[b]:offsets[b + 1]] = got_perm[perm_off[p]:perm_off[p + 1]]
+    assert torch.equal(got, want)

@@ -198,7 +198,7 @@ def test_disc_scalar_imports_only_the_python_projection():
     names += [n.module or "" for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom)]
     assert sorted(m for m in names if m.startswith(("svtrek", "jax"))) == \
-        ["svtrek_tpu.io.gaf", "svtrek_tpu.io.gfa"]
+        ["svtrek_tpu_torch.io.gaf", "svtrek_tpu_torch.io.gfa"]
 
 
 @pytest.mark.parametrize("case", ["triple", "bench"])

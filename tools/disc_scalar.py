@@ -3,11 +3,15 @@
 
 A short restatement of the disc mode of `svtrek_tpu` in plain Python, for
 holding a port's output to it (`chip_smoke.py` holds the PyTorch port's
-to it on the card).  What it shares with `svtrek_tpu` is the Python GAF
-projection only: `io.gfa.parse_gfa`, `io.gaf.iter_gaf` and the scalar
-run scan `io.gaf.scan_breakpoints`, which the packages' main paths do not
-run (they project with the native C library and scan on the device).  Its
-own:
+to it on the card).  What it shares with the port is the Python GAF
+projection only, the port's copy of the JAX package's:
+`io.gaf.iter_gaf` and the scalar run scan `io.gaf.scan_breakpoints`, which
+the packages' main paths do not run (they project with the native C
+library and scan on the device), and `io.gfa.parse_gfa`, which the port's
+disc path runs too.  A fault in the port's copy of parse_gfa would
+therefore pass the check against this tool; what guards that copy is
+tests/test_torch_standalone.py, which holds it equal to the JAX package's
+on the CPU.  Its own:
 
 - single-linkage clustering per type (INS, DEL, CLIP): signals sorted by
   (position, length) chain while each gap is <= the cluster window, and a
@@ -38,8 +42,8 @@ _COMP = str.maketrans("ACGTacgtNn", "TGCAtgcaNn")
 def signals(gfa_path: str, gaf_path: str, min_len: int = MIN_LEN):
     """Every read's breakpoints as (type, ref_pos, read_pos, length, name,
     rc) tuples, in file order, from the Python projection."""
-    from svtrek_tpu.io.gaf import iter_gaf, scan_breakpoints
-    from svtrek_tpu.io.gfa import parse_gfa
+    from svtrek_tpu_torch.io.gaf import iter_gaf, scan_breakpoints
+    from svtrek_tpu_torch.io.gfa import parse_gfa
 
     gfa = parse_gfa(gfa_path)
     return [(b.type, b.ref_pos, b.read_pos, b.length, b.read_name, b.rc)

@@ -27,8 +27,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from svtrek_tpu.constants import CIGAR_I, CIGAR_M  # noqa: E402
-from svtrek_tpu.io.bam import BamRecord, BamWriter  # noqa: E402
+from svtrek_tpu_torch.constants import CIGAR_I, CIGAR_M  # noqa: E402
+from svtrek_tpu_torch.io.bam import BamRecord, BamWriter  # noqa: E402
 
 SPACING = 50_000
 # (share of sites, shortest, longest insert)

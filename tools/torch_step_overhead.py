@@ -11,7 +11,10 @@ rows_per in 1, 2, 4, 8 that divides N it times, as CUDA-event medians:
   each step: the cost of a step;
 - N / rows_per launches of one step each, through the same ctypes wrapper
   that K2 and K3 are called by: the cost of a launch on their path;
-- the plain PyTorch version of the same reduction.
+- the plain PyTorch version of the same reduction;
+- one PyTorch call that computes the same sums,
+  `torch.sum(ptr, dim=(0, 2), dtype=torch.int32)` (`library_ms`), as a
+  yardstick: the port never calls it.
 
 It prints ms/call and us/row (per row of N) of each, after the card's name
 and power limit.  The input is the Pallas tool's: seed-0 integers in
@@ -62,7 +65,10 @@ def probe_input(N: int, B: int, WP: int):
 def measure(N: int, B: int, WP: int, reps: int = 20) -> list[dict]:
     """One dict per rows_per dividing N: ms/call of the one-launch walk
     (`one_ms`), of the per-step launches (`per_step_ms`, `launches` of
-    them) and of the plain version (`plain_ms`)."""
+    them), of the plain version (`plain_ms`) and of the one library call
+    (`library_ms`, which does not depend on rows_per)."""
+    import torch
+
     from svtrek_tpu_torch.ops.step_probe import (
         step_probe, step_probe_reference,
     )
@@ -79,6 +85,8 @@ def measure(N: int, B: int, WP: int, reps: int = 20) -> list[dict]:
             "per_step_ms": cuda_ms(
                 lambda: step_probe(ptr, rp, per_step_launches=True), reps),
             "plain_ms": cuda_ms(lambda: step_probe_reference(ptr, rp), reps),
+            "library_ms": cuda_ms(lambda: torch.sum(
+                ptr, dim=(0, 2), dtype=torch.int32), reps),
         })
     return rows
 
@@ -92,7 +100,8 @@ def report(N: int, rows: list[dict]) -> list[str]:
         f"({us_row(r['one_ms']):.4f} us/row); {r['launches']} per-step "
         f"launches {r['per_step_ms']:.4f} ms/call "
         f"({us_row(r['per_step_ms']):.4f} us/row); plain "
-        f"{r['plain_ms']:.4f} ms/call ({us_row(r['plain_ms']):.4f} us/row)"
+        f"{r['plain_ms']:.4f} ms/call ({us_row(r['plain_ms']):.4f} us/row); "
+        f"library torch.sum {r['library_ms']:.4f} ms/call"
         for r in rows
     ]
 
