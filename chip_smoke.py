@@ -15,28 +15,32 @@ last line:
 3. kernel: K1 against its plain PyTorch version on the card at the bench
    shapes, the main path's shape and edge rows, exact integer equality,
    plus 256 rows against tools/audt_scalar.py's scalar consensus;
-   CUDA-event times of both;
+   CUDA-event times of both, and at every shape the profiler's time of K1
+   alone beside a launch floor (one int32 elementwise op on a [B] tensor,
+   which the port never calls);
 4. POA kernels: K2 (banded DP pointers: its strip kernel and its chunked
    kernel) and K3 (traceback) against their plain PyTorch versions on the
    card, on seeded pair batches (the bench's 256-pair call, 4,096 short
    pairs, a flush-like mix of insert lengths, bands of 256 and 512,
    degenerate pairs, the query that overruns its target by 37 bases, bands
-   of 513-2,048 that take both K2 kernels): pointers, cols and ins exactly
-   equal; CUDA-event times of both, of K2's launch plan alone, of K2's
-   replaced design (the chunked kernel over every pair, through its C
-   entry point) and the bounds of K2 and K3, and the profiler's time of
-   the kernels alone, without the wrappers' host work;
+   of 513-2,048 that take both K2 kernels, and `longrun`: K3's left runs
+   longer than its window and long up runs): pointers, cols and ins
+   exactly equal, K2 and K3 on one plan (`dp_cols`'s route) too;
+   CUDA-event times of both, of K2's launch plan alone, of K2's replaced
+   design (the chunked kernel over every pair, through its C entry point),
+   of K2 + K3 on one plan, and the bounds of K2 and K3, the profiler's
+   time of the kernels alone, without the wrappers' host work, and K3's
+   longest walk in steps and ns a step;
 5. step probe: K4 against its plain version on the default input of
    tools/torch_step_overhead.py (1280 x 256 x 256) and on int8 over its
    whole range at 1000 x 100 x WP, with WP and base alignments that take
    each of K4's 16-, 4- and 1-byte loads, and at rows of more than the
    1,024 vectors a block reads at a time with each load width, every
    rows_per in 1, 2, 4, 8, in one launch and in one launch per step,
-   exactly equal, and K4's replaced design (one warp per b row, through
-   its C entry point) too; then the probe's own path
+   exactly equal; then the probe's own path
    (tools/torch_step_overhead.py's measure, K4 in both launch modes beside
    the plain version and the one library call, CUDA-event medians), which
-   must launch K4, and K4's replaced design and bound beside it;
+   must launch K4, and K4's bound beside it;
 6. main path: `python -m svtrek_tpu_torch.cli audt --device cuda` (run in
    this process, so the launch counts can be read) on the 5,000-record
    synthetic long-read benchmark fixture of tools/bench_e2e.py (built by
@@ -71,11 +75,15 @@ largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
 call's time where one computes the same function (`library_ms`, K4's
-torch.sum) and the time of the design this one replaced (`ms_before`, K2
-and K4).  Those are CUDA-event times of one wrapper call, which also hold
-the host's work inside it (the K2/K3 plan, the ctypes call);
-`device_ms` and `device_ms_before` are torch.profiler's time of the
-kernels alone.  Then the card's nvidia-smi name and power limit, then
+torch.sum) and the time of the design this one replaced where it is still
+live code (`ms_before`, K2's chunked kernel; null for the others, whose
+replaced designs left the tree: tools/torch_kernel_ab.py times K1's and
+K3's beside the new ones).  Those are CUDA-event times of one wrapper
+call, which also hold the host's work inside it (the K2/K3 plan, the
+ctypes call); `device_ms` and `device_ms_before` are torch.profiler's
+time of the kernels alone, and K1's `launch_floor_ms` the profiler's time
+of the launch floor of phase 3.  Then the card's nvidia-smi name and
+power limit, then
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -306,19 +314,22 @@ def phase_kernel():
         ms = cuda_ms(lambda: consensus_pos_cuda(*args, **kw), 50)
         plain_ms = cuda_ms(lambda: consensus_pos_batch_reference(*args, **kw),
                            5)
+        alone = device_ms(lambda: consensus_pos_cuda(*args, **kw),
+                          "consensus_pos_kernel", 20)
+        # The launch floor beside it: one int32 elementwise op on a [B]
+        # tensor on the same stream (the port never calls it).
+        floor = device_ms(lambda: args[2].bitwise_xor(1), "elementwise", 20)
         print(f"[kernel] B={B} K={K} sweep_width={sw}: equal, "
               f"overflow_rows={int(got_ovf.sum())} "
               f"refined_rows={int((got >= 0).sum())} K1 {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
+              f"plain {plain_ms:.4f} ms; alone (profiler) K1 "
+              f"{fmt_ms(alone)}, launch floor (a [B] int32 xor) "
+              f"{fmt_ms(floor)}", flush=True)
         if (B, K, sw) == MAIN_SHAPE:
             # Bytes: locs [B, K], n, pos in, refined [B] int32 and
             # overflow [B] bool out.  Operations: one int32 compare per
             # candidate, the least a consensus over them takes.
-            alone = device_ms(lambda: consensus_pos_cuda(*args, **kw),
-                              "consensus_pos_kernel", 20)
-            print(f"[kernel] main shape: K1 alone (profiler) "
-                  f"{fmt_ms(alone)}", flush=True)
-            main_times = (ms, plain_ms, alone,
+            main_times = (ms, plain_ms, alone, floor,
                           *bound(B * K * 4 + B * 13, B * K))
         if (B, K, sw) == (8192, 64, 128):
             got_h, ovf_h = got.cpu().numpy(), got_ovf.cpu().numpy()
@@ -341,10 +352,12 @@ def poa_batches(rng):
     K2 and K3: the bench's POA call (bench.py:54-56), 4,096 short pairs, a
     mix of the ins fixture's insert lengths at flush size, bands of up to
     256 and 512, degenerate pairs, the m = 1011, n = 1048 pair whose
-    query overruns its target's bucket (tests/test_poa_batch.py:96), and
+    query overruns its target's bucket (tests/test_poa_batch.py:96),
     bands of 513-2,048 on both sides of kernels.POA_STRIP_MAX_BAND (both of
-    K2's kernels), degenerate pairs and bands above m + n among them.  A
-    band is one per batch or one per pair."""
+    K2's kernels), degenerate pairs and bands above m + n among them, and
+    `longrun`: m - n and n - m up to the band (K3's left runs longer than
+    its window, and long up runs), bands 64-2,048, degenerate pairs among
+    them.  A band is one per batch or one per pair."""
     from ins_fixture import LENGTH_CLASSES, mutate
 
     def rand(n):
@@ -381,6 +394,24 @@ def poa_batches(rng):
     wide = [513, 520, 527, 528, 600, 1024, 1500, 2048]
     yield "wide2k", ts, qs, np.array(
         wide + rng.integers(513, 2049, len(shapes) - len(wide)).tolist())
+    # Long left runs (a query that is a piece of its target, m - n up to
+    # the band) and long up runs (n - m up to the band), bands 64-2,048.
+    shapes = [(2000, 60, 2048), (60, 2000, 2048), (1500, 0, 1501),
+              (0, 1500, 1501), (300, 40, 300), (40, 300, 300),
+              (1200, 1100, 64), (900, 1000, 128), (4000, 2100, 2048),
+              (700, 90, 640), (90, 700, 640), (1, 600, 600)]
+    shapes += [(m, max(m - d, 0), bd) if d >= 0 else (m, m - d, bd)
+               for m, d, bd in ((int(rng.integers(100, 2000)),
+                                 int(rng.integers(-600, 601)),
+                                 int(rng.integers(64, 2049)))
+                                for _ in range(20))]
+    ts = [rand(m) for m, _, _ in shapes]
+    qs = []
+    for t, (m, n, _) in zip(ts, shapes):
+        start = int(rng.integers(0, m - n + 1)) if n <= m else 0
+        qs.append(mutate(rng, t[start:start + n])[:n] if n <= m else
+                  np.insert(t, m // 2, rand(n - m)))
+    yield "longrun", ts, qs, np.array([bd for _, _, bd in shapes])
 
 
 def poa_bounds(ms, ns, bands, M, N, cols=None):
@@ -435,29 +466,14 @@ def k2_before(tpad, ms, qpad, ns, bands, max_band: int):
     return ptr
 
 
-def k4_before(ptr, rows_per: int, out):
-    """K4's replaced design (one warp per b row) over all steps in one
-    launch, through the library's C entry point svtrek_step_probe_warp (the
-    port's wrapper never launches it).  Returns out."""
-    import torch
-
-    from svtrek_tpu_torch.kernels import load_library
-
-    N, B, WP = ptr.shape
-    lib = load_library()
-    launch_failed("K4's replaced design", lib, lib.svtrek_step_probe_warp(
-        ptr.data_ptr(), B, WP, rows_per, 0, N // rows_per, out.data_ptr(),
-        torch.cuda.current_stream(ptr.device).cuda_stream))
-    return out
-
-
 def phase_poa_kernels():
     """K2 and K3 against their plain versions on the card, and K2's
     replaced design (its chunked kernel over every pair) beside it."""
     import torch
 
     from svtrek_tpu_torch.kernels import (
-        POA_STRIP_MAX_BAND, poa_dp_plan, poa_dp_ptr_cuda, poa_traceback_cuda,
+        POA_STRIP_MAX_BAND, poa_dp_cols_cuda, poa_dp_plan, poa_dp_ptr_cuda,
+        poa_traceback_cuda,
     )
     from svtrek_tpu_torch.ops.poa_dp import (
         dp_ptr_reference, pointers_by_pair, traceback_reference,
@@ -494,7 +510,13 @@ def phase_poa_kernels():
                                        M=M)
         want_cols, want_ins = traceback_reference(ptr, offsets, q_d, m_d,
                                                   n_d, b_d, M=M)
+        # K2 and K3 on one plan, as dp_cols runs them on the main path.
+        both = poa_dp_cols_cuda(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(both[0], want_cols) and
+                torch.equal(both[1], want_ins)):
+            fail(f"K2 + K3 on one plan differ from the plain version on "
+                 f"{name}")
         e_dp = int((ptr.int() - want_ptr.int()).abs().max()) \
             if ptr.numel() else 0
         e_tb = max(int((cols.int() - want_cols.int()).abs().max()),
@@ -517,6 +539,12 @@ def phase_poa_kernels():
                 f"n {int(ns.min())}-{int(ns.max())} band "
                 f"{int(bands.min())}-{W} ({B - n_wide} strip, {n_wide} "
                 f"chunked) pointer_bytes={ptr.numel()}: equal")
+
+        def k3():
+            return poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d, M=M)
+
+        # K3's walks: a pair's steps are n + m - its diag moves.
+        steps = ns.astype(np.int64) + ms - (cols >= 0).sum(1).cpu().numpy()
         if name in ("bench", "flush"):
             reps, plain_reps = 20, 2
             k2b, k3b = poa_bounds(ms, ns, bands, M, qpad.shape[1],
@@ -527,16 +555,13 @@ def phase_poa_kernels():
             def k2_chunked():
                 return k2_before(*args, W)
 
-            def k3():
-                return poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d,
-                                          M=M)
-
             t = {"k2": cuda_ms(k2, reps),
                  "k2_plan": cuda_ms(lambda: poa_dp_plan(
                      M, qpad.shape[1], m_d, n_d, b_d), reps),
                  "k2_before": cuda_ms(k2_chunked, reps),
                  "k2_plain": cuda_ms(plain_dp, plain_reps),
                  "k3": cuda_ms(k3, reps),
+                 "k23": cuda_ms(lambda: poa_dp_cols_cuda(*args), reps),
                  "k3_plain": cuda_ms(lambda: traceback_reference(
                      ptr, offsets, q_d, m_d, n_d, b_d, M=M), plain_reps),
                  "k2_bound": k2b, "k3_bound": k3b}
@@ -545,15 +570,30 @@ def phase_poa_kernels():
                    "K3": device_ms(k3, "poa_traceback")}
             t["k2_device"], t["k2_before_device"], t["k3_device"] = \
                 dev.values()
+            far = int(np.argmax(steps))
+            t["k3_steps"], t["k3_rows"] = int(steps[far]), int(ns[far])
+            t["k3_ns_per_step"] = None if t["k3_device"] is None else \
+                t["k3_device"] * 1e6 / t["k3_steps"]
             times[name] = t
+            line += (f"; K3's longest walk {t['k3_steps']} steps over "
+                     f"{t['k3_rows']} rows, "
+                     + ("not measured" if t["k3_ns_per_step"] is None else
+                        f"{t['k3_ns_per_step']:.1f} ns a step alone"))
             line += (f"; K2 {t['k2']:.4f} ms (its plan alone "
                      f"{t['k2_plan']:.4f} ms; before: chunked "
                      f"{t['k2_before']:.4f} ms), plain {t['k2_plain']:.4f} "
                      f"ms, bound {k2b[0]:.4f} ms ({k2b[1]}); K3 "
                      f"{t['k3']:.4f} ms, plain {t['k3_plain']:.4f} ms, "
-                     f"bound {k3b[0]:.4f} ms ({k3b[1]}); kernel time alone "
+                     f"bound {k3b[0]:.4f} ms ({k3b[1]}); K2 + K3 on one "
+                     f"plan {t['k23']:.4f} ms; kernel time alone "
                      f"(profiler): " + ", ".join(
                          f"{k} {fmt_ms(v)}" for k, v in dev.items()))
+        elif name == "longrun":
+            line += (f"; K3 alone (profiler) "
+                     f"{fmt_ms(device_ms(k3, 'poa_traceback'))}, longest walk "
+                     f"{int(steps.max())} steps, left runs to "
+                     f"{int((ms - ns).max())} and up runs to "
+                     f"{int((ns - ms).max())} cells")
         print(line, flush=True)
     return err, times
 
@@ -584,8 +624,7 @@ def probe_check_input(N: int, B: int, WP: int, fill: str, offset: int):
 
 
 def phase_step_probe():
-    """K4 against its plain version, then the probe's own path, and K4's
-    replaced design (one warp per b row) beside it."""
+    """K4 against its plain version, then the probe's own path."""
     import torch
 
     from svtrek_tpu_torch.kernels import (
@@ -614,11 +653,6 @@ def phase_step_probe():
                     fail(f"K4 differs from the plain version at N={N} B={B} "
                          f"WP={WP} fill={fill} offset={offset} rows_per={rp} "
                          f"per_step_launches={per_step}: max_abs_err={err}")
-            old = k4_before(ptr, rp, torch.empty(
-                (B, COLS), dtype=torch.int32, device="cuda"))
-            if not torch.equal(old, want):
-                fail(f"K4's replaced design differs from the plain version "
-                     f"at N={N} B={B} WP={WP} rows_per={rp}")
         print(f"[probe] N={N} B={B} WP={WP} fill={fill} base offset "
               f"{offset} ({vec}-byte loads): K4 equal to the plain version "
               f"at rows_per 1, 2, 4, 8, one launch and per-step launches",
@@ -636,21 +670,16 @@ def phase_step_probe():
     ptr = probe_input(N, B, WP)
     out = torch.empty((B, COLS), dtype=torch.int32, device="cuda")
     one = rows[0]  # rows_per 1: N steps in one launch
-    one["ms_before"] = cuda_ms(lambda: k4_before(ptr, 1, out), 20)
     one["device_ms"] = device_ms(lambda: step_probe_cuda(ptr, 1, 0, N, out),
                                  "step_probe_kernel", 20)
-    one["device_ms_before"] = device_ms(lambda: k4_before(ptr, 1, out),
-                                        "step_probe_warp_kernel", 20)
     # Bytes: ptr read once, out [B, 128] int32 written; one add a byte.
     one["bound_ms"], one["bound_by"] = bound(N * B * WP + B * COLS * 4,
                                              N * B * WP)
     print(f"[probe] rows_per 1, one launch: K4 {one['one_ms']:.4f} ms, "
-          f"before (one warp per b row) {one['ms_before']:.4f} ms, library "
-          f"torch.sum {one['library_ms']:.4f} ms, plain "
+          f"library torch.sum {one['library_ms']:.4f} ms, plain "
           f"{one['plain_ms']:.4f} ms, bound {one['bound_ms']:.4f} ms "
           f"({one['bound_by']}, {N * B * WP} bytes); kernel time alone "
-          f"(profiler): K4 {fmt_ms(one['device_ms'])}, before "
-          f"{fmt_ms(one['device_ms_before'])}", flush=True)
+          f"(profiler): K4 {fmt_ms(one['device_ms'])}", flush=True)
     return max_err, launches, one
 
 
@@ -997,7 +1026,8 @@ def main() -> int:
     import torch
 
     phase_build()
-    max_err, (ms, plain_ms, k1_alone, k1_bound, k1_by) = phase_kernel()
+    max_err, (ms, plain_ms, k1_alone, k1_floor, k1_bound, k1_by) = \
+        phase_kernel()
     poa_err, poa_times = phase_poa_kernels()
     probe_err, probe_launches, probe = phase_step_probe()
     phase_main_path()
@@ -1021,6 +1051,7 @@ def main() -> int:
         "ms_before": None,
         "device_ms": k1_alone,
         "device_ms_before": None,
+        "launch_floor_ms": k1_floor,
     }, {
         "name": "poa_dp_ptr",
         "route": "cuda",
@@ -1063,9 +1094,9 @@ def main() -> int:
         "bound_ms": probe["bound_ms"],
         "bound_by": probe["bound_by"],
         "library_ms": probe["library_ms"],
-        "ms_before": probe["ms_before"],
+        "ms_before": None,
         "device_ms": probe["device_ms"],
-        "device_ms_before": probe["device_ms_before"],
+        "device_ms_before": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

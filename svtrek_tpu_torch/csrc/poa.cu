@@ -59,10 +59,44 @@
 // shared memory sized by the widest band of its own launch.  Its registers
 // do not grow with the band.
 //
-// K3 design: one thread per pair walking the pointers sequentially, as
-// ops/poa_pallas.py::_traceback_one does per pair; the TPU's reverse row
-// sweep exists for its vector lanes and is not needed here.  Bound: the
-// latency of one dependent pointer load per step, n+m steps per pair.
+// K3 design.  The walk from (n, m) to (0, 0) is a chain: each step reads
+// the pointer that the step before chose.  The design this one replaced
+// walked it with one thread per pair, one dependent global load per step
+// (a left move too), 600-800 ns a step on the card: the bytes bound is far
+// below, and what bounds K3 is the longest pair's chain of steps.  This design makes the
+// links of that chain cheap and takes many of them at once:
+// - One warp per pair, the pairs in K2's work list (longest first), so the
+//   longest chains start in the first wave.
+// - Runs of moves in one ballot.  k = j - i + band is unchanged by a diag
+//   move and one higher after an up move, so a diag run visits cell k of
+//   rows i, i-1, ... and an up run cell k, k+1, ... of them: lane r reads
+//   row i-r at each and two ballots give the lengths of both runs (up to
+//   kTbRun rows); the diag run's columns are written by its lanes at once.
+//   A row that starts neither is a left run: the nearest cell at or below
+//   k whose code is not left, found by one ballot over a window of kTbWin
+//   cells, four a lane (the TPU kernel's row sweep computes the same with
+//   a cummax); a run that leaves the window slides it down by kTbWin cells
+//   (one load), and j reaching 0 ends it with the forced up move.
+// - The rows are loaded ahead of the walk.  A per-warp ring in shared
+//   memory holds kTbRing = 2 * kTbRun rows: the run being read and the next
+//   run's rows in flight, issued with cp.async (16 bytes a copy, a lane a
+//   row) as the rows before them are used.  Each row brings a window of
+//   kTbWin cells centred on the walk's cell when it was issued, and its
+//   query base; a window that the walk has drifted out of is reloaded.
+//   Measured on an H100: a row took about 660 cycles when each row was
+//   its own ballot step, most of it the issue cost of the step itself, not
+//   the loads; runs share that cost among their rows, and a step of the
+//   longest walk takes about 100 cycles.  That chain still bounds K3, at
+//   about 7 % of its bytes bound on a 2,048-pair batch.
+// - The kernel writes every byte of its pair's outputs: first -1 over the
+//   cols row and 0 over the ins row, then the walk's columns, and each
+//   boundary's inserted count once, when the walk leaves it (the up moves
+//   at one boundary are consecutive, as j never rises).
+// The clamp of k into [0, 2*band] and the forced moves of row 0 and column
+// 0 (poa_pallas.py::_traceback_one) hold exactly: an entry above the band
+// reads cell 2*band until a left run brings it in, one below reads cell 0,
+// and a run through cell 0 goes on to j = 0.  Any code other than 0 and 1
+// moves left, as in the walk.
 
 #include <cuda_runtime.h>
 
@@ -81,7 +115,14 @@ constexpr int kWarpsPerBlock = 4;  // pairs per block of K2's chunked kernel
 // batch spreads over every SM, and at most 128 registers a thread, so that
 // 16 pairs share an SM.
 constexpr int kStripBlocksPerSm = 16;
-constexpr int kTbThreads = 64;     // pairs per block of K3
+constexpr int kTbWarps = 4;        // pairs per block of K3
+constexpr int kTbWin = 128;        // K3's window: 4 cells a lane
+constexpr int kTbRing = 64;        // rows in K3's ring (loaded or in flight)
+constexpr int kTbRun = 32;         // rows one ballot checks for a run
+// A slot's words: the window, the row's query word and padding to 16 bytes.
+constexpr int kTbSlot = kTbWin / 4 + 4;
+static_assert((kTbRing & (kTbRing - 1)) == 0 && kTbRing == 2 * kTbRun,
+              "a power-of-two ring: one run read, one run in flight");
 constexpr int kDefaultSmem = 48 * 1024;
 // The strip widths S of the strip kernel (kernels.POA_STRIPS), and the
 // widest band they hold: 32 * 33 cells >= 2 * 527 + 1.
@@ -355,46 +396,226 @@ poa_dp_ptr_chunked_kernel(const int8_t* __restrict__ tpad, int M,
   }
 }
 
-// One thread per pair: the walk of ops/poa_pallas.py::_traceback_one.
-// cols [B, M] must hold -1 and ins [B, M+1] zeros on entry.
-__global__ void __launch_bounds__(kTbThreads)
-poa_traceback_kernel(const int8_t* __restrict__ ptr,
+// cp.async of 4 and 16 bytes from global to shared memory (both aligned
+// to the size), and its groups.
+__device__ __forceinline__ void copy_async4(void* dst, uintptr_t src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async16(void* dst, uintptr_t src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Every group but the newest is in: the rows of the next run.
+__device__ __forceinline__ void wait_async_run() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_async_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K3's view of the pointer buffer: the first and last of its 16-byte
+// chunks.  A 4-byte word or 16-byte chunk that holds a byte of the buffer
+// lies in the buffer's pages, so it may be read whole; one outside is never
+// read.
+struct PtrWords {
+  uintptr_t first, last;
+  __device__ __forceinline__ bool ok(uintptr_t a) const {
+    return a >= first && a <= last + 12;
+  }
+  __device__ __forceinline__ bool ok16(uintptr_t a) const {
+    return a >= first && a <= last;
+  }
+  __device__ __forceinline__ unsigned load(uintptr_t a) const {
+    return ok(a) ? *reinterpret_cast<const unsigned*>(a) : 0u;
+  }
+};
+
+// The first address of a window of kTbWin cells that ends at cell `top`
+// of the row at byte `row`, aligned to `align` bytes (top's aligned unit is
+// the window's last).
+template <int kAlign>
+__device__ __forceinline__ uintptr_t window_at(uintptr_t row, int top) {
+  return ((row + top) & ~uintptr_t{kAlign - 1}) - (kTbWin - kAlign);
+}
+
+// The move of a row entered at cell kc whose code is left (or unknown):
+// the nearest cell at or below kc whose code is not left, found by one
+// ballot a window (cells [ka, ka + kTbWin) of the row at byte `row`, this
+// lane's word `word`), reloaded if kc is outside it and slid down while
+// the run goes on; kb is the cell of column 0, which moves up.  Returns
+// kstar * 2 + its code, or -1 for a run through cell 0 (on to column 0,
+// which moves up).
+__device__ __forceinline__ int scan_left(const PtrWords& pw, uintptr_t row,
+                                         int ka, unsigned word, int kc,
+                                         int kb, int lane) {
+  if (kc < ka || kc >= ka + kTbWin) {  // the walk drifted out: reload
+    const uintptr_t a = window_at<4>(row, kc);
+    ka = static_cast<int>(static_cast<long long>(a - row));
+    word = pw.load(a + 4 * lane);
+  }
+  while (true) {
+    const int k_lane = ka + 4 * lane;
+    int mine = -1;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k_lane + e;
+      const unsigned c = (word >> (8 * e)) & 0xffu;
+      if (k >= 0 && k <= kc && (k == kb || c <= 1u))
+        mine = 2 * k + (k == kb ? 1 : static_cast<int>(c));
+    }
+    const unsigned hit = __ballot_sync(kFull, mine >= 0);
+    if (hit) return __shfl_sync(kFull, mine, 31 - __clz(hit));
+    if (ka <= 0) return -1;
+    ka -= kTbWin;  // slide the window down by its width
+    word = pw.load(row + ka + 4 * lane);
+  }
+}
+
+// One warp per pair: the walk of the K3 design note.  Warp w of the launch
+// walks pair order[w]; ptr holds `total` bytes.
+__global__ void __launch_bounds__(32 * kTbWarps)
+poa_traceback_kernel(const int8_t* __restrict__ ptr, long long total,
                      const long long* __restrict__ offsets,
                      const int8_t* __restrict__ qpad, int N,
                      const int* __restrict__ ms, const int* __restrict__ ns,
-                     const int* __restrict__ bands, int B, int M,
+                     const int* __restrict__ bands,
+                     const int* __restrict__ order, int count, int M,
                      int8_t* __restrict__ cols, int* __restrict__ ins) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int band = bands[b];
-  const int width = 2 * band + 1;
-  const int8_t* p0 = ptr + offsets[b];
-  const int8_t* q = qpad + static_cast<size_t>(b) * N;
+  __shared__ __align__(16) int ring[kTbWarps][kTbRing][kTbSlot];
+  __shared__ int ring_k[kTbWarps][kTbRing];  // each slot's first cell
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kTbWarps + warp;
+  if (w >= count) return;  // the whole warp leaves together
+  const int b = order[w];
+  const int n = ns[b], m = ms[b], band = bands[b];
+  const int top_cell = 2 * band;
   int8_t* crow = cols + static_cast<size_t>(b) * M;
   int* irow = ins + static_cast<size_t>(b) * (M + 1);
-  int i = ns[b];
-  int j = ms[b];
-  while (i > 0 || j > 0) {
-    int p;
-    if (i == 0) {
-      p = 2;  // row 0 always moves left
-    } else if (j == 0) {
-      p = 1;  // column 0 always moves up
-    } else {
-      const int k = min(max(j - i + band, 0), 2 * band);
-      p = p0[static_cast<size_t>(i - 1) * width + k];
+  for (int x = lane; x < M; x += 32) crow[x] = -1;
+  for (int x = lane; x <= M; x += 32) irow[x] = 0;
+  __syncwarp();  // the walk's stores below come after the fills
+
+  const uintptr_t base = reinterpret_cast<uintptr_t>(ptr);
+  const PtrWords pw{base & ~uintptr_t{15},
+                    (base + total - 1) & ~uintptr_t{15}};
+  const uintptr_t pair = base + offsets[b];
+  const int width = top_cell + 1;
+  const uintptr_t qrow = reinterpret_cast<uintptr_t>(qpad) +
+                         static_cast<size_t>(b) * N;
+  int(*slots)[kTbSlot] = ring[warp];
+  int* slot_k = ring_k[warp];
+  auto slot_of = [&](int r) { return (n - r) & (kTbRing - 1); };
+  auto row_at = [&](int r) {
+    return pair + static_cast<uintptr_t>(r - 1) * width;
+  };
+  auto clamp_k = [&](int k) { return min(max(k, 0), top_cell); };
+
+  // Issue rows r0, r0-1, ..., r0-count+1 (lane u takes row r0-u): each
+  // row's window centred on cell k (kept in the band), 16 bytes a copy,
+  // and its query word, into the row's slot; one group.
+  auto issue = [&](int r0, int count, int k) {
+    const int r = r0 - lane;
+    if (lane < count && r >= 1) {
+      const int s = slot_of(r);
+      const uintptr_t row = row_at(r);
+      const uintptr_t a = window_at<16>(row, clamp_k(k + kTbWin / 2 - 1));
+#pragma unroll
+      for (int c = 0; c < kTbWin / 16; ++c)
+        if (pw.ok16(a + 16 * c)) copy_async16(&slots[s][4 * c], a + 16 * c);
+      copy_async4(&slots[s][kTbWin / 4], (qrow + r - 1) & ~uintptr_t{3});
+      slot_k[s] = static_cast<int>(static_cast<long long>(a - row));
     }
-    if (i > 0 && j > 0 && p == 0) {  // diag: query base onto column j-1
-      crow[j - 1] = q[i - 1];
-      --i;
-      --j;
-    } else if (i > 0 && p == 1) {    // up: one inserted base at boundary j
-      irow[j] += 1;
-      --i;
-    } else {                         // left: column j-1 is a gap
-      --j;
+    commit_async();
+  };
+  // Row r's code at cell k (in the band), 0xff where its window misses k.
+  auto code_at = [&](int r, int k) {
+    const int s = slot_of(r);
+    const int off = k - slot_k[s];
+    return off >= 0 && off < kTbWin
+               ? static_cast<unsigned>(
+                     reinterpret_cast<const uint8_t*>(slots[s])[off])
+               : 0xffu;
+  };
+  // The query base of row r from its slot.
+  auto query = [&](int r) {
+    const unsigned qw = static_cast<unsigned>(slots[slot_of(r)][kTbWin / 4]);
+    return static_cast<int8_t>(qw >> (8 * ((qrow + r - 1) & 3)));
+  };
+
+  int i = n, j = m;
+  issue(n, kTbRun, m - n + band);
+  issue(n - kTbRun, kTbRun, m - n + band);
+  int next = n - kTbRing;     // the next row to issue
+  int run_j = -1, run_c = 0;  // the boundary of the current up run
+  auto add_ups = [&](int at, int count) {
+    if (at != run_j) {
+      if (lane == 0 && run_c) irow[run_j] = run_c;
+      run_j = at;
+      run_c = 0;
     }
+    run_c += count;
+  };
+  while (i > 0) {
+    if (j == 0) {  // column 0: every row left moves up
+      add_ups(0, i);
+      break;
+    }
+    wait_async_run();
+    __syncwarp();  // every lane's copies of rows i .. i-kTbRun+1 are in
+    // Lane r reads row i-r where a diag run reaches it (the cell k = j - i
+    // + band, column j-r) and where an up run does (k + r, column j).
+    const int kraw = j - i + band;
+    const int ri = i - lane;
+    const unsigned cd =
+        ri >= 1 && j - lane >= 1 ? code_at(ri, clamp_k(kraw)) : 0xffu;
+    const unsigned cu = ri >= 1 ? code_at(ri, clamp_k(kraw + lane)) : 0xffu;
+    const unsigned stop_d = __ballot_sync(kFull, cd != 0u);
+    const unsigned stop_u = __ballot_sync(kFull, cu != 1u);
+    int used;
+    if (!(stop_d & 1u)) {  // a diag run: query bases onto columns j-1, ...
+      used = stop_d ? __ffs(stop_d) - 1 : kTbRun;
+      if (lane < used) crow[j - lane - 1] = query(ri);
+      j -= used;
+    } else if (!(stop_u & 1u)) {  // an up run at boundary j
+      used = stop_u ? __ffs(stop_u) - 1 : kTbRun;
+      add_ups(j, used);
+    } else {  // a left run (or a window that missed): one row
+      const int kc = clamp_k(kraw);
+      const int s = slot_of(i);
+      const int found = scan_left(pw, row_at(i), slot_k[s],
+                                  static_cast<unsigned>(slots[s][lane]), kc,
+                                  band - i, lane);
+      int jstar = 0, mv = 1;  // the move at column jstar: 0 diag, 1 up
+      if (found >= 0) {
+        const int kstar = found >> 1;
+        mv = found & 1;
+        jstar = kstar == kc ? j : kstar + i - band;
+      }
+      if (mv == 0) {
+        if (lane == 0) crow[jstar - 1] = query(i);
+        j = jstar - 1;
+      } else {
+        add_ups(jstar, 1);
+        j = jstar;
+      }
+      used = 1;
+    }
+    i -= used;
+    __syncwarp();  // every read of the used rows' slots is done
+    issue(next, used, j - i + band);
+    next -= used;
   }
+  if (lane == 0 && run_c) irow[run_j] = run_c;
+  wait_async_all();  // no copy into the ring outlives the warp
 }
 
 }  // namespace
@@ -455,22 +676,26 @@ int svtrek_poa_dp_ptr_chunked(const void* tpad, int M, const void* ms,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptr/offsets as written by K2; qpad [B, N] int8; ms, ns, bands [B] int32;
-// cols [B, M] int8 filled with -1 and ins [B, M+1] int32 filled with 0 by
-// the caller.  Launches on `stream` and returns cudaGetLastError().
-int svtrek_poa_traceback(const void* ptr, const void* offsets,
-                         const void* qpad, int N, const void* ms,
-                         const void* ns, const void* bands, int B, int M,
-                         void* cols, void* ins, void* stream) {
-  if (B <= 0) return 0;
-  const int blocks = (B + kTbThreads - 1) / kTbThreads;
-  poa_traceback_kernel<<<blocks, kTbThreads, 0,
+// ptr (total bytes) and offsets [B+1] as written by K2; qpad [B, N] int8;
+// ms, ns, bands [B] int32; order [count] int32 pair indices (each pair
+// once); cols [B, M] int8 and ins [B, M+1] int32, every byte of the rows
+// of the pairs of order written by the kernel.  Launches on `stream` and
+// returns cudaGetLastError().
+int svtrek_poa_traceback(const void* ptr, long long total,
+                         const void* offsets, const void* qpad, int N,
+                         const void* ms, const void* ns, const void* bands,
+                         const void* order, int count, int M, void* cols,
+                         void* ins, void* stream) {
+  if (count <= 0) return 0;
+  const int blocks = (count + kTbWarps - 1) / kTbWarps;
+  poa_traceback_kernel<<<blocks, 32 * kTbWarps, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(ptr),
+      static_cast<const int8_t*>(ptr), total,
       static_cast<const long long*>(offsets),
       static_cast<const int8_t*>(qpad), N, static_cast<const int*>(ms),
-      static_cast<const int*>(ns), static_cast<const int*>(bands), B, M,
-      static_cast<int8_t*>(cols), static_cast<int*>(ins));
+      static_cast<const int*>(ns), static_cast<const int*>(bands),
+      static_cast<const int*>(order), count, M, static_cast<int8_t*>(cols),
+      static_cast<int*>(ins));
   return static_cast<int>(cudaGetLastError());
 }
 

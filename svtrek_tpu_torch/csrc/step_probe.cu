@@ -38,10 +38,7 @@
 //
 // It replaces the design of one warp per b row (64 blocks of 4 warps at
 // B = 256, 16 lanes loading at WP 256, one load in flight a thread), which
-// read 111-130 GB/s.  That kernel is kept below, as step_probe_warp_kernel
-// behind the C entry point svtrek_step_probe_warp, only so that
-// chip_smoke.py can time it beside this one in the same run; the port's
-// wrapper never launches it.
+// read 111-130 GB/s.
 
 #include <cuda_runtime.h>
 
@@ -55,31 +52,7 @@ constexpr int kLoads = 4;              // vectors a thread reads per row
 constexpr int kTargetBlocks = 132 * 8;  // 8 blocks on each of 132 SMs
 constexpr int kMaxTile = kLoads * kThreads;  // b rows of a tile at WP 1
 constexpr int kCols = 128;  // the accumulator block's width
-constexpr int kWarps = 4;   // b rows per block of the replaced design
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kOnes = 0x01010101;  // __dp4a weights: the sum of 4 bytes
-
-template <int V>
-__device__ __forceinline__ int sum_bytes(const int8_t* p, int acc);
-
-template <>
-__device__ __forceinline__ int sum_bytes<16>(const int8_t* p, int acc) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  acc = __dp4a(v.x, kOnes, acc);
-  acc = __dp4a(v.y, kOnes, acc);
-  acc = __dp4a(v.z, kOnes, acc);
-  return __dp4a(v.w, kOnes, acc);
-}
-
-template <>
-__device__ __forceinline__ int sum_bytes<4>(const int8_t* p, int acc) {
-  return __dp4a(*reinterpret_cast<const int*>(p), kOnes, acc);
-}
-
-template <>
-__device__ __forceinline__ int sum_bytes<1>(const int8_t* p, int acc) {
-  return acc + static_cast<int>(*p);
-}
 
 // The vector type of each width, for loads issued before the sums.
 template <int V> struct Vec;
@@ -155,39 +128,6 @@ step_probe_kernel(const int8_t* __restrict__ ptr, int B, int WP,
     atomicAdd(out + static_cast<long long>(b0 + i) * kCols, part[i]);
 }
 
-// The replaced design: one block owns kWarps consecutive b rows, one warp
-// per b, and walks the steps [s0, s1), each warp reading its rows with one
-// vector load a lane in flight.
-template <int V>
-__global__ void __launch_bounds__(32 * kWarps)
-step_probe_warp_kernel(const int8_t* __restrict__ ptr, int B, int WP,
-                       int rows_per, int s0, int s1, int* __restrict__ out) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  const bool active = b < B;
-  const int nvec = WP / V;
-  int acc = 0;
-  for (int s = s0; s < s1; ++s) {
-    if (active) {
-      for (int r = 0; r < rows_per; ++r) {
-        const long long n = static_cast<long long>(s) * rows_per + r;
-        const int8_t* row = ptr + (n * B + b) * WP;
-        for (int v = lane; v < nvec; v += 32) acc = sum_bytes<V>(row + v * V, acc);
-      }
-    }
-    __syncthreads();  // the end of one step
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) acc += __shfl_down_sync(kFull, acc, d);
-  if (!active) return;
-  int* o = out + static_cast<long long>(b) * kCols;
-  if (lane == 0) o[0] = (s0 == 0 ? 0 : o[0]) + acc;
-  if (s0 == 0) {
-    for (int c = 1 + lane; c < kCols; c += 32) o[c] = 0;
-  }
-}
-
 // The widest vector the rows allow: every row of WP bytes starts V-aligned.
 int vector_bytes(const void* ptr, int WP) {
   const auto addr = reinterpret_cast<uintptr_t>(ptr);
@@ -241,28 +181,6 @@ int svtrek_step_probe(const void* ptr, int B, int WP, int rows_per, int s0,
   } else {
     step_probe_kernel<1><<<grid, kThreads, 0, st>>>(p, B, WP, rows_per, s0,
                                                    s1, tb, spb, o);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The replaced design, with svtrek_step_probe's arguments and result.
-int svtrek_step_probe_warp(const void* ptr, int B, int WP, int rows_per,
-                           int s0, int s1, void* out, void* stream) {
-  if (B <= 0) return 0;
-  const int blocks = (B + kWarps - 1) / kWarps;
-  const auto* p = static_cast<const int8_t*>(ptr);
-  auto* o = static_cast<int*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int V = vector_bytes(ptr, WP);
-  if (V == 16) {
-    step_probe_warp_kernel<16><<<blocks, 32 * kWarps, 0, st>>>(
-        p, B, WP, rows_per, s0, s1, o);
-  } else if (V == 4) {
-    step_probe_warp_kernel<4><<<blocks, 32 * kWarps, 0, st>>>(
-        p, B, WP, rows_per, s0, s1, o);
-  } else {
-    step_probe_warp_kernel<1><<<blocks, 32 * kWarps, 0, st>>>(
-        p, B, WP, rows_per, s0, s1, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,9 @@ import torch
 # Kernel launches per wrapper since the last reset_launch_counts().
 launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
                                  "poa_traceback": 0, "step_probe": 0}
+# The widest row K1 takes: one warp's row and its int64 prefix sums in the
+# shared memory of a block (csrc/consensus.cu); the packer ships K <= 8192.
+CONSENSUS_MAX_K = 16384
 # The widest per-pair band K2 takes: its chunked kernel's two score rows
 # per warp must fit in the shared memory of one block (csrc/poa.cu).
 POA_MAX_BAND = 2048
@@ -49,6 +52,10 @@ def load_library():
             ptr, ptr, ptr, ct.c_int, ct.c_int, ct.c_int,
             ct.c_int, ct.c_int, ct.c_int, ptr, ptr, ptr,
         ]
+        lib.svtrek_consensus_max_k.restype = ct.c_int
+        if lib.svtrek_consensus_max_k() != CONSENSUS_MAX_K:
+            raise RuntimeError("csrc/consensus.cu and "
+                               "kernels.CONSENSUS_MAX_K differ")
         lib.svtrek_poa_dp_ptr_strip.restype = ct.c_int
         lib.svtrek_poa_dp_ptr_strip.argtypes = [
             ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
@@ -64,13 +71,12 @@ def load_library():
             raise RuntimeError("csrc/poa.cu and kernels.POA_STRIPS differ")
         lib.svtrek_poa_traceback.restype = ct.c_int
         lib.svtrek_poa_traceback.argtypes = [
-            ptr, ptr, ptr, ct.c_int, ptr, ptr, ptr, ct.c_int, ct.c_int,
-            ptr, ptr, ptr,
+            ptr, ct.c_longlong, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
+            ct.c_int, ct.c_int, ptr, ptr, ptr,
         ]
-        for fn in (lib.svtrek_step_probe, lib.svtrek_step_probe_warp):
-            fn.restype = ct.c_int
-            fn.argtypes = [ptr, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                           ct.c_int, ptr, ptr]
+        lib.svtrek_step_probe.restype = ct.c_int
+        lib.svtrek_step_probe.argtypes = [ptr, ct.c_int, ct.c_int, ct.c_int,
+                                          ct.c_int, ct.c_int, ptr, ptr]
         lib.svtrek_cuda_error_string.restype = ct.c_char_p
         lib.svtrek_cuda_error_string.argtypes = [ct.c_int]
         _LIB = lib
@@ -115,9 +121,9 @@ def consensus_pos_cuda(locs: torch.Tensor, n: torch.Tensor,
     int32 with -1 = NA, overflow [B] bool), equal to
     `ops.consensus.consensus_pos_batch_reference`."""
     _require_cuda("consensus_pos_cuda", locs)
-    if locs.dim() != 2 or locs.shape[1] == 0:
-        raise ValueError(f"locs must be [B, K] with K >= 1, got "
-                         f"{tuple(locs.shape)}")
+    if locs.dim() != 2 or not 1 <= locs.shape[1] <= CONSENSUS_MAX_K:
+        raise ValueError(f"locs must be [B, K] with 1 <= K <= "
+                         f"{CONSENSUS_MAX_K}, got {tuple(locs.shape)}")
     if sweep_width < 1:
         raise ValueError(f"sweep_width must be >= 1, got {sweep_width}")
     B, K = locs.shape
@@ -226,6 +232,49 @@ def poa_dp_plan(M: int, N: int, ms: torch.Tensor, ns: torch.Tensor,
     return offsets, order, strips, max_band, total, n_strip
 
 
+def _dp_ptr_launch(tpad, ms, qpad, ns, bands, plan) -> torch.Tensor:
+    """K2's launches over a batch checked by `_pair_args` with its plan
+    (`poa_dp_plan`); returns the pointers."""
+    offsets, order, strips, max_band, total, n_strip = plan
+    (B, M), N, dev = tpad.shape, qpad.shape[1], tpad.device
+    ptr = torch.empty(total, dtype=torch.int8, device=dev)
+    lib = load_library()
+    args = (tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), N,
+            ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(),
+            ptr.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if n_strip:
+            rc = lib.svtrek_poa_dp_ptr_strip(
+                *args, order.data_ptr(), strips.data_ptr(), n_strip, stream)
+            _launched("poa_dp_ptr", lib, rc)
+        if n_strip < B:
+            rc = lib.svtrek_poa_dp_ptr_chunked(
+                *args, order[n_strip:].data_ptr(), B - n_strip, max_band,
+                stream)
+            _launched("poa_dp_ptr", lib, rc)
+    return ptr
+
+
+def _traceback_launch(ptr, offsets, order, qpad, ms, ns, bands, M: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's launch over checked pointers in the work-list order `order`;
+    the kernel writes every byte of cols and ins."""
+    B, N = qpad.shape
+    dev = qpad.device
+    cols = torch.empty((B, M), dtype=torch.int8, device=dev)
+    ins = torch.empty((B, M + 1), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.svtrek_poa_traceback(
+            ptr.data_ptr(), ptr.numel(), offsets.data_ptr(), qpad.data_ptr(),
+            N, ms.data_ptr(), ns.data_ptr(), bands.data_ptr(),
+            order.data_ptr(), B, M, cols.data_ptr(), ins.data_ptr(), stream)
+    _launched("poa_traceback", lib, rc)
+    return cols, ins
+
+
 def poa_dp_ptr_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
                     ns: torch.Tensor, bands: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -246,25 +295,8 @@ def poa_dp_ptr_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
     if B == 0:
         return (torch.empty(0, dtype=torch.int8, device=dev),
                 torch.zeros(1, dtype=torch.int64, device=dev))
-    offsets, order, strips, max_band, total, n_strip = poa_dp_plan(
-        M, N, ms, ns, bands)
-    ptr = torch.empty(total, dtype=torch.int8, device=dev)
-    lib = load_library()
-    args = (tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), N,
-            ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(),
-            ptr.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if n_strip:
-            rc = lib.svtrek_poa_dp_ptr_strip(
-                *args, order.data_ptr(), strips.data_ptr(), n_strip, stream)
-            _launched("poa_dp_ptr", lib, rc)
-        if n_strip < B:
-            rc = lib.svtrek_poa_dp_ptr_chunked(
-                *args, order[n_strip:].data_ptr(), B - n_strip, max_band,
-                stream)
-            _launched("poa_dp_ptr", lib, rc)
-    return ptr, offsets
+    plan = poa_dp_plan(M, N, ms, ns, bands)
+    return _dp_ptr_launch(tpad, ms, qpad, ns, bands, plan), plan[0]
 
 
 def poa_traceback_cuda(ptr: torch.Tensor, offsets: torch.Tensor,
@@ -274,7 +306,10 @@ def poa_traceback_cuda(ptr: torch.Tensor, offsets: torch.Tensor,
     """Kernel K3 (csrc/poa.cu): the traceback of every pair over K2's
     pointers.  Returns (cols [B, M] int8: the query base aligned to each
     target column, -1 = gap; ins [B, M+1] int32: query bases inserted
-    before each column), equal to `ops.poa_dp.traceback_reference`."""
+    before each column), equal to `ops.poa_dp.traceback_reference`.
+
+    For a caller that holds only the pointers: the pairs are checked with
+    one host read, and walked in K2's work-list order."""
     _require_cuda("poa_traceback_cuda", ptr)
     if qpad.dim() != 2:
         raise ValueError(f"qpad must be [B, N], got {tuple(qpad.shape)}")
@@ -287,23 +322,32 @@ def poa_traceback_cuda(ptr: torch.Tensor, offsets: torch.Tensor,
     if ptr.dim() != 1 or ptr.dtype != torch.int8:
         raise ValueError(f"ptr must be 1-D int8, got {ptr.dtype} "
                          f"{tuple(ptr.shape)}")
-    cols = torch.full((B, M), -1, dtype=torch.int8, device=dev)
-    ins = torch.zeros((B, M + 1), dtype=torch.int32, device=dev)
     if B == 0:
-        return cols, ins
+        return (torch.empty((0, M), dtype=torch.int8, device=dev),
+                torch.empty((0, M + 1), dtype=torch.int32, device=dev))
+    order = poa_work_order(ns, bands)
     _, (total,) = _check_pairs(M, N, ms, ns, bands, offsets[-1])
     if total != ptr.numel():
         raise ValueError(f"ptr holds {ptr.numel()} bytes, offsets say "
                          f"{total}")
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.svtrek_poa_traceback(
-            ptr.data_ptr(), offsets.data_ptr(), qpad.data_ptr(), N,
-            ms.data_ptr(), ns.data_ptr(), bands.data_ptr(), B, M,
-            cols.data_ptr(), ins.data_ptr(), stream)
-    _launched("poa_traceback", lib, rc)
-    return cols, ins
+    return _traceback_launch(ptr, offsets, order, qpad, ms, ns, bands, M)
+
+
+def poa_dp_cols_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
+                     ns: torch.Tensor, bands: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 then K3 on one batch (`ops.poa_dp.dp_cols` on CUDA tensors): one
+    plan and one host read for both, K3 walking K2's work list.  Returns
+    (cols [B, M] int8, ins [B, M+1] int32) as `poa_traceback_cuda`."""
+    _require_cuda("poa_dp_cols_cuda", tpad)
+    B, M, N = _pair_args(tpad, ms, qpad, ns, bands)
+    dev = tpad.device
+    if B == 0:
+        return (torch.empty((0, M), dtype=torch.int8, device=dev),
+                torch.empty((0, M + 1), dtype=torch.int32, device=dev))
+    plan = poa_dp_plan(M, N, ms, ns, bands)
+    ptr = _dp_ptr_launch(tpad, ms, qpad, ns, bands, plan)
+    return _traceback_launch(ptr, plan[0], plan[1], qpad, ms, ns, bands, M)
 
 
 def step_probe_cuda(ptr: torch.Tensor, rows_per: int, s0: int, s1: int,

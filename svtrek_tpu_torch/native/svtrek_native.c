@@ -9,7 +9,7 @@
  * Fresh implementation from the SAM/BAM/BAI format specs; exposed to
  * Python via ctypes (no pybind11 in this environment).
  *
- * Build: python -m svtrek_tpu.native.build
+ * Build: python -m svtrek_tpu_torch.native.build
  */
 #include <pthread.h>
 #include <stdint.h>

@@ -3,7 +3,7 @@
 Counterpart of svtrek_tpu/ops/poa_pallas.py (kernels K2 and K3) and of the
 DP half of svtrek_tpu/ops/poa_batch.py.  `dp_cols` is the dispatch: CUDA
 tensors go to the hand-written kernels (csrc/poa.cu through
-`kernels.poa_dp_ptr_cuda` and `kernels.poa_traceback_cuda`), CPU tensors
+`kernels.poa_dp_cols_cuda`: K2, then K3 on K2's plan), CPU tensors
 to the plain PyTorch versions here, `dp_ptr_reference` and
 `traceback_reference`.  The choice is made by the tensors' device; there is
 no fallback from one to the other.
@@ -208,11 +208,9 @@ def dp_cols(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
     (cols [B, M] int8, ins [B, M+1] int32), svtrek_tpu's
     `_dp_cols_batch` outputs for any storage W >= max(bands)."""
     if tpad.device.type == "cuda":
-        from ..kernels import poa_dp_ptr_cuda, poa_traceback_cuda
+        from ..kernels import poa_dp_cols_cuda
 
-        ptr, offsets = poa_dp_ptr_cuda(tpad, ms, qpad, ns, bands)
-        return poa_traceback_cuda(ptr, offsets, qpad, ms, ns, bands,
-                                  M=tpad.shape[1])
+        return poa_dp_cols_cuda(tpad, ms, qpad, ns, bands)
     if tpad.device.type != "cpu":
         raise ValueError(f"no POA DP path for device {tpad.device}")
     plain_calls["poa_dp_ptr"] += 1

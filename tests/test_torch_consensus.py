@@ -231,3 +231,183 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         kbuild.build(force=True)
     assert kbuild.sources() and all(
         s.startswith(kbuild.CSRC) for s in kbuild.sources())
+
+
+def _wrap(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _wrap_abs(x: int) -> int:
+    return _wrap(-x) if x < 0 else x
+
+
+def _k1_model(locs, n, pos, *, min_count=C.CONSENSUS_MIN_COUNT,
+              interval=C.CONSENSUS_INTERVAL,
+              range_=C.CONSENSUS_INTERVAL_RANGE, sweep_width=128):
+    """A numpy model of K1's warp per window (csrc/consensus.cu): the
+    row's int64 prefix sums; the left start as the count of values <= pos
+    + 25; each anchor's clusters as index ranges of the sorted row (lower
+    and upper bounds by search), their sums as differences of prefixes;
+    the anchors in chunks of 32 lanes, and the fold jumping from one
+    accepted anchor to the next (the first lane of the chunk that beats
+    the carry), with activity followed to the end of the W anchors."""
+    B, K = locs.shape
+    W = min(sweep_width, K)
+    lanes = np.arange(32)
+    out = np.full(B, -1, np.int32)
+    ovf = np.zeros(B, bool)
+
+    def left(row, P, i, L):
+        lo = L if L >= BIG - interval else _wrap(L - interval)
+        first = int(np.searchsorted(row[:i + 1], lo, side="left"))
+        c = i + 1 - first
+        s = c * L - int(P[i + 1] - P[first])
+        return _wrap(L + (c // 2 - s) // max(c, 1)), c
+
+    def right(row, P, i, n_row, L):
+        hi = L if L >= BIG - interval else _wrap(L + interval)
+        end = i + int(np.searchsorted(row[i:n_row], hi, side="right"))
+        c = end - i
+        cs = max(c, 1)
+        s = int(P[end] - P[i]) - c * L
+        return _wrap(L + (s + cs // 2) // cs), c
+
+    def sweep(d, sw, fold, row, P, point, nb, n_row, p):
+        for c0 in range(0, W, 32):
+            idx = point + d * (c0 + lanes)
+            inb = (c0 + lanes < W) & ((idx >= 0) if d < 0 else (idx < nb))
+            ic = np.minimum(idx, K - 1)
+            L = np.where(inb, row[np.clip(ic, 0, K - 1)], 0)
+            ok = inb & np.array([_wrap_abs(_wrap(p - int(v))) < range_
+                                 for v in L])
+            active = 32 if ok.all() else int(np.argmin(ok))
+            fold = fold and not sw["returned"]
+            if fold and active > 0:
+                stats = [left(row, P, int(ic[t]), int(L[t])) if d < 0 else
+                         right(row, P, int(ic[t]), n_row, int(L[t]))
+                         for t in range(active)]
+                last = -1
+                while True:
+                    steps = [t for t in range(last + 1, active)
+                             if stats[t][1] > sw["max_count"] and (
+                                 _wrap_abs(_wrap(p - stats[t][0]))
+                                 < max(interval, sw["best_dist"]))]
+                    if not steps:
+                        break
+                    last = steps[0]
+                    cand, count = stats[last]
+                    dist = _wrap_abs(_wrap(p - cand))
+                    if dist < interval:
+                        sw.update(returned=True, ret_val=cand)
+                        break
+                    sw.update(max_count=count, best_val=cand,
+                              best_dist=dist)
+            if active < min(32, W - c0):
+                return False
+        return True
+
+    for b in range(B):
+        nb, p = int(n[b]), int(pos[b])
+        if nb < min_count or nb <= 0:
+            continue
+        row = locs[b].astype(np.int64)
+        P = np.concatenate([[0], np.cumsum(row)])
+        le = int((row <= _wrap(p + 25)).sum())
+        last = nb - 1
+        point_l = min(max(le - 1, 0), last)
+        point_r = 0 if row[0] < _wrap(p - 25) else last
+        n_row = min(nb, K)
+        sl, sr = ({"max_count": min_count - 1, "best_dist": BIG,
+                   "best_val": -1, "ret_val": -1, "returned": False}
+                  for _ in range(2))
+        act_l = sweep(-1, sl, True, row, P, point_l, nb, n_row, p)
+        act_r = sweep(1, sr, not sl["returned"], row, P, point_r, nb, n_row,
+                      p)
+        res = sl["best_val"] if sl["best_dist"] < sr["best_dist"] \
+            else sr["best_val"]
+        if sr["returned"]:
+            res = sr["ret_val"]
+        if sl["returned"]:
+            res = sl["ret_val"]
+        out[b] = res
+        ovf[b] = (act_l and point_l - (W - 1) > 0) or \
+            (act_r and point_r + (W - 1) < last)
+    return out, ovf
+
+
+def _wrapping_rows():
+    """Rows near INT32_MAX and INT32_MIN where pos +- 25, pos - loc and
+    the cluster bounds wrap in int32, led by the edge rows and the
+    early-return tie."""
+    rng = np.random.default_rng(41)
+    cases = [
+        ([], 1000), ([5000, 5001], 5000),
+        ([BIG - 10, BIG - 9, BIG - 8, BIG - 3], BIG - 9),
+        ([BIG - 100, BIG - 99, BIG - 98], BIG - 5),
+        ([995, 996, 997, 1004, 1005, 1006], 1000),
+        ([1, 2, 3], -2**31 + 3),
+        ([-2**31, -2**31 + 1, -2**31 + 2], 2**31 - 1),
+        ([BIG - 2, BIG - 1, BIG - 1, BIG], BIG - 20),
+        ([-2**31, -2**31, -2**31 + 3, -2**31 + 4], -2**31 + 10),
+    ]
+    for _ in range(24):
+        edge = BIG - 40 if rng.random() < 0.5 else -2**31
+        vals = (edge + rng.integers(0, 40, int(rng.integers(3, 12))))
+        cases.append((vals.tolist(), int(_wrap(edge + int(
+            rng.integers(-60, 60))))))
+    return cases
+
+
+K1_CASES = ["edge_wrap", "tie", "random", "sw3", "sw8", "k1024"]
+
+
+def _k1_case(name):
+    kw = {}
+    if name == "edge_wrap":
+        locs, n, pos = _pack(_wrapping_rows(), 16)
+    elif name == "tie":
+        locs, n, pos = _pack([([995, 996, 997, 1004, 1005, 1006], 1000),
+                              ([990, 991, 992, 1008, 1009, 1010], 1000)], 16)
+    elif name in ("random", "sw3", "sw8"):
+        rng = np.random.default_rng(7)
+        locs, n, pos = _pack(_random_cases(rng, 64, 40), 64)
+        if name != "random":
+            kw["sweep_width"] = int(name[2:])
+    else:
+        rng = np.random.default_rng(5)
+        locs = np.full((4, 1024), PAD, np.int32)
+        n = np.array([700, 1024, 3, 90], np.int32)
+        pos = np.zeros(4, np.int32)
+        for b in range(4):
+            base = int(rng.integers(100_000, 1_000_000))
+            locs[b, : n[b]] = np.sort(base + rng.integers(-400, 400, n[b]))
+            pos[b] = base + int(rng.integers(-20, 20))
+    return locs, n, pos, kw
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_k1_model_matches_reference_and_jax(name):
+    """K1's range-and-prefix-sum clusters and ballot fold equal the plain
+    version and JAX's consensus_pos_batch (its scan and its Pallas fold in
+    interpret mode), overflow flags included."""
+    locs, n, pos, kw = _k1_case(name)
+    got = _k1_model(locs, n, pos, **kw)
+    _assert_same(got, _torch(locs, n, pos, **kw))
+    _assert_same(got, _jax(locs, n, pos, impl="scan", **kw))
+    if name != "k1024":  # the interpret-mode fold is slow at K = 1024
+        _assert_same(got, _jax(locs, n, pos, impl="pallas_interpret", **kw))
+    if name.startswith("sw"):
+        assert got[1].sum() > 10
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_k1_model_nondefault_params(seed):
+    """min_count 2, interval 12, range 200, and a negative interval: the
+    clamp and wrap of the cluster bounds, as the plain version computes
+    them."""
+    rng = np.random.default_rng(500 + seed)
+    locs, n, pos = _pack(_random_cases(rng, 48, 30, spread=300), 32)
+    for kw in (dict(min_count=2, interval=12, range_=200),
+               dict(min_count=1, interval=-3, range_=400)):
+        _assert_same(_k1_model(locs, n, pos, **kw), _torch(locs, n, pos,
+                                                           **kw))

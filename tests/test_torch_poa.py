@@ -383,3 +383,282 @@ def test_work_order_scattered_back_equals_input_order(name):
     for p, b in enumerate(order.tolist()):
         got[offsets[b]:offsets[b + 1]] = got_perm[perm_off[p]:perm_off[p + 1]]
     assert torch.equal(got, want)
+
+
+# K3's window and run (csrc/poa.cu kTbWin, kTbRun; its ring holds two runs
+# of rows).
+K3_WIN, K3_RUN = 128, 32
+
+
+def _k3_model(ptr, offsets, qpad, ms, ns, bands, order, M, *, base=0,
+              win=K3_WIN, run_len=K3_RUN, seed=0):
+    """A numpy model of K3's walk (csrc/poa.cu poa_traceback_kernel), one
+    warp per pair in work-list order: the outputs filled first; a ring of
+    2 * `run_len` rows, each a window of `win` cells in 16-byte chunks
+    (ptr's byte 0 at address `base`) centred on the walk's cell when the
+    row was issued; one ballot over `run_len` rows for a diagonal run (the
+    walk's cell in each row) and one for an up run (one cell higher a
+    row); a row that starts neither: the highest non-left cell at or below
+    the walk's (the ballot of a left run) in its window, reloaded in words
+    when the walk drifted out and slid down by `win` while the run goes
+    on; column 0 moves up to row 0; each boundary's up count stored once.
+    Ring bytes the kernel does not load keep stale (random) values, which
+    the walk must never read as cells of the row."""
+    rng = np.random.default_rng(seed)
+    mem = ptr.numpy().view(np.uint8)
+    total = len(mem)
+    first, last = base & ~15, (base + total - 1) & ~15
+    B = qpad.shape[0]
+    cols = np.zeros((B, M), np.int8)
+    ins = np.zeros((B, M + 1), np.int32)
+    ring = 2 * run_len
+
+    def load(a, cells, unit):
+        """The window at address a, in units of `unit` bytes, each read
+        only where it lies in the buffer's first to last 16-byte chunk."""
+        start = a + unit * np.arange(win // unit)
+        ok = np.repeat((start >= first) & (start <= last + 16 - unit), unit)
+        at = a - base + np.arange(win)
+        inside = ok & (at >= 0) & (at < total)
+        out = cells.copy()
+        out[ok] = rng.integers(0, 256, int(ok.sum()))  # bytes past the ends
+        out[inside] = mem[at[inside]]
+        return out
+
+    def scan_left(row, ka, cells, kc, kb):
+        if kc < ka or kc >= ka + win:
+            a = ((row + kc) & ~3) - (win - 4)
+            ka, cells = a - row, load(a, np.zeros(win, np.uint8), 4)
+        while True:
+            k = ka + np.arange(win)
+            hit = (k >= 0) & (k <= kc) & ((k == kb) | (cells <= 1))
+            if hit.any():
+                at = int(np.flatnonzero(hit)[-1])
+                return 2 * int(k[at]) + (1 if k[at] == kb else int(cells[at]))
+            if ka <= 0:
+                return -1
+            ka -= win
+            cells = load(row + ka, np.zeros(win, np.uint8), 4)
+
+    q_np = qpad.numpy()
+    for b in order.tolist():
+        n, m, band = int(ns[b]), int(ms[b]), int(bands[b])
+        top_cell, width = 2 * band, 2 * band + 1
+        pair = base + int(offsets[b])
+        cols[b] = -1
+        ins[b] = 0
+        slots = rng.integers(0, 3, (ring, win)).astype(np.uint8)
+        slot_k = np.zeros(ring, np.int64)
+        slot_q = np.zeros(ring, np.int8)
+
+        def slot_of(r):
+            return (n - r) % ring
+
+        def clamp_k(k):
+            return min(max(k, 0), top_cell)
+
+        def issue(r0, count, k):
+            for r in range(r0, max(r0 - count, 0), -1):
+                s = slot_of(r)
+                row = pair + (r - 1) * width
+                a = ((row + clamp_k(k + win // 2 - 1)) & ~15) - (win - 16)
+                slots[s] = load(a, slots[s], 16)
+                slot_k[s] = a - row
+                slot_q[s] = q_np[b, r - 1]
+
+        def code_at(r, k):
+            off = k - int(slot_k[slot_of(r)])
+            return int(slots[slot_of(r)][off]) if 0 <= off < win else 0xFF
+
+        def first_stop(codes, want):
+            return next((r for r, c in enumerate(codes) if c != want),
+                        run_len)
+
+        run = [-1, 0]  # the boundary of the current up run, its count
+
+        def add_ups(at, count):
+            if at != run[0]:
+                if run[1]:
+                    ins[b, run[0]] = run[1]  # stored once, as it ends
+                run[:] = [at, 0]
+            run[1] += count
+
+        i, j = n, m
+        issue(n, run_len, m - n + band)
+        issue(n - run_len, run_len, m - n + band)
+        nxt = n - ring
+        while i > 0:
+            if j == 0:
+                add_ups(0, i)
+                break
+            kraw = j - i + band
+            cd = [code_at(i - r, clamp_k(kraw))
+                  if i - r >= 1 and j - r >= 1 else 0xFF
+                  for r in range(run_len)]
+            cu = [code_at(i - r, clamp_k(kraw + r)) if i - r >= 1 else 0xFF
+                  for r in range(run_len)]
+            if cd[0] == 0:
+                used = first_stop(cd, 0)
+                for r in range(used):
+                    cols[b, j - r - 1] = slot_q[slot_of(i - r)]
+                j -= used
+            elif cu[0] == 1:
+                used = first_stop(cu, 1)
+                add_ups(j, used)
+            else:
+                kc = clamp_k(kraw)
+                s = slot_of(i)
+                found = scan_left(pair + (i - 1) * width, int(slot_k[s]),
+                                  slots[s], kc, band - i)
+                jstar, mv = 0, 1
+                if found >= 0:
+                    kstar, mv = found >> 1, found & 1
+                    jstar = j if kstar == kc else kstar + i - band
+                if mv == 0:
+                    cols[b, jstar - 1] = slot_q[s]
+                    j = jstar - 1
+                else:
+                    add_ups(jstar, 1)
+                    j = jstar
+                used = 1
+            i -= used
+            issue(nxt, used, j - i + band)
+            nxt -= used
+        if run[1]:
+            ins[b, run[0]] = run[1]
+    return torch.from_numpy(cols), torch.from_numpy(ins)
+
+
+def _long_runs(kind):
+    """Pairs whose walks make left runs longer than K3's window (m >> n:
+    the query a piece of its target, bands up to 2,048) or long up runs
+    (n >> m: a long insert), with degenerate pairs among them."""
+    rng = np.random.default_rng(21 if kind == "left" else 22)
+    if kind == "left":
+        shapes = [(700, 40, 2048), (400, 9, 391), (300, 150, 200),
+                  (520, 0, 520), (260, 1, 300)]
+    else:
+        shapes = [(40, 700, 2048), (9, 400, 391), (150, 300, 200),
+                  (0, 520, 520), (1, 260, 300)]
+    B = len(shapes)
+    M = max(m for m, _, _ in shapes)
+    N = max(n for _, n, _ in shapes)
+    tpad = np.full((B, M), 5, np.int8)
+    qpad = np.full((B, N), 5, np.int8)
+    for b, (m, n, _) in enumerate(shapes):
+        t = rng.integers(0, 4, m).astype(np.int8)
+        if n <= m:
+            start = int(rng.integers(0, m - n + 1))
+            q = t[start:start + n].copy()
+            q[rng.random(n) < 0.05] = rng.integers(0, 4)
+        else:
+            q = np.insert(t, m // 2, rng.integers(0, 4, n - m)).astype(
+                np.int8)
+        tpad[b, :m], qpad[b, :n] = t, q
+    ms = np.array([m for m, _, _ in shapes], np.int32)
+    ns = np.array([n for _, n, _ in shapes], np.int32)
+    bands = np.array([bd for _, _, bd in shapes], np.int32)
+    return tpad, ms, qpad, ns, bands, int(bands.max())
+
+
+def _k3_inputs(name):
+    tpad, ms, qpad, ns, bands, W = (_long_runs(name[5:])
+                                    if name.startswith("runs_")
+                                    else _case(name))
+    args = _t(tpad, ms, qpad, ns, bands)
+    lanes = poa_dp.dp_ptr_reference(*args, W=W)
+    ptr = poa_dp.pointers_by_pair(lanes, args[3], args[4], W=W)
+    offsets = kernels.poa_ptr_offsets(args[3], args[4])
+    return tpad, ms, qpad, ns, bands, W, lanes, ptr, offsets
+
+
+@pytest.mark.parametrize("name", CASES + ["runs_left", "runs_up"])
+def test_k3_model_matches_traceback_and_jax(name):
+    """K3's walk, at the kernel's window and run, equals the plain walk
+    and JAX's `_traceback_one` (vmapped over the pairs, on the same
+    pointers at the storage width W).  The two long-run cases walk left
+    runs of hundreds of cells (several windows) and up runs of hundreds of
+    rows."""
+    import functools
+
+    import jax
+
+    from svtrek_tpu.ops.poa_pallas import _traceback_one
+
+    tpad, ms, qpad, ns, bands, W, lanes, ptr, offsets = _k3_inputs(name)
+    M, N = tpad.shape[1], qpad.shape[1]
+    q_t, m_t, n_t, b_t = _t(qpad, ms, ns, bands)
+    order = kernels.poa_work_order(n_t, b_t)
+    got = _k3_model(ptr, offsets, q_t, m_t, n_t, b_t, order, M)
+    want = poa_dp.traceback_reference(ptr, offsets, q_t, m_t, n_t, b_t, M=M)
+    one = functools.partial(_traceback_one, W=W, M=M, N=N)
+    jax_cols, jax_ins = (np.asarray(x) for x in jax.vmap(one)(
+        lanes.numpy().transpose(1, 0, 2), qpad, ms, ns))
+    for g, w, j in zip(got, want, (jax_cols, jax_ins)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+        np.testing.assert_array_equal(g.numpy(), j)
+    if name.startswith("runs_"):
+        runs = (ns - ms) if name == "runs_up" else (ms - ns)
+        assert runs.max() > K3_WIN
+
+
+@pytest.mark.parametrize("name,base,win,run_len", [
+    ("1", 3, 16, 2), ("3", 1, 32, 4), ("degenerate", 2, 16, 1),
+    ("overrun", 0, 48, 8), ("runs_left", 3, 16, 3), ("runs_up", 1, 16, 2)])
+def test_k3_model_small_windows_and_unaligned_buffer(name, base, win,
+                                                     run_len):
+    """The same walk with windows of a few chunks and short runs, over a
+    buffer that starts off a 4-byte boundary: many slides, reloads,
+    stopped runs and partial chunks at the buffer's ends, the same
+    outputs."""
+    tpad, ms, qpad, ns, bands, W, _, ptr, offsets = _k3_inputs(name)
+    M = tpad.shape[1]
+    q_t, m_t, n_t, b_t = _t(qpad, ms, ns, bands)
+    order = kernels.poa_work_order(n_t, b_t)
+    got = _k3_model(ptr, offsets, q_t, m_t, n_t, b_t, order, M, base=base,
+                    win=win, run_len=run_len, seed=7)
+    want = poa_dp.traceback_reference(ptr, offsets, q_t, m_t, n_t, b_t, M=M)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k3_model_reads_any_code_as_the_walk_does():
+    """Pointers that K2 never writes (codes other than 0-2, up at the band
+    edge, left through cell 0): K3's walk still takes the plain walk's
+    moves, the clamp of k into [0, 2*band] and the forced moves included."""
+    rng = np.random.default_rng(31)
+    B, M, N = 12, 40, 40
+    ms = rng.integers(0, M + 1, B).astype(np.int32)
+    ns = rng.integers(0, N + 1, B).astype(np.int32)
+    bands = (np.abs(ns - ms) + rng.integers(0, 4, B)).astype(np.int32)
+    n_t, b_t = _t(ns, bands)
+    offsets = kernels.poa_ptr_offsets(n_t, b_t)
+    ptr = torch.from_numpy(rng.choice(
+        np.array([0, 1, 2, 2, 2, 3, -1, 127], np.int8), int(offsets[-1])))
+    qpad = rng.integers(0, 4, (B, N)).astype(np.int8)
+    q_t, m_t = _t(qpad, ms)
+    order = kernels.poa_work_order(n_t, b_t)
+    want = poa_dp.traceback_reference(ptr, offsets, q_t, m_t, n_t, b_t, M=M)
+    for win, run_len in ((K3_WIN, K3_RUN), (16, 1), (32, 3)):
+        got = _k3_model(ptr, offsets, q_t, m_t, n_t, b_t, order, M,
+                        base=1, win=win, run_len=run_len)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dp_cols_cuda_path_refuses_cpu_tensors():
+    """K2 and K3 on one plan (`kernels.poa_dp_cols_cuda`, the CUDA route of
+    dp_cols) takes CUDA tensors only; dp_cols on CPU tensors takes the plain
+    path, counts it, launches nothing and equals the JAX program."""
+    tpad, ms, qpad, ns, bands, W = _case("3")
+    args = _t(tpad, ms, qpad, ns, bands)
+    launches = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.poa_dp_cols_cuda(*args)
+    before = dict(poa_dp.plain_calls)
+    cols, ins = poa_dp.dp_cols(*args)
+    assert kernels.launch_counts == launches
+    assert poa_dp.plain_calls["poa_traceback"] == \
+        before["poa_traceback"] + 1
+    want_cols, want_ins = (np.asarray(x) for x in jbatch._dp_cols_batch(
+        tpad, ms, qpad, ns, bands, W=W))
+    np.testing.assert_array_equal(cols.numpy(), want_cols)
+    np.testing.assert_array_equal(ins.numpy(), want_ins)
