@@ -13,7 +13,8 @@ last line:
    process per source, from the sources in this checkout, with ptxas's
    register report;
 3. kernel: K1 against its plain PyTorch version on the card at the bench
-   shapes, the main path's shape and edge rows, exact integer equality,
+   shapes, the main path's shape, the device-extract path's (512, 1024)
+   and edge rows, exact integer equality,
    plus 256 rows against tools/audt_scalar.py's scalar consensus;
    CUDA-event times of both, and at every shape the profiler's time of K1
    alone beside a launch floor (one int32 elementwise op on a [B] tensor,
@@ -65,12 +66,33 @@ last line:
    tools/disc_scalar.py (an independent scalar disc on the Python GAF
    projection) and the `seq:` field equal to its scalar star consensus on
    8 insertion clusters, the largest among them;
-9. standalone: the script refuses every import of `jax`, `jaxlib` and the
+9. device extract: `audt --extract device --device cuda` on the fixture
+   of phase 6: the C reader fetches, the card walks the CIGARs
+   (svtrek_tpu_torch.ops.cigar), groups the candidates and runs K1 at
+   (512, 1024); the lines must be byte-identical to phase 6's (which
+   equal tools/audt_scalar.py's), the walk must have run on the card once
+   per batch, K1 once per batch or more, the plain consensus never; then
+   the CUDA-event time of one batch's device step;
+10. Python BAM path, reduced: tools/torch_fixtures.py's 500-record fixture
+   (the Python reader at 60.2 M ops would take minutes): `audt
+   --no-native-io` on cuda and on cpu, equal to each other and to
+   tools/audt_scalar.py, the walk on the card once per batch; `scan` over
+   the whole chromosome on the native path on cuda and on cpu, and on a
+   6 Mbp sub-region on the native and the `--no-native-io` path on cuda
+   (the Python path fetches each tile), all equal to tools/scan_scalar.py,
+   an independent scalar scan;
+11. scan, full size: `scan -c 1 -s 1 -e 120000000 --device cuda` on the
+   fixture of phase 6 (120,000 tiles, 15 batches of 8,192), the window
+   scan on the card once per batch, the lines equal to a `--device cpu`
+   run;
+12. standalone: the script refuses every import of `jax`, `jaxlib` and the
    JAX package `svtrek_tpu` from its first line on, and checks at the end
    that none was loaded.
 
-The line before the last two is {"kernels": [...]}: each kernel's launches
-on its path (K1 the ins-consensus audt, K2 and K3 disc, K4 the probe), its
+Every phase prints its wall time.  The line before the last two is
+{"kernels": [...]}: each kernel's launches on its path (K1 the
+ins-consensus audt, and in `launches_extract_device` the device-extract
+audt; K2 and K3 disc, K4 the probe), its
 largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
@@ -125,14 +147,21 @@ RECORDS, DEPTH, OPS_PER_READ = 5000, 10, 800
 BIG = 0x7FFFFFFF
 # (B, K, sweep_width): the bench refine shape B=8192 (bench.py:33) over the
 # K buckets the packer ships, K=1024 at B=1024 (the plain version holds a
-# [B, W, K] int64 intermediate), sweep_width 8 to raise overflow flags, and
-# the main path's own shape (512 windows, K=16).
+# [B, W, K] int64 intermediate), sweep_width 8 to raise overflow flags, the
+# main path's own shape (512 windows, K=16) and the device-extract path's
+# (512 windows, K = 1,024 from --max-candidates).
 KERNEL_SHAPES = [
-    (512, 16, 128),
+    (512, 16, 128), (512, 1024, 128),
     (8192, 16, 128), (8192, 64, 128), (8192, 128, 128), (8192, 128, 8),
     (8192, 64, 8), (1024, 1024, 128), (1024, 1024, 8),
 ]
 MAIN_SHAPE = (512, 16, 128)
+# The reduced fixture of the Python BAM path (tools/torch_fixtures.py at 500
+# records: 7,500 reads, 6.0 M CIGAR ops) and the sub-region its
+# `--no-native-io` scan covers, 1-based [start, end).
+PY_RECORDS = 500
+PY_SCAN_REGION = (1, 6_000_000)
+CHROM_END = 120_000_000
 # The ins-consensus fixture (tools/ins_fixture.py): sites, seed.
 INS_SITES, INS_SEED = 2000, 0
 # Sites per insert-length class whose consensus tools/audt_scalar.py
@@ -698,19 +727,19 @@ def concordance(lines) -> float:
     return hits / total if total else 0.0
 
 
-def fixture() -> tuple[str, str]:
+def fixture(records: int = RECORDS) -> tuple[str, str]:
     from torch_fixtures import build_fixture
 
     d = os.path.join(tempfile.gettempdir(),
-                     f"svtrek_smoke_r{RECORDS}_d{DEPTH}_o{OPS_PER_READ}_alla")
+                     f"svtrek_smoke_r{records}_d{DEPTH}_o{OPS_PER_READ}_alla")
     marker = os.path.join(d, "done")
     if not os.path.exists(marker):
         os.makedirs(d, exist_ok=True)
         t0 = time.perf_counter()
-        _, _, n_reads, n_ops = build_fixture(d, RECORDS, DEPTH, OPS_PER_READ,
+        _, _, n_reads, n_ops = build_fixture(d, records, DEPTH, OPS_PER_READ,
                                              realistic_seq=False)
         open(marker, "w").close()
-        print(f"[fixture] {RECORDS} records, {n_reads} reads, {n_ops} CIGAR "
+        print(f"[fixture] {records} records, {n_reads} reads, {n_ops} CIGAR "
               f"ops, built in {time.perf_counter() - t0:.1f}s", flush=True)
     return os.path.join(d, "bench.bam"), os.path.join(d, "bench.vcf")
 
@@ -743,7 +772,9 @@ def run_cli(argv, tag: str):
     return lines, stats, wall
 
 
-def phase_main_path() -> None:
+def phase_main_path():
+    """The host-extract audt on the card; returns its lines, which equal
+    tools/audt_scalar.py's."""
     from audt_scalar import audt_lines
     from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
     from svtrek_tpu_torch.ops.consensus import plain_calls
@@ -787,6 +818,223 @@ def phase_main_path() -> None:
           f"fetch+pack={stats['fetch+pack']}s (worker-seconds) "
           f"device_wait={stats['device_wait']}s emit={stats['emit']}s "
           f"total={stats['total']}s", flush=True)
+    return got
+
+
+def reset_path_counts() -> None:
+    """Zero every kernel launch count and every plain-path and per-device
+    call count, just before a path runs."""
+    from svtrek_tpu_torch.kernels import reset_launch_counts
+    from svtrek_tpu_torch.ops import cigar, consensus, poa_dp, window_scan
+
+    reset_launch_counts()
+    for calls in (consensus.plain_calls, poa_dp.plain_calls,
+                  cigar.walk_calls, window_scan.scan_calls):
+        for k in calls:
+            calls[k] = 0
+
+
+def check_walk_path(tag: str, stats) -> int:
+    """After a device-walk audt run on cuda: the walk on the card once per
+    batch, K1 once per batch or more, no plain path.  Returns K1's
+    launches."""
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops import cigar, consensus
+
+    batches = int(stats["batches"])
+    walks = dict(cigar.walk_calls)
+    launches = launch_counts["consensus_pos"]
+    if batches < 1 or walks.get("cuda", 0) != batches or \
+            sum(walks.values()) != batches:
+        fail(f"{tag}: the evidence walk ran {walks} for {batches} batches")
+    if launches < batches:
+        fail(f"{tag}: K1 launched {launches} times for {batches} batches")
+    if consensus.plain_calls["consensus_pos"] != 0:
+        fail(f"{tag}: the plain consensus ran on --device cuda")
+    return launches
+
+
+def phase_extract_device(host_lines: list[str]) -> int:
+    """`audt --extract device --device cuda` on phase 6's fixture: lines
+    byte-identical to phase 6's, the walk and K1 on the card in every
+    batch; then one batch's device step timed.  Returns K1's launches."""
+    import torch
+
+    from svtrek_tpu_torch.config import AudtConfig
+    from svtrek_tpu_torch.ops.audit_step import (
+        audit_refine_step_csr, to_device,
+    )
+    from svtrek_tpu_torch.pipeline.audit import open_native_reader
+    from svtrek_tpu_torch.pipeline.pack import (
+        pack_chunk_native, windows_for_task,
+    )
+    from svtrek_tpu_torch.io.vcf import VcfTask, iter_vcf_tasks
+    from torch_step_overhead import cuda_ms
+
+    bam, vcf = fixture()
+    reset_path_counts()
+    got, stats, wall = run_cli(["audt", "-b", bam, "-v", vcf, "--device",
+                                "cuda", "--extract", "device"], "extract")
+    launches = check_walk_path("--extract device", stats)
+    if got != host_lines:
+        bad = [(a, b) for a, b in zip(host_lines, got) if a != b][:3]
+        fail(f"--extract device lines differ from the host-extract run "
+             f"(and tools/audt_scalar.py): {len(got)} vs {len(host_lines)} "
+             f"lines; first differences {bad}")
+    print(f"[extract] {len(got)} result lines byte-identical to the "
+          f"host-extract run and tools/audt_scalar.py; records/s="
+          f"{len(got) / wall:.1f} wall={wall:.3f}s batches={stats['batches']} "
+          f"walk_on_cuda={stats['batches']} K1_launches={launches} "
+          f"fallbacks kovf={stats['kovf']} sweep={stats['sweep']} "
+          f"long_ops={stats['long_ops']} dev_ovf={stats['dev_ovf']}",
+          flush=True)
+    print(f"[extract] split parse={stats['parse']}s "
+          f"fetch+pack={stats['fetch+pack']}s (worker-seconds) "
+          f"device_wait={stats['device_wait']}s emit={stats['emit']}s "
+          f"total={stats['total']}s", flush=True)
+
+    # One batch of the run (the first 512 windows) through the device step.
+    cfg = AudtConfig(bam_file=bam, vcf_file=vcf)
+    wins = []
+    with open(vcf) as fh:
+        for task in iter_vcf_tasks(fh):
+            if isinstance(task, VcfTask):
+                wins += windows_for_task(task, cfg)[0]
+            if len(wins) >= cfg.batch_windows:
+                break
+    b = pack_chunk_native(wins[:cfg.batch_windows],
+                          open_native_reader(bam), cfg).batch
+    dev = torch.device("cuda")
+    args = [to_device(b.ops_flat, dev, np.uint8),
+            to_device(b.lens_flat, dev)] + [to_device(a, dev) for a in (
+                b.pos, b.n_ops, b.window_id, b.kind, b.inter_start,
+                b.inter_end, b.imprecise_pos)]
+    kw = dict(num_windows=b.num_windows, K=1024, O=b.ops_width)
+    ms = cuda_ms(lambda: audit_refine_step_csr(*args, **kw), 10)
+    print(f"[extract] one batch's device step (CSR scatter, walk, grouping, "
+          f"K1): N={b.num_reads} O={b.ops_width} T={len(b.ops_flat)} "
+          f"B={b.num_windows} K=1024: {ms:.4f} ms (CUDA events, median of "
+          f"10)", flush=True)
+    return launches
+
+
+def run_scan_cli(argv: list[str]):
+    """`scan` in this process through the port's CLI parser; returns
+    (lines, stats, wall seconds)."""
+    from svtrek_tpu_torch import cli
+    from svtrek_tpu_torch.pipeline.scan import run_scan
+
+    out_path = os.path.join(tempfile.gettempdir(),
+                            f"svtrek_smoke_scan_{os.getpid()}.txt")
+    args = cli.build_parser().parse_args(["scan", *argv, "-o", out_path])
+    stats: dict = {}
+    t0 = time.perf_counter()
+    _, lines = run_scan(cli.scan_config_from_args(args), out=io.StringIO(),
+                        device=args.device, stats=stats)
+    wall = time.perf_counter() - t0
+    with open(out_path) as fh:
+        if fh.read().splitlines() != lines:
+            fail(f"scan {' '.join(argv)}: the output file differs from the "
+                 f"returned lines")
+    os.remove(out_path)
+    return lines, stats, wall
+
+
+def check_scan_on_cuda(tag: str, stats, walk: bool) -> None:
+    """After a scan on cuda: the window scan (and on the Python path the
+    evidence walk) on the card once per batch, nothing on the CPU."""
+    from svtrek_tpu_torch.ops import cigar, window_scan
+
+    batches = stats.get("batches", 0)
+    counts = [("window scan", window_scan.scan_calls)]
+    if walk:
+        counts.append(("evidence walk", cigar.walk_calls))
+    for name, calls in counts:
+        if batches < 1 or calls.get("cuda", 0) != batches or \
+                sum(calls.values()) != batches:
+            fail(f"{tag}: the {name} ran {dict(calls)} for {batches} "
+                 f"batches")
+
+
+def phase_python_bam() -> None:
+    """The Python BAM path (`--no-native-io`) and scan on the reduced
+    fixture, against the scalar tools."""
+    from audt_scalar import audt_lines
+    from scan_scalar import scan_lines
+
+    bam, vcf = fixture(PY_RECORDS)
+    argv = ["audt", "-b", bam, "-v", vcf, "--no-native-io"]
+    reset_path_counts()
+    got, stats, wall = run_cli([*argv, "--device", "cuda"], "python")
+    launches = check_walk_path("--no-native-io", stats)
+    cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"], "python cpu")
+    want = audt_lines(bam, vcf)
+    if got != cpu or got != want:
+        fail(f"--no-native-io: cuda == cpu {got == cpu}, cuda == "
+             f"tools/audt_scalar.py {got == want}")
+    print(f"[python] audt --no-native-io: {len(got)} lines equal on cuda, "
+          f"on cpu and tools/audt_scalar.py; cuda records/s="
+          f"{len(got) / wall:.1f} wall={wall:.3f}s (cpu {cpu_wall:.3f}s), "
+          f"batches={stats['batches']} walk_on_cuda={stats['batches']} "
+          f"K1_launches={launches} fallbacks long_ops={stats['long_ops']} "
+          f"dev_ovf={stats['dev_ovf']}; split parse={stats['parse']}s "
+          f"fetch+pack={stats['fetch+pack']}s device_wait="
+          f"{stats['device_wait']}s emit={stats['emit']}s", flush=True)
+
+    whole = ["-b", bam, "-c", "1", "-s", "1", "-e", str(CHROM_END)]
+    reset_path_counts()
+    native, st, wall = run_scan_cli([*whole, "--device", "cuda"])
+    check_scan_on_cuda("scan (native, reduced)", st, walk=False)
+    native_cpu, _, cpu_wall = run_scan_cli([*whole, "--device", "cpu"])
+    t0 = time.perf_counter()
+    scalar = scan_lines(bam, 1, 1, CHROM_END)
+    t_scalar = time.perf_counter() - t0
+    if native != native_cpu or native != scalar:
+        fail(f"scan of the reduced fixture: cuda == cpu "
+             f"{native == native_cpu}, cuda == tools/scan_scalar.py "
+             f"{native == scalar}")
+    print(f"[python] scan 1-{CHROM_END} native: {len(native)} lines equal "
+          f"on cuda ({wall:.3f}s, {st['tiles']} tiles, {st['batches']} "
+          f"batches), on cpu ({cpu_wall:.3f}s) and tools/scan_scalar.py "
+          f"({t_scalar:.1f}s)", flush=True)
+
+    lo, hi = PY_SCAN_REGION
+    region = ["-b", bam, "-c", "1", "-s", str(lo), "-e", str(hi),
+              "--device", "cuda"]
+    reset_path_counts()
+    py, st, wall = run_scan_cli([*region, "--no-native-io"])
+    check_scan_on_cuda("scan --no-native-io", st, walk=True)
+    sub, _, sub_wall = run_scan_cli(region)
+    if py != sub or py != scan_lines(bam, 1, lo, hi):
+        fail(f"scan {lo}-{hi}: --no-native-io == native {py == sub}, and "
+             f"tools/scan_scalar.py")
+    print(f"[python] scan {lo}-{hi}: {len(py)} lines equal on the "
+          f"--no-native-io path ({wall:.3f}s, {st['tiles']} tiles, "
+          f"{st['batches']} batches, walk and window scan on cuda, "
+          f"fallbacks {st.get('fallbacks', 0)}), the native path "
+          f"({sub_wall:.3f}s) and tools/scan_scalar.py", flush=True)
+
+
+def phase_scan_full() -> None:
+    """`scan` over the whole chromosome of phase 6's fixture on the card,
+    against a --device cpu run."""
+    bam, _ = fixture()
+    argv = ["-b", bam, "-c", "1", "-s", "1", "-e", str(CHROM_END)]
+    reset_path_counts()
+    got, st, wall = run_scan_cli([*argv, "--device", "cuda"])
+    check_scan_on_cuda("scan", st, walk=False)
+    cpu, _, cpu_wall = run_scan_cli([*argv, "--device", "cpu"])
+    if got != cpu:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"scan --device cuda and --device cpu lines differ: "
+             f"{len(got)} vs {len(cpu)} lines; {bad}")
+    if len(got) < 2:
+        fail("scan found nothing on the fixture")
+    print(f"[scan] {len(got)} lines equal on cuda and cpu; tiles="
+          f"{st['tiles']} batches={st['batches']} (window scan on cuda in "
+          f"each) fallbacks={st.get('fallbacks', 0)} tiles/s="
+          f"{st['tiles'] / wall:.1f} wall={wall:.3f}s (cpu "
+          f"{cpu_wall:.3f}s); {got[-1]}", flush=True)
 
 
 def ins_fixture():
@@ -1020,20 +1268,34 @@ def phase_jax_check() -> None:
         fail(f"modules of jax, jaxlib or svtrek_tpu were loaded: {loaded}")
 
 
+def timed(name: str, fn, *args):
+    """fn(*args), printing the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_environment()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
     import torch
 
-    phase_build()
+    timed("build", phase_build)
     max_err, (ms, plain_ms, k1_alone, k1_floor, k1_bound, k1_by) = \
-        phase_kernel()
-    poa_err, poa_times = phase_poa_kernels()
-    probe_err, probe_launches, probe = phase_step_probe()
-    phase_main_path()
-    launches = phase_ins_path()
-    disc_launches = phase_disc()
+        timed("kernel", phase_kernel)
+    poa_err, poa_times = timed("poa kernels", phase_poa_kernels)
+    probe_err, probe_launches, probe = timed("step probe", phase_step_probe)
+    host_lines = timed("main path", phase_main_path)
+    launches = timed("ins path", phase_ins_path)
+    disc_launches = timed("disc", phase_disc)
+    extract_launches = timed("extract device", phase_extract_device,
+                             host_lines)
+    timed("python bam path", phase_python_bam)
+    timed("scan", phase_scan_full)
     phase_jax_check()
+    print(f"[time] total: {time.perf_counter() - t_start:.1f}s", flush=True)
 
     flush = poa_times["flush"]
     print(json.dumps({"kernels": [{
@@ -1042,6 +1304,7 @@ def main() -> int:
         "source": "svtrek_tpu_torch/csrc/consensus.cu",
         "replaces": "svtrek_tpu/ops/sweep_pallas.py:113",
         "launches": launches["consensus_pos"],
+        "launches_extract_device": extract_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

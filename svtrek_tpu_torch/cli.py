@@ -1,15 +1,16 @@
-"""Command line of the port: `python -m svtrek_tpu_torch.cli {audt,disc} ...`.
+"""Command line of the port:
+`python -m svtrek_tpu_torch.cli {audt,scan,disc} ...`.
 
 The flags are the JAX package's (its `cli.build_parser`, copied here with
-its option names and defaults) plus `--device {cuda,cpu}` on `audt` and
-`disc`: cuda (the default) runs the
-device steps on the card, through the CUDA kernels where the step has one
-(K1 for the breakpoint consensus; K2 and K3 for the star POA of
-`--ins-consensus` and of disc's insertion clusters), and fails where there
-is no card; cpu runs the plain PyTorch path.  The `scan` mode, and the
-options the port does not run yet (`--data-shards` > 1, `--extract
-device`, `--no-native-io`, `--poa-engine graph`), exit with an error that
-names the ROADMAP item porting them.
+its option names and defaults) plus `--device {cuda,cpu}` on every mode:
+cuda (the default) runs the device steps on the card, through the CUDA
+kernels where the step has one (K1 for the breakpoint consensus, on the
+host-extract path and on the device evidence walk of `--extract device`
+and `--no-native-io`; K2 and K3 for the star POA of `--ins-consensus` and
+of disc's insertion clusters), and fails where there is no card; cpu runs
+the plain PyTorch path.  What the port does not run yet (`--data-shards`
+> 1, `SVTREK_COORDINATOR`, `--poa-engine graph`) exits with an error that
+names the ROADMAP item porting it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import argparse
 import sys
 
 from . import constants as C
-from .config import AudtConfig, DiscConfig
+from .config import AudtConfig, DiscConfig, ScanConfig
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -37,7 +38,8 @@ def _add_common(p: argparse.ArgumentParser):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="svtrek_tpu_torch",
-        description="SV audit (audt) and discovery (disc) on PyTorch + CUDA.",
+        description="SV audit (audt), windowed INS discovery (scan) and "
+                    "discovery (disc) on PyTorch + CUDA.",
     )
     sub = ap.add_subparsers(dest="mode")
 
@@ -151,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
                       default="star",
                       help="[TPU] INS consensus engine (see audt "
                            "--poa-engine)")
-    for p in (audt, disc):
+    for p in (audt, scan, disc):
         p.add_argument(
             "--device", choices=("cuda", "cpu"), default="cuda",
             help="cuda = the CUDA kernels on the card (default; an error "
@@ -219,22 +221,54 @@ def disc_config_from_args(args) -> DiscConfig:
     )
 
 
+def scan_config_from_args(args) -> ScanConfig | None:
+    """The scan mapping of the JAX package's CLI (its main, mode "scan");
+    None, after an error message, for a non-numeric -c without
+    --chrom-by-name."""
+    if args.chrom_by_name:
+        chrom, chrom_name = 0, args.chrom
+    else:
+        try:
+            chrom, chrom_name = int(args.chrom), ""
+        except ValueError:
+            print(f"[ERROR] -c {args.chrom!r} is not numeric; use "
+                  f"--chrom-by-name to pass a reference name.",
+                  file=sys.stderr)
+            return None
+    return ScanConfig(
+        bam_file=args.bam, chrom=chrom, chrom_name=chrom_name,
+        chrom_by_name=args.chrom_by_name, start=args.start,
+        end=args.end, window_size=args.window_size,
+        slide_size=args.slide_size, output_file=args.output,
+        thread_number=args.threads, verbose=args.verbose,
+        consensus_interval_range=args.consensus_interval_range,
+        consensus_interval=args.consensus_interval,
+        consensus_min_count=args.consensus_min_count,
+        batch_windows=args.batch_windows,
+        use_native_io=not args.no_native_io,
+    )
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mode == "scan":
-        print("[ERROR] scan mode is not ported to svtrek_tpu_torch yet "
-              "(ROADMAP queue 1 item 7); use svtrek_tpu.cli.",
-              file=sys.stderr)
-        return 1
-    if args.mode not in ("audt", "disc"):
+    if args.mode not in ("audt", "scan", "disc"):
         ap.print_help()
         return 1
     from .device import DeviceUnavailable
+    from .pipeline.audit import NativeReaderUnavailable
     from .refusals import Unsupported
 
     try:
-        if args.mode == "audt":
+        if args.mode == "scan":
+            from .pipeline.scan import run_scan
+
+            cfg = scan_config_from_args(args)
+            if cfg is None:
+                return 1
+            validate_file(cfg.bam_file, "[ERROR] BAM file is not provided.")
+            run_scan(cfg, device=args.device)
+        elif args.mode == "audt":
             from .pipeline.audit import run_audit
 
             cfg = config_from_args(args)
@@ -255,7 +289,7 @@ def main(argv=None) -> int:
             validate_file(cfg.fq_file,
                                   "[ERROR] FASTQ file is not provided.")
             run_discover(cfg, device=args.device)
-    except (Unsupported, DeviceUnavailable) as e:
+    except (Unsupported, DeviceUnavailable, NativeReaderUnavailable) as e:
         print(f"[ERROR] {e}", file=sys.stderr)
         return 1
     return 0

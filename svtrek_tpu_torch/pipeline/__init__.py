@@ -1,1 +1,2 @@
-"""Host side of the port: the host-extract packer and the `audt` pipeline."""
+"""Host side of the port: the window packer and the `audt`, `scan` and
+`disc` pipelines."""

@@ -1,16 +1,28 @@
 """`audt` mode pipeline: VCF + BAM → refined breakpoint records, with the
 device step in PyTorch.
 
-Port of svtrek_tpu/pipeline/audit.py on its host-extract path, the
-default of that package: a pool of producer threads fetches each chunk of
-windows with the native C reader, which also runs the CIGAR evidence walk,
-and packs [B, K] candidate batches (`pipeline.pack.pack_chunk_cand`); this
-thread sends each batch to the device (`ops.audit_step`), keeps a few in
-flight, and emits result lines in input order as records complete.
+Port of svtrek_tpu/pipeline/audit.py on one device.  A pool of producer
+threads fetches and packs each chunk of windows, each thread with its own
+BAM reader; this thread sends each batch to the device (`ops.audit_step`),
+keeps a few in flight, and emits result lines in input order as records
+complete.  The producers take one of the JAX pipeline's three branches:
+
+- host extract (`extract` auto or host, the default): the native C reader
+  fetches the chunk and runs the CIGAR evidence walk, and the device gets
+  [B, K] candidate batches (`pack_chunk_cand` → `audit_consensus_step`);
+- `--extract device`: the native C reader fetches the chunk, the device
+  gets its flat CIGAR op/len streams and runs the walk, the grouping and
+  the consensus (`pack_chunk_native` → `audit_refine_step_csr`);
+- `--no-native-io`: the Python reader `io.bam.BamReader` fetches each
+  window and the host packs padded [N, O] CIGAR matrices for the same
+  device walk (`pack_chunk` → `audit_refine_step`).
+
 Windows the device cannot finish exactly are refined on the host: a
-window with more than K candidates arrives already refined by the C
-scalar consensus, and a window whose sweep outran `sweep_width` goes
-through `oracle.consensus_pos`.
+window with more than K candidates on the host-extract path arrives
+already refined by the C scalar consensus, one whose sweep outran
+`sweep_width` goes through `oracle.consensus_pos`, and on the device walk
+a window that overflowed (`fallback_device`) or holds a read past the top
+ops bucket (`fallback_long`) goes through `oracle.refine_task`.
 
 With `--ins-consensus`, each refined INS record also gets the consensus of
 the inserted bases its supporting reads carry: the native reader decodes
@@ -18,12 +30,15 @@ them from SEQ, and one batched star-POA call (`ops.poa_batch`, kernels K2
 and K3 on the card) covers every site completed by a collected batch.
 
 What the JAX pipeline does besides, and this one refuses (`Unsupported`):
-mesh sharding and multi-host runs, `--extract device` and every path
-without the native reader, and `--poa-engine graph`.  Each message names
-the ROADMAP item that ports it.
+mesh sharding (`--data-shards > 1`), multi-host runs (`SVTREK_COORDINATOR`)
+and `--poa-engine graph`.  Each message names the ROADMAP item that ports
+it.  A native library that does not build is an error
+(`NativeReaderUnavailable`), not a switch to the Python reader: only
+`--no-native-io` asks for that.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import queue
@@ -34,51 +49,73 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import constants as C
 from ..config import AudtConfig
 from ..constants import SVType
 from ..emit import format_result
+from ..io.bam import BamReader
 from ..io.vcf import VcfSkip, VcfTask, iter_vcf_tasks
 from ..native import native_bam_reader
-from ..oracle import consensus_pos
+from ..oracle import consensus_pos, refine_task
 
 from ..device import resolve_device
-from ..ops.audit_step import audit_consensus_step
+from ..ops.audit_step import (
+    AuditBatchCSR, audit_consensus_step, audit_refine_step,
+    audit_refine_step_csr, to_device,
+)
 from ..ops.poa_batch import consensus_sequence_batch
-from ..refusals import Unsupported, raise_refused
+from ..refusals import raise_refused
 from .pack import (
-    INT64_MIN, PackedCandBatch, pack_chunk_cand, window_tid, windows_for_task,
+    INT64_MIN, PackedBatch, PackedCandBatch, as_read_list, pack_chunk,
+    pack_chunk_cand, pack_chunk_native, window_tid, windows_for_task,
 )
 
 NA32 = 0xFFFFFFFF
 
 
-def check_supported(cfg: AudtConfig) -> None:
-    """Raise Unsupported for what the port refuses, before any work."""
-    extra = []
-    if cfg.extract == "device":
-        extra.append("--extract device (device-side evidence walk; "
-                     "ROADMAP queue 1 item 4)")
-    if not cfg.use_native_io:
-        extra.append("--no-native-io (the host-extract path needs the "
-                     "native reader; the other path is ROADMAP queue 1 "
-                     "item 4)")
-    raise_refused(cfg, *extra)
+class NativeReaderUnavailable(OSError):
+    """The native C BAM reader did not build or load, or cannot open the
+    BAM; nothing switches to the Python reader on its own."""
 
 
 def open_native_reader(path: str):
-    """The native C BAM reader, or Unsupported when the C library did not
-    build (there is no pure-Python path in the port)."""
+    """The native C BAM reader; NativeReaderUnavailable when the C library
+    did not build or the BAM or its index cannot be opened."""
     try:
         return native_bam_reader(path)
     except OSError as e:
-        raise Unsupported(
+        raise NativeReaderUnavailable(
             f"the native BAM reader is unavailable ({e}; svtrek_tpu_torch/"
             f"native did not build, or the BAM or its index cannot be "
-            f"opened); the port has no pure-Python fetch path (ROADMAP "
-            f"queue 1 item 4)") from e
+            f"opened); --no-native-io runs the Python BAM reader") from e
+
+
+def open_reader(cfg):
+    """The run's BAM reader: the native C reader, or with --no-native-io
+    (``cfg.use_native_io`` false) the Python `io.bam.BamReader`."""
+    if cfg.use_native_io:
+        return open_native_reader(cfg.bam_file)
+    return BamReader(cfg.bam_file)
+
+
+def reader_tid(reader, name: str) -> int:
+    """tid of a reference name on either reader (chr-prefix tolerant)."""
+    if hasattr(reader, "tid_by_name"):
+        return reader.tid_by_name(name)
+    return reader.tid_of(name)
+
+
+def python_fetch(reader: BamReader):
+    """fetch(tid, beg, end) → [(pos, [(op, len), ...]), ...] on the Python
+    reader (the list form `pack.as_packed` normalises)."""
+    def fetch(tid, beg, end):
+        return [(rec.pos, rec.cigar)
+                for rec in reader.fetch(tid, int(beg), int(end))]
+
+    return fetch
 
 
 @dataclass
@@ -127,14 +164,19 @@ class AuditStats:
     oracle_windows: int = 0  # host-fallback windows, all causes (total)
     fallback_kovf: int = 0   # candidate count exceeded K (cand_width)
     fallback_sweep: int = 0  # consensus sweep exceeded sweep_width
+    fallback_long: int = 0   # a read exceeded the top ops bucket
+    fallback_device: int = 0  # device-walk overflow (lumped causes)
     device: str = ""
 
     def report(self, err) -> None:
+        # The JAX package prints the device-walk overflows as `device=N`;
+        # here `device=` names the torch device, so they are `dev_ovf=N`.
         print(
             f"[VERBOSE] records={self.records} windows={self.windows} "
             f"reads={self.reads} batches={self.batches} "
             f"oracle_fallbacks={self.oracle_windows} "
-            f"(kovf={self.fallback_kovf} sweep={self.fallback_sweep}) "
+            f"(kovf={self.fallback_kovf} sweep={self.fallback_sweep} "
+            f"long_ops={self.fallback_long} dev_ovf={self.fallback_device}) "
             f"device={self.device}",
             file=err,
         )
@@ -153,26 +195,54 @@ class AuditStats:
             )
 
 
-def dispatch_refinement(packed: PackedCandBatch, cfg: AudtConfig,
-                        device: torch.device):
+def _next_pow2(n: int, lo: int = 16) -> int:
+    v = lo
+    while v < n:
+        v *= 2
+    return v
+
+
+def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
+                        cfg: AudtConfig, device: torch.device):
     """Launch the device step for one packed batch (asynchronous on
     CUDA); returns the device tensors, or None for an empty batch."""
     b = packed.batch
     if b.num_windows == 0:
         return None
-    return audit_consensus_step(
-        b.locs, b.counts, b.imprecise_pos, device=device,
-        min_count=cfg.consensus_min_count,
-        interval=cfg.consensus_interval,
-        range_=cfg.consensus_interval_range,
-        sweep_width=cfg.sweep_width,
-    )
+    kw = dict(min_count=cfg.consensus_min_count,
+              interval=cfg.consensus_interval,
+              range_=cfg.consensus_interval_range,
+              sweep_width=cfg.sweep_width)
+    if isinstance(packed, PackedCandBatch):
+        return audit_consensus_step(b.locs, b.counts, b.imprecise_pos,
+                                    device=device, **kw)
+    K = _next_pow2(min(cfg.max_candidates, 8192), 64)
+    common = [to_device(a, device) for a in (
+        b.pos, b.n_ops, b.window_id, b.kind, b.inter_start, b.inter_end,
+        b.imprecise_pos)]
+    if isinstance(b, AuditBatchCSR):
+        return audit_refine_step_csr(
+            to_device(b.ops_flat, device, np.uint8),
+            to_device(b.lens_flat, device), *common,
+            num_windows=b.num_windows, K=K, O=b.ops_width, **kw)
+    return audit_refine_step(
+        to_device(b.ops, device, np.int8), to_device(b.lens, device),
+        *common, num_windows=b.num_windows, K=K, **kw)
 
 
-def collect_refinement(packed: PackedCandBatch, dev, cfg: AudtConfig,
+def _refine_on_host(w, reads, cfg: AudtConfig) -> int:
+    return refine_task(w.kind, reads, w.inter_start, w.inter_end,
+                       w.imprecise_pos, cfg.consensus_min_count,
+                       cfg.consensus_interval, cfg.consensus_interval_range)
+
+
+def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
+                       cfg: AudtConfig,
                        stats: AuditStats | None = None) -> list:
     """Copy one batch's results to the host and apply the exact host
     fallbacks.  Returns (window, refined) pairs."""
+    if isinstance(packed, PackedBatch):
+        return _collect_walk(packed, dev, cfg, stats)
     if dev is None:
         return []
     refined, sweep_ovf = (x.cpu().numpy() for x in dev)
@@ -203,6 +273,54 @@ def collect_refinement(packed: PackedCandBatch, dev, cfg: AudtConfig,
     return out
 
 
+def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
+                  stats: AuditStats | None) -> list:
+    """collect_refinement of a device-walk batch: windows that overflowed
+    on the device, and windows held back for a read past the top ops
+    bucket, are refined by the scalar oracle over their reads."""
+    out = []
+    if dev is not None:
+        refined, _, overflow = (x.cpu().numpy() for x in dev)
+        for i, w in enumerate(packed.windows):
+            if overflow[i]:
+                if stats:
+                    stats.oracle_windows += 1
+                    stats.fallback_device += 1
+                r = _refine_on_host(
+                    w, as_read_list(packed.reads_per_window[i]), cfg)
+            else:
+                r = int(refined[i])
+            out.append((w, r))
+    for w, reads in packed.oracle_windows:
+        if stats:
+            stats.oracle_windows += 1
+            stats.fallback_long += 1
+        out.append((w, _refine_on_host(w, reads, cfg)))
+    return out
+
+
+def _ins_seqs_py(reader: BamReader, tid: int, beg: int, end: int,
+                 min_len: int, lo: int, hi: int) -> list[str]:
+    """The Python reader's analog of the native svbam_ins_seqs: decoded SEQ
+    substrings of I ops >= min_len whose refine_ins-convention reference
+    position (it advances on every op but I and S, the
+    refinement.c:137-139 quirk) lies in [lo, hi]."""
+    out: list[str] = []
+    for rec in reader.fetch(tid, beg, end):
+        if rec.seq == "*":
+            continue
+        rp = rec.pos
+        qpos = 0
+        for op, ln in rec.cigar:
+            if op == 1 and ln >= min_len and lo <= rp <= hi:
+                out.append(rec.seq[qpos:qpos + ln])
+            if op not in (1, 4):
+                rp += ln
+            if op in (0, 1, 4, 7, 8):
+                qpos += ln
+    return out
+
+
 def _resolve_ins_consensus(records: list[AuditResult], reader,
                            cfg: AudtConfig, device: torch.device,
                            stats: AuditStats) -> None:
@@ -210,10 +328,13 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     record (svtrek_tpu/pipeline/audit.py:406-448).  Per record: reads
     overlapping the refined position whose >= 50 bp I op lands within
     consensus_interval of it contribute their inserted bases (the native
-    reader's SEQ decode); one batched consensus call on ``device`` covers
-    all records.  res.seq = "" when there is no consensus (printed NA)."""
+    reader's SEQ decode, or the Python reader's); one batched consensus
+    call on ``device`` covers all records.  res.seq = "" when there is no
+    consensus (printed NA)."""
     t0 = time.perf_counter()
     interval = cfg.consensus_interval
+    ins_seqs = reader.ins_seqs if hasattr(reader, "ins_seqs") else \
+        functools.partial(_ins_seqs_py, reader)
     seq_lists: list[list[str]] = []
     for res in records:
         r = int(C.u32(res.rstart))
@@ -221,8 +342,8 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
         if res.cons_tid < 0:
             seq_lists.append([])
             continue
-        seq_lists.append(reader.ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
-                                         C.SV_MIN_LENGTH, lo, hi))
+        seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
+                                  C.SV_MIN_LENGTH, lo, hi))
     counts = {"dp_calls": 0}
     for res, s in zip(records, consensus_sequence_batch(
             seq_lists, device=device, counts=counts)):
@@ -286,11 +407,13 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     written to ``out`` and cfg.output_file); ``collect_lines=False`` keeps
     memory flat on whole-genome runs.
 
-    Raises Unsupported for options the port does not run, and
-    device.DeviceUnavailable when the card is asked for and absent."""
+    Raises Unsupported for options the port does not run,
+    device.DeviceUnavailable when the card is asked for and absent, and
+    NativeReaderUnavailable when the native reader is asked for (the
+    default) and does not build or load."""
     out = out or sys.stdout
     err = err or sys.stderr
-    check_supported(cfg)
+    raise_refused(cfg)
     device = resolve_device(cfg.device)
     stats = AuditStats(device=str(device))
     t_start = time.perf_counter()
@@ -298,12 +421,12 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     # Fail fast (bad BAM path, no native library) before the pool starts.
     # With --chrom-by-name this reader also resolves CHROM names against
     # the BAM header (the extension over the reference's tid = chrom-1).
-    probe = open_native_reader(cfg.bam_file)
+    probe = open_reader(cfg)
     tid_cache: dict[str, int] = {}
 
     def tid_by_name(name: str) -> int:
         if name not in tid_cache:
-            tid_cache[name] = probe.tid_by_name(name)
+            tid_cache[name] = reader_tid(probe, name)
         return tid_cache[name]
 
     print("[INFO] Started processing variation file.", file=out)
@@ -311,8 +434,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     # --ins-consensus: a dedicated main-thread reader for SEQ extraction
     # (the probe reader serves the producer's tid lookups, and BGZF cursor
     # state is not thread-safe).
-    cons_reader = open_native_reader(cfg.bam_file) if cfg.ins_consensus \
-        else None
+    cons_reader = open_reader(cfg) if cfg.ins_consensus else None
 
     num_shards = cfg.num_shards or 1
     shard_index = cfg.shard_index
@@ -408,7 +530,8 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     # a private BAM handle (BGZF seek state and the native fetch buffers
     # are not shareable), feed packed batches in order to this thread.
     # The C fetch and extract release the GIL, so the workers overlap each
-    # other and the device.
+    # other and the device.  The branch is the JAX pipeline's
+    # (svtrek_tpu/pipeline/audit.py:642-662).
     q: queue.Queue = queue.Queue(maxsize=max(2, cfg.tload_factor))
     stats_lock = threading.Lock()
 
@@ -417,9 +540,14 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
         def work(chunk):
             if not hasattr(tls, "reader"):
-                tls.reader = open_native_reader(cfg.bam_file)
+                tls.reader = open_reader(cfg)
             t0 = time.perf_counter()
-            pb = pack_chunk_cand(chunk, tls.reader, cfg)
+            if not cfg.use_native_io:
+                pb = pack_chunk(chunk, python_fetch(tls.reader), cfg)
+            elif cfg.extract == "device":
+                pb = pack_chunk_native(chunk, tls.reader, cfg)
+            else:
+                pb = pack_chunk_cand(chunk, tls.reader, cfg)
             dt = time.perf_counter() - t0
             with stats_lock:
                 stats.pack_s += dt  # aggregate worker-seconds
@@ -532,7 +660,9 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             in_flight.append((packed, dispatch_refinement(packed, cfg,
                                                           device)))
             stats.batches += 1
-            stats.reads += packed.num_reads
+            stats.reads += (packed.num_reads
+                            if isinstance(packed, PackedCandBatch)
+                            else packed.batch.num_reads)
             if len(in_flight) > depth:
                 t0 = time.perf_counter()
                 apply(collect_refinement(*in_flight.popleft(), cfg, stats))

@@ -1,13 +1,13 @@
-"""Host-side window packer for the host-extract path: VCF tasks → [B, K]
-candidate batches.
+"""Host-side window packer: VCF tasks → fixed-shape device batches.
 
-A JAX-free copy of the host-extract subset of svtrek_tpu/pipeline/pack.py
-(`WindowSpec`, `window_tid`, `windows_for_task`, `AuditBatchCand`,
-`PackedCandBatch`, `pack_chunk_cand`, `_pow2`), single-device only.  It is
-copied rather than imported because svtrek_tpu/pipeline/pack.py imports
-`ops.audit_step`, and through it every JAX op, at module load
+A JAX-free copy of the single-device part of svtrek_tpu/pipeline/pack.py.
+It is copied rather than imported because svtrek_tpu/pipeline/pack.py
+imports `ops.audit_step`, and through it every JAX op, at module load
 (pack.py:40); a machine with the card has no JAX.  It is the port's own
-code; tests/test_torch_pack.py holds it equal to the original.
+code; tests/test_torch_pack.py and tests/test_torch_audit_device.py hold
+it equal to the original.  The shard-blockwise packers of the JAX package
+(`_pack_native_sharded`, `_pack_one_sharded`) are not here: the port runs
+one device (ROADMAP queue 1 item 9).
 
 Each accepted VCF record expands into 1-2 refine windows:
 
@@ -16,15 +16,26 @@ Each accepted VCF record expands into 1-2 refine windows:
          KIND_DEL_END      interval [end-narrow, end+narrow]   (audit.c:192)
   INV  → 2 × KIND_POINT    intervals ±wider around pos/end     (audit.c:224-225)
 
-All interval arithmetic wraps in uint32 exactly like the C struct fields.
-The native C reader fetches each chunk's reads and runs the reference's
-CIGAR evidence walk (refinement.c:103-325), so a batch carries only the
-sorted candidates of each window.
+All interval arithmetic wraps in uint32 exactly like the C struct fields;
+degenerate wrapped intervals yield empty BAM queries.  Three layouts:
+
+- `pack_chunk_cand` (host extract, the default): the native C reader
+  fetches each chunk's reads and runs the reference's CIGAR evidence walk
+  (refinement.c:103-325), so a batch carries only each window's sorted
+  candidates;
+- `pack_chunk_native` (`--extract device`): one C fetch and the flat CSR
+  op/len streams of the chunk (`AuditBatchCSR`), which the device scatters
+  into the padded layout and walks itself;
+- `pack_chunk` (`--no-native-io`, or a read past the top ops bucket): a
+  per-window fetch, normalised to `PackedReads`, scattered into the padded
+  [N, O] matrices of `AuditBatch` on the host.  Windows whose reads exceed
+  the top ops bucket go to the scalar oracle.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Sequence
+import threading
+from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -34,9 +45,140 @@ from ..constants import (
     KIND_DEL_END, KIND_DEL_START, KIND_INS, KIND_INV_END, KIND_POINT, SVType,
 )
 from ..io.vcf import VcfTask
+from ..ops.audit_step import AuditBatch, AuditBatchCSR
 
-INT64_MIN = np.iinfo(np.int64).min
-_I32_PAD = 0x7FFFFFFF
+# Reads with more CIGAR ops than this are handled by the host oracle.
+MAX_OPS_BUCKET = 16384
+OPS_BUCKETS = (64, 256, 1024, 2048, 4096, 8192, MAX_OPS_BUCKET)
+
+PAD_OP = 9  # CIGAR op code that consumes nothing (padding sentinel)
+
+
+class PackedReads:
+    """Columnar reads for one window: the native reader's layout.
+
+    pos   [R] int64 — 0-based alignment start per read
+    n_ops [R] int32 — CIGAR op count per read
+    opoff [R] int64 — start offset of each read's ops in the flat streams
+    ops   [T] uint8, lens [T] int32 — flat op/len streams
+    """
+
+    __slots__ = ("pos", "n_ops", "opoff", "ops", "lens")
+
+    def __init__(self, pos, n_ops, opoff, ops, lens):
+        self.pos = pos
+        self.n_ops = n_ops
+        self.opoff = opoff
+        self.ops = ops
+        self.lens = lens
+
+    @property
+    def num_reads(self) -> int:
+        return int(self.pos.shape[0])
+
+    @property
+    def max_ops(self) -> int:
+        return int(self.n_ops.max()) if self.n_ops.size else 0
+
+    def flat(self) -> tuple[np.ndarray, np.ndarray]:
+        """(ops_seq, lens_seq) in read order; no copy when the streams are
+        already contiguous in read order (the native reader's case)."""
+        if self.n_ops.size == 0:
+            return (np.empty(0, np.uint8), np.empty(0, np.int32))
+        starts = np.cumsum(self.n_ops.astype(np.int64)) - self.n_ops
+        total = int(starts[-1] + self.n_ops[-1])
+        if total == len(self.ops) and np.array_equal(self.opoff, starts):
+            return self.ops, self.lens
+        src = np.repeat(self.opoff, self.n_ops) + (
+            np.arange(total, dtype=np.int64) - np.repeat(starts, self.n_ops)
+        )
+        return self.ops[src], self.lens[src]
+
+    def to_list(self) -> list[tuple[int, list[tuple[int, int]]]]:
+        """Oracle-fallback form: [(pos, [(op, len), ...]), ...]."""
+        out = []
+        for r in range(self.num_reads):
+            o = int(self.opoff[r])
+            n = int(self.n_ops[r])
+            cig = list(
+                zip(self.ops[o : o + n].tolist(), self.lens[o : o + n].tolist())
+            )
+            out.append((int(self.pos[r]), cig))
+        return out
+
+    @staticmethod
+    def from_list(reads) -> "PackedReads":
+        R = len(reads)
+        n_ops = np.fromiter((len(c) for _, c in reads), np.int32, R)
+        pos = np.fromiter((p for p, _ in reads), np.int64, R)
+        opoff = (np.cumsum(n_ops.astype(np.int64)) - n_ops) if R else \
+            np.empty(0, np.int64)
+        total = int(n_ops.sum())
+        ops = np.empty(total, np.uint8)
+        lens = np.empty(total, np.int32)
+        t = 0
+        for _, cig in reads:
+            for op, ln in cig:
+                ops[t] = op
+                lens[t] = ln
+                t += 1
+        return PackedReads(pos, n_ops, opoff, ops, lens)
+
+
+_EMPTY = PackedReads(
+    np.empty(0, np.int64), np.empty(0, np.int32), np.empty(0, np.int64),
+    np.empty(0, np.uint8), np.empty(0, np.int32),
+)
+
+
+def as_packed(reads) -> PackedReads:
+    """Normalize a fetch() result (PackedReads or list form)."""
+    if isinstance(reads, PackedReads):
+        return reads
+    if not reads:
+        return _EMPTY
+    return PackedReads.from_list(reads)
+
+
+def as_read_list(reads):
+    """Normalize to the oracle-fallback list form."""
+    if isinstance(reads, (PackedReads, LazyWindowReads)):
+        return reads.to_list()
+    return reads
+
+
+_FALLBACK_READERS: dict = {}
+_FALLBACK_LOCK = threading.Lock()
+
+
+class LazyWindowReads:
+    """Evidence for one window, re-fetched from the BAM on demand.
+
+    `pack_chunk_native` leaves the fetched reads in the native reader's
+    reusable buffers; the rare window that overflows the device capacities
+    re-queries its region instead, through one cached native reader per
+    BAM path (the path had one: it packed the batch)."""
+
+    __slots__ = ("bam_path", "tid", "beg", "end")
+
+    def __init__(self, bam_path: str, tid: int, beg: int, end: int):
+        self.bam_path = bam_path
+        self.tid = tid
+        self.beg = beg
+        self.end = end
+
+    def to_list(self):
+        if self.tid < 0:
+            return []
+        with _FALLBACK_LOCK:
+            reader = _FALLBACK_READERS.get(self.bam_path)
+            if reader is None:
+                from ..native import native_bam_reader
+
+                reader = native_bam_reader(self.bam_path)
+                _FALLBACK_READERS[self.bam_path] = reader
+            return PackedReads(
+                *reader.fetch_packed(self.tid, self.beg, self.end)).to_list()
 
 
 @dataclass
@@ -59,6 +201,17 @@ def window_tid(w: WindowSpec) -> int:
     (--chrom-by-name extension), else the reference's numeric mapping
     tid = chrom - 1 (refinement.c:114)."""
     return w.tid if w.tid != -2 else w.chrom_index - 1
+
+
+@dataclass
+class PackedBatch:
+    """A device batch (`AuditBatch` or `AuditBatchCSR`) plus everything
+    the fallbacks and emit need."""
+
+    batch: object
+    windows: list[WindowSpec]
+    reads_per_window: list  # PackedReads (or list / lazy form) per window
+    oracle_windows: list[tuple[WindowSpec, list]] = field(default_factory=list)
 
 
 def windows_for_task(task: VcfTask, cfg: AudtConfig
@@ -129,6 +282,127 @@ def windows_for_task(task: VcfTask, cfg: AudtConfig
             True,
         )
     raise ValueError(f"unexpected sv type {t.sv_type}")
+
+
+def _bucket(value: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if value <= b:
+            return b
+    return buckets[-1]
+
+
+def query_region(fetch, w: WindowSpec):
+    """BAM region fetch with the reference's coordinate mapping:
+    tid = chrom-1, beg = start-1, end = end-1 in uint32 arithmetic
+    (refinement.c:114)."""
+    tid = window_tid(w)
+    beg = C.u32(w.inter_start - 1)
+    end = C.u32(w.inter_end - 1)
+    if tid < 0:
+        return _EMPTY
+    return fetch(tid, beg, end)
+
+
+def pack_chunk(window_chunk: Sequence[WindowSpec],
+               fetch: Callable[[int, int, int], object],
+               cfg: AudtConfig) -> PackedBatch:
+    """Fetch + pack one batch worth of windows in the dense layout.
+    ``fetch(tid, beg, end)`` returns PackedReads or
+    ``[(pos, [(op, len), ...]), ...]``."""
+    items: list[tuple[WindowSpec, PackedReads]] = []
+    for w in window_chunk:
+        if w.kind == KIND_POINT:
+            reads = _EMPTY  # refine_point collects nothing; skip I/O
+        else:
+            reads = as_packed(query_region(fetch, w))
+        items.append((w, reads))
+    return _pack_one(items, cfg)
+
+
+def _window_attrs(window_chunk: Sequence[WindowSpec], B: int):
+    """kind / inter_start / inter_end / imprecise_pos [B] int32 of a chunk,
+    padding windows KIND_POINT (they collect nothing).  Windows that still
+    have reads have sane (< 2^31) interval coordinates, since wrapped
+    intervals give empty queries, so the int32 casts are lossless where
+    they matter."""
+    kind = np.full(B, KIND_POINT, np.int32)
+    istart = np.zeros(B, np.int32)
+    iend = np.zeros(B, np.int32)
+    ipos = np.zeros(B, np.int32)
+    for b, w in enumerate(window_chunk):
+        kind[b] = w.kind
+        istart[b] = np.int64(w.inter_start).astype(np.int32)
+        iend[b] = np.int64(w.inter_end).astype(np.int32)
+        ipos[b] = np.int64(w.imprecise_pos).astype(np.int32)
+    return kind, istart, iend, ipos
+
+
+def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
+                      cfg: AudtConfig) -> PackedBatch:
+    """Dense fetch + CSR pack, the heavy work in C (`--extract device`).
+
+    One `svbam_fetch_batch` call pulls every window's reads (GIL released
+    for the whole chunk) and the flat op/len streams are shipped as they
+    are; the Python layer builds only the per-window attribute vectors.
+    Takes the generic path when a read exceeds the top ops bucket
+    (host-oracle windows)."""
+    n_win = len(window_chunk)
+    tids = np.empty(n_win, np.int32)
+    begs = np.empty(n_win, np.int64)
+    ends = np.empty(n_win, np.int64)
+    for i, w in enumerate(window_chunk):
+        if w.kind == KIND_POINT or window_tid(w) < 0:
+            tids[i] = -1  # refine_point collects nothing; skip I/O
+            begs[i] = ends[i] = 0
+        else:
+            tids[i] = window_tid(w)
+            begs[i] = int(C.u32(w.inter_start - 1))
+            ends[i] = int(C.u32(w.inter_end - 1))
+
+    total, counts = reader.fetch_batch(tids, begs, ends)
+    max_ops = reader.max_nops(total)
+    if max_ops > MAX_OPS_BUCKET:
+        # Rare: some window needs the host oracle.  Take the generic path
+        # (re-fetch per window) so the split logic stays in one place.
+        def fetch(tid, beg, end):
+            return PackedReads(*reader.fetch_packed(tid, int(beg), int(end)))
+
+        return pack_chunk(window_chunk, fetch, cfg)
+
+    O = _bucket(max(max_ops, 1), OPS_BUCKETS)
+    B = max(cfg.batch_windows, n_win, 1)
+    N = _pow2(max(total, 1), lo=64)
+
+    rpos, rnops, fops, flens = reader.batch_flat_n(total)
+    T = _pow2(max(len(fops), 1), lo=256)
+    ops_flat = np.empty(T, np.uint8)
+    lens_flat = np.empty(T, np.int32)
+    ops_flat[: len(fops)] = fops
+    lens_flat[: len(flens)] = flens
+    pos = np.zeros(N, np.int32)
+    n_ops = np.zeros(N, np.int32)          # padding rows MUST be 0
+    wid = np.full(N, B, np.int32)
+    pos[:total] = rpos.astype(np.int32)
+    n_ops[:total] = rnops
+    wid[:total] = np.repeat(np.arange(n_win, dtype=np.int32), counts)
+    kind, istart, iend, ipos = _window_attrs(window_chunk, B)
+
+    # Overflow-fallback evidence is re-fetched lazily (rare).
+    reads_per_window = [
+        LazyWindowReads(reader.path, int(tids[i]), int(begs[i]), int(ends[i]))
+        for i in range(n_win)
+    ]
+    batch = AuditBatchCSR(
+        ops_flat=ops_flat, lens_flat=lens_flat, pos=pos, n_ops=n_ops,
+        window_id=wid, kind=kind, inter_start=istart, inter_end=iend,
+        imprecise_pos=ipos, ops_width=O,
+    )
+    return PackedBatch(batch=batch, windows=list(window_chunk),
+                       reads_per_window=reads_per_window)
+
+
+INT64_MIN = np.iinfo(np.int64).min
+_I32_PAD = 0x7FFFFFFF
 
 
 @dataclass
@@ -232,8 +506,99 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
     )
 
 
+def _split_oracle(items):
+    """Separate windows whose reads exceed the top ops bucket (the host
+    oracle handles those with exact reference semantics)."""
+    device_items = []
+    oracle_items = []
+    for w, pr in items:
+        if pr.max_ops > MAX_OPS_BUCKET:
+            oracle_items.append((w, pr.to_list()))
+        else:
+            device_items.append((w, pr))
+    return device_items, oracle_items
+
+
+def _fill_reads(ops, lens, pos, n_ops, wid, prs: list[PackedReads],
+                row_start: np.ndarray, wid_value: np.ndarray,
+                O: int) -> None:
+    """Scatter each PackedReads block into the device matrices: ``prs[i]``'s
+    reads land in consecutive rows from ``row_start[i]`` with window id
+    ``wid_value[i]``, in one fancy-indexed assignment over the batch."""
+    if not prs:
+        return
+    counts = np.fromiter((p.num_reads for p in prs), np.int64, len(prs))
+    if counts.sum() == 0:
+        return
+    dest_row = np.concatenate(
+        [np.arange(s, s + c, dtype=np.int64)
+         for s, c in zip(row_start, counts) if c]
+    )
+    pos_all = np.concatenate([p.pos for p in prs if p.num_reads])
+    nops_all = np.concatenate([p.n_ops for p in prs if p.num_reads])
+    flats = [p.flat() for p in prs if p.num_reads]
+    ops_seq = np.concatenate([f[0] for f in flats])
+    lens_seq = np.concatenate([f[1] for f in flats])
+
+    pos[dest_row] = pos_all.astype(np.int32)
+    n_ops[dest_row] = nops_all
+    wid[dest_row] = np.repeat(wid_value, counts)
+
+    nops64 = nops_all.astype(np.int64)
+    starts = np.cumsum(nops64) - nops64
+    T = int(starts[-1] + nops64[-1]) if len(nops64) else 0
+    if T == 0:
+        return
+    col = np.arange(T, dtype=np.int64) - np.repeat(starts, nops_all)
+    flat_idx = np.repeat(dest_row, nops_all) * O + col
+    ops.reshape(-1)[flat_idx] = ops_seq.astype(np.int8)
+    lens.reshape(-1)[flat_idx] = lens_seq
+
+
 def _pow2(n: int, lo: int = 256) -> int:
     v = lo
     while v < n:
         v *= 2
     return v
+
+
+def _pack_one(items: list[tuple[WindowSpec, PackedReads]],
+              cfg: AudtConfig) -> PackedBatch:
+    device_items, oracle_items = _split_oracle(items)
+
+    n_win = len(device_items)
+    counts = np.fromiter(
+        (pr.num_reads for _, pr in device_items), np.int64, n_win
+    ) if n_win else np.empty(0, np.int64)
+    n_reads = int(counts.sum())
+    max_ops = max((pr.max_ops for _, pr in device_items), default=1)
+    O = _bucket(max(max_ops, 1), OPS_BUCKETS)
+    # Constant window axis + pow2-bucketed reads axis.
+    B = max(cfg.batch_windows, n_win, 1)
+    N = _pow2(max(n_reads, 1))
+
+    ops = np.full((N, O), PAD_OP, np.int8)
+    lens = np.zeros((N, O), np.int32)
+    pos = np.zeros(N, np.int32)
+    n_ops = np.zeros(N, np.int32)
+    wid = np.full(N, B, np.int32)
+    kind, istart, iend, ipos = _window_attrs([w for w, _ in device_items], B)
+
+    row_start = (np.cumsum(counts) - counts) if n_win else \
+        np.empty(0, np.int64)
+    _fill_reads(
+        ops, lens, pos, n_ops, wid,
+        [pr for _, pr in device_items],
+        row_start, np.arange(n_win, dtype=np.int64), O,
+    )
+
+    batch = AuditBatch(
+        ops=ops, lens=lens, pos=pos, n_ops=n_ops, window_id=wid,
+        kind=kind, inter_start=istart, inter_end=iend, imprecise_pos=ipos,
+    )
+    return PackedBatch(
+        batch=batch,
+        windows=[w for w, _ in device_items],
+        reads_per_window=[pr for _, pr in device_items],
+        oracle_windows=oracle_items,
+    )

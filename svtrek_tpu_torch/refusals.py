@@ -2,8 +2,10 @@
 
 `Unsupported` is raised for an option or environment that the JAX package
 runs and this port does not; each message names the ROADMAP item that ports
-it.  `raise_refused` holds the refusals that the audt and disc pipelines
-share.
+it.  `raise_refused` holds the refusals of the audt and disc pipelines:
+mesh sharding (`--data-shards > 1`), multi-host runs
+(`SVTREK_COORDINATOR`) and the graph POA engine.  The scan pipeline
+refuses nothing.
 """
 from __future__ import annotations
 

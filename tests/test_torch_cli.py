@@ -1,7 +1,8 @@
 """The port's command line (python -m svtrek_tpu_torch.cli): the audt run
-on --device cpu, with and without --ins-consensus, the disc run against
-svtrek_tpu's CLI, what it refuses, and that it runs where JAX cannot be
-imported at all (the machine with the card has none)."""
+on --device cpu, with and without --ins-consensus, --extract device and
+--no-native-io, the scan and disc runs against svtrek_tpu's CLI, what it
+refuses, and that it runs where JAX cannot be imported at all (the machine
+with the card has none)."""
 from __future__ import annotations
 
 import contextlib
@@ -65,21 +66,35 @@ def test_cli_trace_dir_writes_profiler_trace(audt_fixture, capsys):
         assert "traceEvents" in json.load(fh)
 
 
+# Each option with the ROADMAP item that ports it, or None where the port
+# runs it (--extract device and --no-native-io, refused until the device
+# evidence walk was ported).
 REFUSED = {
     "data_shards": (["--data-shards", "2"], "item 9"),
-    "extract_device": (["--extract", "device"], "item 4"),
-    "no_native_io": (["--no-native-io"], "item 4"),
+    "extract_device": (["--extract", "device"], None),
+    "no_native_io": (["--no-native-io"], None),
     "poa_graph": (["--poa-engine", "graph"], "item 8"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_cli_refuses_unported_options(audt_fixture, capsys, name):
-    d, bam, vcf, _ = audt_fixture
+    """An option the port does not run exits 1, naming its ROADMAP item,
+    before any output; one it runs prints svtrek_tpu's lines."""
+    d, bam, vcf, want = audt_fixture
     flags, item = REFUSED[name]
     out_path = os.path.join(d, f"refused_{name}.txt")
     rc = cli.main(["audt", "-b", bam, "-v", vcf, "-o", out_path,
-                   "--device", "cpu", *flags])
+                   "--device", "cpu", "--verbose", *flags])
+    if item is None:
+        assert rc == 0
+        captured = capsys.readouterr()
+        assert [l for l in captured.out.splitlines()
+                if l.startswith("(")] == want
+        assert "dev_ovf=0) device=cpu" in captured.err
+        with open(out_path) as fh:
+            assert fh.read().splitlines() == want
+        return
     assert rc == 1
     err = capsys.readouterr().err
     assert "not supported by svtrek_tpu_torch yet" in err
@@ -113,16 +128,29 @@ def test_cli_refuses_coordinator(audt_fixture, capsys, monkeypatch):
     assert "SVTREK_COORDINATOR" in capsys.readouterr().err
 
 
+def _jax_cli_lines(argv) -> list[str]:
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        assert jax_cli.main(argv) == 0
+    return stdout.getvalue().splitlines()
+
+
 @pytest.mark.parametrize("mode", ["scan", "disc"])
-def test_cli_refuses_other_modes(capsys, mode):
-    """scan is refused, naming the ROADMAP item that ports it; disc is
-    ported, and a missing input gets svtrek_tpu.cli's file check."""
+def test_cli_refuses_other_modes(audt_fixture, capsys, mode):
+    """Both modes are ported: scan (refused until the slice that ported
+    it) prints svtrek_tpu.cli's lines, and a missing disc input gets
+    svtrek_tpu.cli's file check."""
     if mode == "scan":
-        assert cli.main(["scan", "-b", "x.bam", "-c", "1", "-s", "1",
-                         "-e", "2"]) == 1
-        err = capsys.readouterr().err
-        assert "scan mode is not ported" in err
-        assert "ROADMAP queue 1 item 7" in err
+        d, bam, _, _ = audt_fixture
+        argv = ["scan", "-b", bam, "-c", "1", "-s", "115000", "-e",
+                "125000", "--window-size", "1000"]
+        want = _jax_cli_lines([*argv, "-o", os.path.join(d, "scan_j.out")])
+        out_path = os.path.join(d, "scan_t.out")
+        assert cli.main([*argv, "-o", out_path, "--device", "cpu"]) == 0
+        got = capsys.readouterr().out.splitlines()
+        assert got == want and "INS Discovery in window" in got[0]
+        with open(out_path) as fh:
+            assert fh.read().splitlines() == want
         return
     with pytest.raises(SystemExit) as exc:
         cli.main(["disc", "-r", "g", "-a", "a", "-q", "q", "--device",
@@ -133,21 +161,32 @@ def test_cli_refuses_other_modes(capsys, mode):
 
 
 def test_missing_native_reader_raises(audt_fixture, monkeypatch, capsys):
-    """No quiet fall back to a pure-Python reader when the C library is
-    unavailable."""
-    d, bam, vcf, _ = audt_fixture
+    """No quiet fall back to the Python reader when the C library is
+    unavailable: audt and scan exit 1 saying so; --no-native-io asks for
+    the Python reader and runs."""
+    d, bam, vcf, want = audt_fixture
 
     def no_lib(path):
         raise OSError("native library unavailable")
 
     monkeypatch.setattr(taudit, "native_bam_reader", no_lib)
-    with pytest.raises(taudit.Unsupported, match="native BAM reader"):
+    with pytest.raises(taudit.NativeReaderUnavailable,
+                       match="native BAM reader"):
         taudit.run_audit(AudtConfig(bam_file=bam, vcf_file=vcf,
                                     device="cpu"),
                          out=io.StringIO(), err=io.StringIO())
     assert cli.main(["audt", "-b", bam, "-v", vcf, "--device", "cpu",
                      "-o", os.path.join(d, "nonative.txt")]) == 1
     assert "native BAM reader is unavailable" in capsys.readouterr().err
+    assert cli.main(["scan", "-b", bam, "-c", "1", "-s", "1", "-e", "5000",
+                     "--device", "cpu", "-o",
+                     os.path.join(d, "nonative_scan.txt")]) == 1
+    assert "native BAM reader is unavailable" in capsys.readouterr().err
+    assert cli.main(["audt", "-b", bam, "-v", vcf, "--device", "cpu",
+                     "--no-native-io", "-o",
+                     os.path.join(d, "python_reader.txt")]) == 0
+    assert [l for l in capsys.readouterr().out.splitlines()
+            if l.startswith("(")] == want
 
 
 def test_cli_device_cuda_without_card_fails(audt_fixture, capsys):
@@ -190,6 +229,59 @@ def test_cli_runs_with_jax_blocked(audt_fixture):
     assert [l for l in proc.stdout.splitlines() if l.startswith("(")] == want
     with open(out_path) as fh:
         assert fh.read().splitlines() == want
+
+
+SCAN_FLAGS = {
+    "no_native_io": ["-c", "1", "--no-native-io", "--slide-size", "2"],
+    "chrom_by_name": ["-c", "1", "--chrom-by-name", "-t", "1",
+                      "--batch-windows", "3"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_FLAGS))
+def test_cli_scan_cpu(audt_fixture, capsys, name):
+    d, bam, _, _ = audt_fixture
+    argv = ["scan", "-b", bam, "-s", "110000", "-e", "130000",
+            *SCAN_FLAGS[name]]
+    want = _jax_cli_lines([*argv, "-o", os.path.join(d, f"j_{name}.out")])
+    assert cli.main([*argv, "-o", os.path.join(d, f"t_{name}.out"),
+                     "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines() == want
+    assert len(want) >= 2
+
+
+def test_cli_scan_errors(audt_fixture, capsys):
+    """A non-numeric -c without --chrom-by-name, a missing BAM, and
+    --device cuda where there is no card."""
+    d, bam, _, _ = audt_fixture
+    assert cli.main(["scan", "-b", bam, "-c", "chr1", "-s", "1", "-e",
+                     "2000", "--device", "cpu"]) == 1
+    assert "not numeric" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["scan", "-b", os.path.join(d, "none.bam"), "-c", "1",
+                  "-s", "1", "-e", "2000", "--device", "cpu"])
+    assert "File couldn't be opened" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        assert cli.main(["scan", "-b", bam, "-c", "1", "-s", "1", "-e",
+                         "2000", "-o", os.devnull]) == 1
+        assert "no CUDA device is visible" in capsys.readouterr().err
+
+
+def test_cli_scan_runs_with_jax_blocked(audt_fixture):
+    """scan on both paths where JAX cannot be imported."""
+    d, bam, _, _ = audt_fixture
+    for flags in ([], ["--no-native-io"]):
+        argv = ["scan", "-b", bam, "-c", "1", "-s", "115000", "-e",
+                "125000", *flags]
+        want = _jax_cli_lines([*argv, "-o", os.path.join(d, "j_nojax.out")])
+        proc = subprocess.run(
+            [sys.executable, "-c", _JAX_BLOCKED_RUN, *argv, "-o",
+             os.path.join(d, "nojax_scan.txt"), "--device", "cpu"],
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=ROOT), cwd=d, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert "JAX_MODULES=0" in proc.stderr
+        assert proc.stdout.splitlines() == want
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,8 @@ PKG_MODULES = sorted(
 # The tools chip_smoke.py imports, and the kernel A/B timer that runs
 # beside it on the card.
 SMOKE_TOOLS = ["audt_scalar", "bench_disc", "disc_scalar", "ins_fixture",
-               "torch_fixtures", "torch_step_overhead", "torch_kernel_ab"]
+               "scan_scalar", "torch_fixtures", "torch_step_overhead",
+               "torch_kernel_ab"]
 
 # Run in a fresh interpreter: refuse jax, jaxlib and svtrek_tpu, import the
 # module (svtrek_tpu_torch.__main__ runs the CLI, so with --help), report
@@ -78,8 +79,10 @@ def probes():
 def test_module_list_covers_the_port():
     assert {"svtrek_tpu_torch.cli", "svtrek_tpu_torch.native.bamlib",
             "svtrek_tpu_torch.io.gaf_native", "svtrek_tpu_torch.oracle",
-            "svtrek_tpu_torch.pipeline.audit"} <= set(PKG_MODULES)
-    assert len(PKG_MODULES) >= 35
+            "svtrek_tpu_torch.pipeline.audit", "svtrek_tpu_torch.ops.cigar",
+            "svtrek_tpu_torch.ops.window_scan",
+            "svtrek_tpu_torch.pipeline.scan"} <= set(PKG_MODULES)
+    assert len(PKG_MODULES) >= 38
 
 
 @pytest.mark.parametrize("name", PKG_MODULES + SMOKE_TOOLS)
@@ -227,6 +230,8 @@ def test_format_result_matches():
     ["disc", "-r", "g.gfa", "-a", "a.gaf", "-q", "r.fq"],
     ["audt", "-b", "x.bam", "-v", "x.vcf", "-t", "3", "--ins-consensus",
      "--poa-engine", "graph", "--sweep-width", "8"],
+    ["scan", "-b", "x.bam", "-c", "chr2", "-s", "1", "-e", "9000",
+     "--chrom-by-name", "--no-native-io", "--slide-size", "3"],
 ])
 def test_build_parser_matches(argv):
     from svtrek_tpu import cli as jax_cli
@@ -251,3 +256,33 @@ def test_audt_fixture_matches_bench_e2e(tmp_path):
     names = sorted(os.listdir(a))
     assert names == sorted(os.listdir(b)) and "bench.bam" in names
     assert filecmp.cmpfiles(a, b, names, shallow=False)[0] == names
+
+
+def test_python_bam_reader_matches(planted, tmp_path):
+    """The port's Python BamReader (its numpy CIGAR and SEQ decode) gives
+    svtrek_tpu's records: odd and even SEQ lengths, no SEQ, long CIGARs."""
+    from svtrek_tpu.io.bam import BamReader as JaxReader
+    from svtrek_tpu.io.bam import BamRecord, BamWriter
+    from svtrek_tpu_torch.io.bam import BamReader
+
+    bam = str(tmp_path / "odd.bam")
+    rng = np.random.default_rng(9)
+    with BamWriter(bam, [("1", 100_000)]) as w:
+        for i in range(40):
+            n = int(rng.integers(0, 300))
+            cig = [(int(o), int(l)) for o, l in zip(
+                rng.choice([0, 1, 2, 4, 5, 7, 8], n),
+                rng.integers(1, 60, n))]
+            qlen = sum(l for o, l in cig if o in (0, 1, 4, 7, 8))
+            seq = "".join(rng.choice(list("ACGTN=M"), qlen)) if i % 5 \
+                else "*"
+            w.write(BamRecord(name=f"r{i}", flag=0, tid=0, pos=1_000 * i,
+                              mapq=60, cigar=cig, seq=seq))
+    for path, regions in ((bam, [(0, 0, 100_000), (0, 5_500, 9_000)]),
+                          (planted[0], [(0, 45_000, 56_000),
+                                        (1, 75_000, 90_000)])):
+        got = [dataclasses.astuple(r) for t, b, e in regions
+               for r in BamReader(path).fetch(t, b, e)]
+        want = [dataclasses.astuple(r) for t, b, e in regions
+                for r in JaxReader(path).fetch(t, b, e)]
+        assert got == want and len(got) > 10
