@@ -9,9 +9,9 @@ last line:
 1. environment: torch version, the card's name and power limit; no CUDA
    device is a failure;
 2. build: kernels K1 (svtrek_tpu_torch/csrc/consensus.cu), K2 and K3
-   (csrc/poa.cu) and K4 (csrc/step_probe.cu), nvcc for sm_90a, one
-   process per source, from the sources in this checkout, with ptxas's
-   register report;
+   (csrc/poa.cu), K4 (csrc/step_probe.cu) and G1 (csrc/poa_graph.cu),
+   nvcc for sm_90a, one process per source, from the sources in this
+   checkout, with ptxas's register report;
 3. kernel: K1 against its plain PyTorch version on the card at the bench
    shapes, the main path's shape, the device-extract path's (512, 1024)
    and edge rows, exact integer equality,
@@ -86,19 +86,44 @@ last line:
    scan on the card once per batch, the lines equal to a `--device cpu`
    run;
 12. standalone: the script refuses every import of `jax`, `jaxlib` and the
-   JAX package `svtrek_tpu` from its first line on, and checks at the end
-   that none was loaded.
+   JAX package `svtrek_tpu` from its first line on, and checks at the end,
+   after phase 14, that none was loaded;
+13. graph POA kernel (run after phase 5, beside the other kernels' checks): G1 (csrc/poa_graph.cu, the graph POA's DP and
+   traceback) against its plain PyTorch version on the card, on seeded
+   (graph, query) batches: the ins mix (256 pairs, inserts of 50-1,024
+   bases, graphs of 2-12 earlier members at 2 % substitutions and 1 %
+   insertions and deletions, grown on the card), a graph of V_CAP 2,048
+   nodes with queries of N_CAP 1,024 bases, a node with P_CAP 32
+   predecessors, and edge pairs (V = 1, n = 1, queries of N, identical
+   members); score, matched and ins_after exactly equal; CUDA-event times
+   of the wrapper and of the plain version on the ins mix, the profiler's
+   time of G1 alone and its bound;
+14. graph POA paths: `audt --ins-consensus --poa-engine graph --device
+   cuda` on the first 400 sites of phase 7's fixture whose insert is at
+   most 700 bases (so every read's insert stays under N_CAP): K1 once per
+   batch or more, G1 once per DP round or more, the plain paths never, no
+   cluster on the scalar route; the lines before `, seq:` byte-identical
+   to phase 7's lines of the same records, `seq:` equal to the port's
+   scalar graph consensus (`consensus_sequence_poa`, through
+   tools/audt_scalar.py) on 2 sites of each length class, the first 40
+   sites' lines equal to a `--device cpu` run; then the wall time of the
+   graph consensus of the cheapest site past N_CAP (its scalar route).
+   `disc --poa-engine graph --device cuda` on phase 8's fixture: G1 once
+   per DP round or more, the plain paths never, the lines before `, seq:`
+   equal to phase 8's, every line equal to a `--device cpu` graph run, and
+   `seq:` equal to the scalar graph consensus on phase 8's 8 clusters.
 
 Every phase prints its wall time.  The line before the last two is
 {"kernels": [...]}: each kernel's launches on its path (K1 the
 ins-consensus audt, and in `launches_extract_device` the device-extract
-audt; K2 and K3 disc, K4 the probe), its
+audt; K2 and K3 disc, K4 the probe, G1 the graph audt and in
+`launches_disc` the graph disc), its
 largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
 call's time where one computes the same function (`library_ms`, K4's
-torch.sum) and the time of the design this one replaced where it is still
-live code (`ms_before`, K2's chunked kernel; null for the others, whose
+torch.sum; none computes G1's) and the time of the design this one
+replaced where it is still live code (`ms_before`, K2's chunked kernel; null for the others, whose
 replaced designs left the tree: tools/torch_kernel_ab.py times K1's and
 K3's beside the new ones).  Those are CUDA-event times of one wrapper
 call, which also hold the host's work inside it (the K2/K3 plan, the
@@ -186,6 +211,15 @@ PROBE_CHECKS = [
 # insertion clusters tools/disc_scalar.py recomputes the consensus of.
 DISC_READS, DISC_SEED = 500_000, 0
 SCALAR_SEQ_CLUSTERS = 8
+# The graph POA phases: G1's ins-mix batch (pairs, shortest and longest
+# insert, fewest and most earlier members), and the audt graph cell: the
+# first GRAPH_SITES sites of the ins fixture whose sites.json length is at
+# most GRAPH_MAX_LEN (a two-allele site's longer allele, length + max(30,
+# length // 3), stays under N_CAP 1,024 with its mutations), of which the
+# first GRAPH_CPU_SITES also run on the CPU (the plain DP takes about a
+# second a site there).
+GRAPH_MIX = (256, 50, 1024, 2, 12)
+GRAPH_SITES, GRAPH_MAX_LEN, GRAPH_CPU_SITES = 400, 700, 40
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
 # in the JAX program, and the scalar consensus, which does not wrap, may
@@ -285,7 +319,7 @@ def phase_build():
     with contextlib.redirect_stderr(report):
         kbuild.build(force=True, verbose=True)
     load_library()
-    print(f"[build] K1 K2 K3 K4 {kbuild.LIB} "
+    print(f"[build] K1 K2 K3 K4 G1 {kbuild.LIB} "
           f"{time.perf_counter() - t0:.3f}s",
           flush=True)
     for line in report.getvalue().splitlines():
@@ -825,11 +859,14 @@ def reset_path_counts() -> None:
     """Zero every kernel launch count and every plain-path and per-device
     call count, just before a path runs."""
     from svtrek_tpu_torch.kernels import reset_launch_counts
-    from svtrek_tpu_torch.ops import cigar, consensus, poa_dp, window_scan
+    from svtrek_tpu_torch.ops import (
+        cigar, consensus, discover, poa_dp, poa_graph_dp, window_scan,
+    )
 
     reset_launch_counts()
     for calls in (consensus.plain_calls, poa_dp.plain_calls,
-                  cigar.walk_calls, window_scan.scan_calls):
+                  poa_graph_dp.plain_calls, cigar.walk_calls,
+                  window_scan.scan_calls, discover.scan_calls):
         for k in calls:
             calls[k] = 0
 
@@ -1132,7 +1169,7 @@ def phase_ins_path():
     print(f"[ins] tools/audt_scalar.py: {len(want)} lines byte-identical "
           f"before ', seq:'; seq equal on {len(subset)} sites (classes "
           f"{classes}) in {time.perf_counter() - t0:.1f}s", flush=True)
-    return launches
+    return launches, got
 
 
 def disc_fixture() -> list[str]:
@@ -1154,16 +1191,16 @@ def disc_fixture() -> list[str]:
             os.path.join(d, "bench.gaf"), "-q", os.path.join(d, "bench.fq")]
 
 
-def run_disc(inputs: list[str], device: str):
-    """`disc --device <device>` in this process through the port's CLI
-    parser; returns (lines, stats, wall seconds)."""
+def run_disc(inputs: list[str], device: str, flags=()):
+    """`disc --device <device> [flags]` in this process through the port's
+    CLI parser; returns (lines, stats, wall seconds)."""
     from svtrek_tpu_torch import cli
     from svtrek_tpu_torch.pipeline.discover import run_discover
 
     out_path = os.path.join(tempfile.gettempdir(),
                             f"svtrek_smoke_disc_{os.getpid()}.txt")
     args = cli.build_parser().parse_args(
-        ["disc", *inputs, "-o", out_path, "--device", device])
+        ["disc", *inputs, "-o", out_path, "--device", device, *flags])
     stats: dict = {}
     t0 = time.perf_counter()
     lines = run_discover(cli.disc_config_from_args(args), out=io.StringIO(),
@@ -1257,6 +1294,316 @@ def phase_disc():
           f"{len(subset)} INS clusters of support "
           f"{sorted(cl[i][3] for i in subset)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, got, cl, subset
+
+
+def graph_batches(rng):
+    """Seeded (name, graphs, queries) batches of base codes for G1: the ins
+    mix (GRAPH_MIX: each pair's graph grown from 2-12 mutated copies of an
+    insert, 2 % substitutions, 1 % insertions and deletions, with the
+    round structure of the graph consensus, its DP rounds on the card; the
+    query one more copy; every sequence cut to N_CAP); a graph of V_CAP
+    nodes (an insert of N_CAP bases and a second chain of N_CAP inserted
+    nodes: two sources and two sinks) with queries of N_CAP bases; a node
+    with P_CAP predecessors (31 insertions before one node); and edge
+    pairs: V = 1, n = 1, queries of N against a graph of N, identical
+    members (matches only)."""
+    from ins_fixture import mutate
+    from svtrek_tpu_torch.ops.poa_graph import PoaGraph
+    from svtrek_tpu_torch.ops.poa_graph_batch import (
+        N_CAP, P_CAP, V_CAP, align_batch,
+    )
+
+    def codes(x):
+        return np.asarray(x, np.int8)
+
+    def copy(t):
+        return codes(mutate(rng, t)[:N_CAP])
+
+    def full(t):  # a mutated copy of exactly N_CAP bases
+        return codes(np.resize(mutate(rng, t), N_CAP))
+
+    def first(seq):
+        g = PoaGraph()
+        g.add_first(codes(seq))
+        return g
+
+    B, lo, hi, kmin, kmax = GRAPH_MIX
+    truths = [rng.integers(0, 4, int(rng.integers(lo, hi + 1)))
+              for _ in range(B)]
+    members = rng.integers(kmin, kmax + 1, B)
+    graphs = [first(copy(t)) for t in truths]
+    for r in range(1, kmax):
+        grow = [b for b in range(B) if members[b] > r]
+        qs = [copy(truths[b]) for b in grow]
+        paths, _ = align_batch([graphs[b] for b in grow], qs, device="cuda")
+        for b, q, path in zip(grow, qs, paths):
+            graphs[b].add_alignment(q, path)
+    yield "ins_mix", graphs, [copy(t) for t in truths]
+
+    a = rng.integers(0, 4, N_CAP)
+    g = first(a)
+    g.add_alignment(full(a), [(None, j) for j in range(N_CAP)])
+    if len(g.base) != V_CAP:
+        fail(f"the V_CAP graph has {len(g.base)} nodes")
+    yield "v_cap", [g, g], [full(a), full(rng.integers(0, 4, N_CAP))]
+
+    s_ = rng.integers(0, 4, 300)
+    g = first(s_)
+    m = 150
+    for k in range(P_CAP - 1):
+        q = codes(s_)
+        q[m] = (s_[m] + 1 + k % 3) % 4
+        g.add_alignment(q, [(v, v) for v in range(m)] + [(None, m)]
+                        + [(v, v) for v in range(m + 1, len(s_))])
+    if g.max_indegree() != P_CAP:
+        fail(f"the P_CAP graph's largest indegree is {g.max_indegree()}")
+    yield "p_cap", [g, g], [copy(s_), codes(s_)]
+
+    same = rng.integers(0, 4, 200)
+    ident = first(same)
+    for _ in range(5):
+        ident.add_alignment(codes(same), [(v, v) for v in range(len(same))])
+    yield "edges", [first([0]), first([0]), first([4] * 4), ident, first([2])], \
+        [codes([0]), codes([4]), codes([4] * 10), codes(same),
+         codes(rng.integers(0, 4, 30))]
+
+
+def graph_bound(arrays, P: int, Vmax: int, Nmax: int):
+    """G1's bound (ms, resource) on a batch: it reads base_td, pred_rows,
+    npred, is_sink [B, Vmax...], Vs, ns [B] and qpad [B, Nmax], writes
+    score [B] int32, matched [B, Vmax] int8 and ins_after [B, Vmax+1]
+    int32; and does, per cell of each pair's rows 1..V and columns 0..n,
+    10 int32 operations per filled predecessor slot (del: add, compare,
+    two selects; diag: base compare, score select, add, compare, two
+    selects) and 6 for the in-row insertions (subtract, max, add, compare,
+    two selects)."""
+    _, _, npred, _, Vs, _, ns = arrays
+    B = len(Vs)
+    nbytes = B * Vmax * (1 + 4 * P + 4 + 1 + 1 + 4) + 4 * B + 8 * B \
+        + B * Nmax + 4 * B
+    ops = 0
+    for b in range(B):
+        filled = np.minimum(npred[b, :Vs[b]].astype(np.int64), P)
+        ops += int((ns[b] + 1) * (10 * filled + 6).sum())
+    return bound(nbytes, ops)
+
+
+def phase_graph_kernel():
+    """G1 against its plain version on the card."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import poa_graph_dp_cuda
+    from svtrek_tpu_torch.ops.poa_graph_batch import pack_pairs
+    from svtrek_tpu_torch.ops.poa_graph_dp import graph_dp_reference
+    from torch_step_overhead import cuda_ms
+
+    rng = np.random.default_rng(2029)
+    max_err = 0
+    times = None
+    for name, graphs, queries in graph_batches(rng):
+        _, arrays, shape = pack_pairs(graphs, queries)
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        got = poa_graph_dp_cuda(*args, **shape)
+        want = graph_dp_reference(*args, **shape)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"G1 differs from the plain version on {name}: "
+                 f"max_abs_err={err}, score equal "
+                 f"{torch.equal(got[0], want[0])}, matched equal "
+                 f"{torch.equal(got[1], want[1])}, ins_after equal "
+                 f"{torch.equal(got[2], want[2])}")
+        Vs, ns = arrays[4], arrays[6]
+        line = (f"[graph] {name}: B={len(Vs)} V {int(Vs.min())}-"
+                f"{int(Vs.max())} n {int(ns.min())}-{int(ns.max())} "
+                f"P={shape['P']} Vmax={shape['Vmax']} Nmax={shape['Nmax']}: "
+                f"score, matched and ins_after equal")
+        if name == "ins_mix":
+            def g1():
+                return poa_graph_dp_cuda(*args, **shape)
+
+            t = {"ms": cuda_ms(g1, 5),
+                 "plain_ms": cuda_ms(lambda: graph_dp_reference(
+                     *args, **shape), 1),
+                 "device_ms": device_ms(g1, "poa_graph_dp", 3)}
+            t["bound_ms"], t["bound_by"] = graph_bound(arrays, **shape)
+            times = t
+            line += (f"; G1 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                     f"alone (profiler) {fmt_ms(t['device_ms'])}, bound "
+                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                     f"{int(((Vs.astype(np.int64)) * (ns + 1)).sum())} cells")
+        print(line, flush=True)
+    return max_err, times
+
+
+def graph_sub_vcf(vcf: str, sites, count: int) -> tuple[str, list[int]]:
+    """A VCF of the first ``count`` sites of the ins fixture whose insert
+    is at most GRAPH_MAX_LEN bases, beside ``vcf``; returns (its path, the
+    sites' indices)."""
+    keep = [i for i, s in enumerate(sites)
+            if s["length"] <= GRAPH_MAX_LEN][:count]
+    with open(vcf) as fh:
+        lines = fh.read().splitlines()
+    recs = [l for l in lines if not l.startswith("#")]
+    path = os.path.join(os.path.dirname(vcf), f"graph_{count}.vcf")
+    with open(path, "w") as fh:
+        fh.write("\n".join([l for l in lines if l.startswith("#")]
+                           + [recs[i] for i in keep]) + "\n")
+    return path, keep
+
+
+def check_graph_path(tag: str, dp_calls: int, graph_scalar: int) -> int:
+    """After a graph-engine run on cuda: G1 once per DP round or more, no
+    plain path, no cluster on the scalar route.  Returns G1's launches."""
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops import consensus, poa_dp, poa_graph_dp
+
+    launches = launch_counts["poa_graph_dp"]
+    plain = sum(consensus.plain_calls.values()) + \
+        sum(poa_dp.plain_calls.values()) + \
+        sum(poa_graph_dp.plain_calls.values())
+    if dp_calls < 1 or launches < dp_calls:
+        fail(f"{tag}: G1 launched {launches} times for {dp_calls} DP rounds")
+    if plain != 0:
+        fail(f"{tag}: a plain path ran {plain} times on --device cuda")
+    if graph_scalar != 0:
+        fail(f"{tag}: {graph_scalar} clusters took the scalar route")
+    return launches
+
+
+def phase_graph_audt(ins_lines: list[str]) -> int:
+    """`audt --ins-consensus --poa-engine graph` on the card on the graph
+    sub-VCF of the ins fixture; returns G1's launches."""
+    from audt_scalar import audt_lines
+    from svtrek_tpu_torch.config import AudtConfig
+    from svtrek_tpu_torch.constants import SV_MIN_LENGTH
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops.poa_graph import consensus_sequence_poa
+    from svtrek_tpu_torch.ops.poa_graph_batch import (
+        N_CAP, consensus_sequence_poa_batch,
+    )
+    from svtrek_tpu_torch.pipeline.audit import open_native_reader
+
+    bam, vcf, sites = ins_fixture()
+    sub, keep = graph_sub_vcf(vcf, sites, GRAPH_SITES)
+    argv = ["audt", "-b", bam, "-v", sub, "--ins-consensus", "--poa-engine",
+            "graph"]
+    reset_path_counts()
+    got, stats, wall = run_cli([*argv, "--device", "cuda"], "graph")
+    batches = int(stats["batches"])
+    if launch_counts["consensus_pos"] < batches:
+        fail(f"graph audt: K1 launched {launch_counts['consensus_pos']} "
+             f"times for {batches} batches")
+    dp_calls = int(stats["dp_calls"])
+    launches = check_graph_path("graph audt", dp_calls,
+                                int(stats["graph_scalar"]))
+    if [l.split(", seq:")[0] for l in got] != \
+            [ins_lines[i].split(", seq:")[0] for i in keep]:
+        fail("graph audt: the lines before ', seq:' differ from phase 7's")
+    cons_sites, cons_s = int(stats["sites"]), float(stats["time"])
+    print(f"[graph] audt: {len(got)} lines (sites {keep[0]}-{keep[-1]} of "
+          f"the ins fixture, inserts <= {GRAPH_MAX_LEN}), records/s="
+          f"{len(got) / wall:.1f} wall={wall:.3f}s; consensus sites="
+          f"{cons_sites} cons_s={cons_s:.3f}s sites/s="
+          f"{cons_sites / cons_s:.1f} dp_calls={dp_calls} graph_scalar=0; "
+          f"launches K1={launch_counts['consensus_pos']} G1={launches} "
+          f"K2={launch_counts['poa_dp_ptr']}, plain_calls=0; lines before "
+          f"', seq:' equal to phase 7's", flush=True)
+
+    sub_cpu, _ = graph_sub_vcf(vcf, sites, GRAPH_CPU_SITES)
+    argv[4] = sub_cpu
+    cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"], "graph cpu")
+    if cpu != got[:GRAPH_CPU_SITES]:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"graph audt: --device cuda and --device cpu lines differ on "
+             f"the first {GRAPH_CPU_SITES} sites: {bad}")
+    print(f"[graph] audt --device cpu: the first {len(cpu)} sites' lines "
+          f"equal, wall {cpu_wall:.3f}s", flush=True)
+
+    subset = scalar_subset([sites[i] for i in keep])
+    t0 = time.perf_counter()
+    want = audt_lines(bam, sub, ins_consensus=True, seq_lines=subset,
+                      consensus=consensus_sequence_poa)
+    bad = [k for k in sorted(subset) if got[k] != want[k]]
+    classes = sorted({sites[keep[k]]["class"] for k in subset})
+    if bad or classes != sorted({sites[i]["class"] for i in keep}):
+        fail(f"graph audt: seq differs from the scalar graph consensus at "
+             f"sites {[keep[k] for k in bad[:5]]} (classes {classes})")
+    print(f"[graph] audt: seq equal to the scalar consensus_sequence_poa on "
+          f"{len(subset)} sites (classes {classes}) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # The cheapest: (reads - 1) alignments of about length^2 cells each;
+    # its inserts as the audt path fetches them around the refined position.
+    over = min((i for i, s in enumerate(sites) if s["length"] > N_CAP and
+                s["reads"] > 2 and s["alleles"] == 1 and
+                re.search(r"ref pos: \d", ins_lines[i])),
+               key=lambda i: (sites[i]["reads"] - 1) * sites[i]["length"] ** 2)
+    r = int(re.search(r"ref pos: (\d+)", ins_lines[over]).group(1))
+    lo, hi = r - AudtConfig().consensus_interval, \
+        r + AudtConfig().consensus_interval
+    seqs = open_native_reader(bam).ins_seqs(0, max(lo, 0), hi + 1,
+                                            SV_MIN_LENGTH, lo, hi)
+    counts = {}
+    t0 = time.perf_counter()
+    consensus_sequence_poa_batch([seqs], device="cuda", counts=counts)
+    dt = time.perf_counter() - t0
+    if counts.get("graph_scalar") != 1 or len(seqs) < 3:
+        fail(f"the over-cap site {over}: {len(seqs)} inserts, "
+             f"graph_scalar={counts.get('graph_scalar')}")
+    print(f"[graph] the cheapest site past N_CAP {N_CAP} (site {over}, "
+          f"insert {sites[over]['length']} bases, {len(seqs)} reads of "
+          f"{min(map(len, seqs))}-{max(map(len, seqs))} bases): its graph "
+          f"consensus took {dt:.3f}s on the scalar route, graph_scalar=1",
+          flush=True)
+    return launches
+
+
+def phase_graph_disc(disc_lines: list[str], cl, subset) -> int:
+    """`disc --poa-engine graph` on the card; returns G1's launches."""
+    import disc_scalar
+    from svtrek_tpu_torch.ops import discover
+    from svtrek_tpu_torch.ops.poa_graph import consensus_sequence_poa
+
+    inputs = disc_fixture()
+    flags = ["--poa-engine", "graph"]
+    reset_path_counts()
+    got, st, wall = run_disc(inputs, "cuda", flags)
+    scans = dict(discover.scan_calls)
+    if scans.get("cuda", 0) != st["scan_batches"] or \
+            sum(scans.values()) != st["scan_batches"]:
+        fail(f"graph disc: the scan ran {scans} for {st['scan_batches']} "
+             f"batches")
+    launches = check_graph_path("graph disc", st["dp_calls"],
+                                st["graph_scalar"])
+    if [l.split(", seq:")[0] for l in got] != \
+            [l.split(", seq:")[0] for l in disc_lines]:
+        fail("graph disc: the lines before ', seq:' differ from phase 8's")
+    print(f"[graph] disc: {len(got)} lines ({st['ins_clusters']} INS), "
+          f"reads/s={st['reads'] / wall:.1f} wall={wall:.3f}s "
+          f"consensus={st['consensus_s']:.3f}s dp_calls={st['dp_calls']} "
+          f"G1={launches} plain_calls=0 graph_scalar=0; lines before "
+          f"', seq:' equal to phase 8's", flush=True)
+
+    cpu, cst, cpu_wall = run_disc(inputs, "cpu", flags)
+    if cpu != got:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"graph disc: --device cuda and --device cpu lines differ: "
+             f"{bad}")
+    t0 = time.perf_counter()
+    want = disc_scalar.disc_lines(inputs[5], cl, seq_clusters=subset,
+                                  consensus=consensus_sequence_poa)
+    bad = [i for i in sorted(subset) if got[i] != want[i]]
+    if bad:
+        fail(f"graph disc: seq differs from the scalar graph consensus at "
+             f"clusters {bad[:5]}")
+    print(f"[graph] disc --device cpu: {len(cpu)} lines equal, wall "
+          f"{cpu_wall:.3f}s (consensus {cst['consensus_s']:.3f}s); seq "
+          f"equal to the scalar consensus_sequence_poa on {len(subset)} "
+          f"clusters in {time.perf_counter() - t0:.1f}s", flush=True)
     return launches
 
 
@@ -1287,13 +1634,21 @@ def main() -> int:
         timed("kernel", phase_kernel)
     poa_err, poa_times = timed("poa kernels", phase_poa_kernels)
     probe_err, probe_launches, probe = timed("step probe", phase_step_probe)
+    # Phase 13 runs with the other kernel checks: in one run on the card
+    # the profiler recorded no device time for G1 once the pipeline phases
+    # had run, and did where phase 13 ran right after the build.
+    graph_err, graph = timed("graph kernel", phase_graph_kernel)
     host_lines = timed("main path", phase_main_path)
-    launches = timed("ins path", phase_ins_path)
-    disc_launches = timed("disc", phase_disc)
+    launches, ins_lines = timed("ins path", phase_ins_path)
+    disc_launches, disc_lines, disc_cl, disc_subset = timed("disc",
+                                                            phase_disc)
     extract_launches = timed("extract device", phase_extract_device,
                              host_lines)
     timed("python bam path", phase_python_bam)
     timed("scan", phase_scan_full)
+    graph_launches = timed("graph audt", phase_graph_audt, ins_lines)
+    graph_disc_launches = timed("graph disc", phase_graph_disc, disc_lines,
+                                disc_cl, disc_subset)
     phase_jax_check()
     print(f"[time] total: {time.perf_counter() - t_start:.1f}s", flush=True)
 
@@ -1359,6 +1714,22 @@ def main() -> int:
         "library_ms": probe["library_ms"],
         "ms_before": None,
         "device_ms": probe["device_ms"],
+        "device_ms_before": None,
+    }, {
+        "name": "poa_graph_dp",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/poa_graph.cu",
+        "replaces": "svtrek_tpu/ops/poa_graph_batch.py:127",
+        "launches": graph_launches,
+        "launches_disc": graph_disc_launches,
+        "max_abs_err": graph_err,
+        "ms": graph["ms"],
+        "plain_ms": graph["plain_ms"],
+        "bound_ms": graph["bound_ms"],
+        "bound_by": graph["bound_by"],
+        "library_ms": None,
+        "ms_before": None,
+        "device_ms": graph["device_ms"],
         "device_ms_before": None,
     }]}), flush=True)
     print(smi, flush=True)

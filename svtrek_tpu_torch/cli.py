@@ -7,10 +7,11 @@ cuda (the default) runs the device steps on the card, through the CUDA
 kernels where the step has one (K1 for the breakpoint consensus, on the
 host-extract path and on the device evidence walk of `--extract device`
 and `--no-native-io`; K2 and K3 for the star POA of `--ins-consensus` and
-of disc's insertion clusters), and fails where there is no card; cpu runs
-the plain PyTorch path.  What the port does not run yet (`--data-shards`
-> 1, `SVTREK_COORDINATOR`, `--poa-engine graph`) exits with an error that
-names the ROADMAP item porting it.
+of disc's insertion clusters, G1 for their graph POA, `--poa-engine
+graph`), and fails where there is no card; cpu runs the plain PyTorch
+path.  What the port does not run yet (`--data-shards` > 1,
+`SVTREK_COORDINATOR`) exits with an error that names the ROADMAP item
+porting it.
 """
 from __future__ import annotations
 

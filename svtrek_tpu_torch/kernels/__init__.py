@@ -15,7 +15,8 @@ import torch
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
-                                 "poa_traceback": 0, "step_probe": 0}
+                                 "poa_traceback": 0, "step_probe": 0,
+                                 "poa_graph_dp": 0}
 # The widest row K1 takes: one warp's row and its int64 prefix sums in the
 # shared memory of a block (csrc/consensus.cu); the packer ships K <= 8192.
 CONSENSUS_MAX_K = 16384
@@ -28,6 +29,12 @@ POA_MAX_BAND = 2048
 # the same table.
 POA_STRIPS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 33)
 POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
+# G1 (csrc/poa_graph.cu): the largest graph (nodes), query and predecessor
+# count it takes, ops/poa_graph_batch.py's V_CAP, N_CAP and P_CAP; and the
+# scratch of one launch (H int32 and a code byte a cell of each pair's
+# (V+1) x (n+1)): a larger batch is split into several launches.
+GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP = 2048, 1024, 32
+GRAPH_SCRATCH_BYTES = 1 << 31
 
 _LIB = None
 # poa_strip_widths' lookup table on each device it has run on.
@@ -73,6 +80,17 @@ def load_library():
         lib.svtrek_poa_traceback.argtypes = [
             ptr, ct.c_longlong, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
             ct.c_int, ct.c_int, ptr, ptr, ptr,
+        ]
+        lib.svtrek_poa_graph_cap.restype = ct.c_int
+        lib.svtrek_poa_graph_cap.argtypes = [ct.c_int]
+        if tuple(lib.svtrek_poa_graph_cap(k) for k in range(3)) != (
+                GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP):
+            raise RuntimeError("csrc/poa_graph.cu and kernels.GRAPH_*_CAP "
+                               "differ")
+        lib.svtrek_poa_graph_dp.restype = ct.c_int
+        lib.svtrek_poa_graph_dp.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ct.c_int, ct.c_int,
+            ct.c_int, ct.c_int, ct.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
         ]
         lib.svtrek_step_probe.restype = ct.c_int
         lib.svtrek_step_probe.argtypes = [ptr, ct.c_int, ct.c_int, ct.c_int,
@@ -374,4 +392,92 @@ def step_probe_cuda(ptr: torch.Tensor, rows_per: int, s0: int, s1: int,
         rc = lib.svtrek_step_probe(ptr.data_ptr(), B, WP, rows_per, s0, s1,
                                    out.data_ptr(), stream)
     _launched("step_probe", lib, rc)
+    return out
+
+
+def poa_graph_dp_cuda(base_td: torch.Tensor, pred_rows: torch.Tensor,
+                      npred: torch.Tensor, is_sink: torch.Tensor,
+                      Vs: torch.Tensor, qpad: torch.Tensor, ns: torch.Tensor,
+                      *, P: int, Vmax: int, Nmax: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel G1 (csrc/poa_graph.cu): DP and traceback of every (graph,
+    query) pair, `ops.poa_graph_dp.graph_dp` on CUDA tensors.  Arguments
+    and results as `ops.poa_graph_dp.graph_dp_reference`, whose outputs it
+    equals.
+
+    The pairs' V and n, and a count of predecessor entries outside [0, r]
+    in the rows r < V, come to the host in one read; a pair with V outside
+    [1, GRAPH_V_CAP], n outside [1, GRAPH_N_CAP], P above GRAPH_P_CAP or
+    such an entry raises (the pipeline sends these to the scalar route).
+    Each launch takes pairs while their scratch stays within
+    GRAPH_SCRATCH_BYTES."""
+    _require_cuda("poa_graph_dp_cuda", base_td)
+    if base_td.dim() != 2:
+        raise ValueError(f"base_td must be [B, Vmax], got "
+                         f"{tuple(base_td.shape)}")
+    if not 1 <= P <= GRAPH_P_CAP:
+        raise ValueError(f"P = {P} is outside [1, {GRAPH_P_CAP}]")
+    B = base_td.shape[0]
+    dev = base_td.device
+    _check("base_td", base_td, (B, Vmax), dev, torch.int8)
+    _check("pred_rows", pred_rows, (B, Vmax, P), dev)
+    _check("npred", npred, (B, Vmax), dev)
+    _check("is_sink", is_sink, (B, Vmax), dev, torch.bool)
+    _check("Vs", Vs, (B,), dev)
+    _check("qpad", qpad, (B, Nmax), dev, torch.int8)
+    _check("ns", ns, (B,), dev)
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    matched = torch.zeros((B, Vmax), dtype=torch.int8, device=dev)
+    ins_after = torch.zeros((B, Vmax + 1), dtype=torch.int32, device=dev)
+    if B == 0:
+        return score, matched, ins_after
+    row = torch.arange(Vmax, dtype=torch.int32, device=dev)
+    live = row[None, :] < Vs[:, None]
+    bad = ((pred_rows < 0) | (pred_rows > row[None, :, None])) & \
+        live[:, :, None]
+    host = torch.cat([Vs.long(), ns.long(), bad.sum().reshape(1)]).tolist()
+    v_h, n_h, n_bad = host[:B], host[B:2 * B], host[-1]
+    if min(v_h) < 1 or max(v_h) > min(Vmax, GRAPH_V_CAP) or min(n_h) < 1 \
+            or max(n_h) > min(Nmax, GRAPH_N_CAP) or n_bad:
+        raise ValueError(
+            f"graph pairs out of range: V in [{min(v_h)}, {max(v_h)}] (1 to "
+            f"{min(Vmax, GRAPH_V_CAP)}), n in [{min(n_h)}, {max(n_h)}] (1 to "
+            f"{min(Nmax, GRAPH_N_CAP)}), {n_bad} predecessor entries not "
+            f"of an earlier row")
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b0, offsets in poa_graph_chunks(
+                [(v + 1) * (n + 1) for v, n in zip(v_h, n_h)]):
+            total = offsets[-1]
+            offsets = torch.tensor(offsets, dtype=torch.int64, device=dev)
+            H = torch.empty(total, dtype=torch.int32, device=dev)
+            codes = torch.empty(total, dtype=torch.int8, device=dev)
+            rc = lib.svtrek_poa_graph_dp(
+                base_td.data_ptr(), pred_rows.data_ptr(), npred.data_ptr(),
+                is_sink.data_ptr(), Vs.data_ptr(), qpad.data_ptr(),
+                ns.data_ptr(), offsets.data_ptr(), b0, len(offsets) - 1, P,
+                Vmax, Nmax, H.data_ptr(), codes.data_ptr(), score.data_ptr(),
+                matched.data_ptr(), ins_after.data_ptr(), stream)
+            _launched("poa_graph_dp", lib, rc)
+    return score, matched, ins_after
+
+
+def poa_graph_chunks(cells: list[int], budget: int = GRAPH_SCRATCH_BYTES
+                     ) -> list[tuple[int, list[int]]]:
+    """G1's launches over pairs of ``cells[b]`` = (V+1)*(n+1) cells each:
+    runs of consecutive pairs whose scratch (5 bytes a cell: H int32 and a
+    code byte) stays within ``budget`` (a pair alone may pass it), each as
+    (its first pair, the offsets in cells of its pairs' H and codes, with
+    the run's total last)."""
+    out = []
+    b0 = 0
+    while b0 < len(cells):
+        offsets = [0, cells[b0]]
+        for c in cells[b0 + 1:]:
+            if (offsets[-1] + c) * 5 > budget:
+                break
+            offsets.append(offsets[-1] + c)
+        out.append((b0, offsets))
+        b0 += len(offsets) - 1
     return out

@@ -26,12 +26,14 @@ ops bucket (`fallback_long`) goes through `oracle.refine_task`.
 
 With `--ins-consensus`, each refined INS record also gets the consensus of
 the inserted bases its supporting reads carry: the native reader decodes
-them from SEQ, and one batched star-POA call (`ops.poa_batch`, kernels K2
-and K3 on the card) covers every site completed by a collected batch.
+them from SEQ, and one batched consensus call covers every site completed
+by a collected batch: the star POA (`ops.poa_batch`, kernels K2 and K3 on
+the card) or, with `--poa-engine graph`, the graph POA
+(`ops.poa_graph_batch`, kernel G1).
 
 What the JAX pipeline does besides, and this one refuses (`Unsupported`):
-mesh sharding (`--data-shards > 1`), multi-host runs (`SVTREK_COORDINATOR`)
-and `--poa-engine graph`.  Each message names the ROADMAP item that ports
+mesh sharding (`--data-shards > 1`) and multi-host runs
+(`SVTREK_COORDINATOR`).  Each message names the ROADMAP item that ports
 it.  A native library that does not build is an error
 (`NativeReaderUnavailable`), not a switch to the Python reader: only
 `--no-native-io` asks for that.
@@ -67,6 +69,7 @@ from ..ops.audit_step import (
     audit_refine_step_csr, to_device,
 )
 from ..ops.poa_batch import consensus_sequence_batch
+from ..ops.poa_graph_batch import consensus_sequence_poa_batch
 from ..refusals import raise_refused
 from .pack import (
     INT64_MIN, PackedBatch, PackedCandBatch, as_read_list, pack_chunk,
@@ -156,6 +159,7 @@ class AuditStats:
     cons_sites: int = 0      # INS sites given a consensus sequence
     cons_flushes: int = 0    # batched consensus calls
     cons_dp_calls: int = 0   # DP batches those calls sent to the device
+    cons_graph_scalar: int = 0  # graph engine: clusters on the scalar route
     total_s: float = 0.0
     records: int = 0
     windows: int = 0
@@ -190,7 +194,8 @@ class AuditStats:
             print(
                 f"[VERBOSE] ins_consensus sites={self.cons_sites} "
                 f"time={self.cons_s:.3f}s flushes={self.cons_flushes} "
-                f"dp_calls={self.cons_dp_calls}",
+                f"dp_calls={self.cons_dp_calls} "
+                f"graph_scalar={self.cons_graph_scalar}",
                 file=err,
             )
 
@@ -329,8 +334,11 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     overlapping the refined position whose >= 50 bp I op lands within
     consensus_interval of it contribute their inserted bases (the native
     reader's SEQ decode, or the Python reader's); one batched consensus
-    call on ``device`` covers all records.  res.seq = "" when there is no
-    consensus (printed NA)."""
+    call on ``device`` covers all records, of the star engine or, with
+    ``cfg.poa_engine == "graph"``, the graph engine.  res.seq = "" when
+    there is no consensus (printed NA)."""
+    consensus_batch = consensus_sequence_poa_batch \
+        if cfg.poa_engine == "graph" else consensus_sequence_batch
     t0 = time.perf_counter()
     interval = cfg.consensus_interval
     ins_seqs = reader.ins_seqs if hasattr(reader, "ins_seqs") else \
@@ -344,14 +352,15 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
             continue
         seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
                                   C.SV_MIN_LENGTH, lo, hi))
-    counts = {"dp_calls": 0}
-    for res, s in zip(records, consensus_sequence_batch(
+    counts = {"dp_calls": 0, "graph_scalar": 0}
+    for res, s in zip(records, consensus_batch(
             seq_lists, device=device, counts=counts)):
         res.seq = s or ""
         if s:
             stats.cons_sites += 1
     stats.cons_flushes += 1
     stats.cons_dp_calls += counts["dp_calls"]
+    stats.cons_graph_scalar += counts["graph_scalar"]
     stats.cons_s += time.perf_counter() - t0
 
 

@@ -8,14 +8,15 @@ every read's graph alignment onto the rank-0 backbone (the native C GAF
 projector, or the Python parse with ``use_native_parse=False``), scan the
 runs for >= 50 bp INS/DEL/clip signals in batches on the device
 (`ops.discover`), cluster the signals across reads, and give each
-insertion cluster the star-POA consensus of its reads' inserted bases
-(`ops.poa_batch`, kernels K2 and K3 on the card).
+insertion cluster the consensus of its reads' inserted bases: the star
+POA (`ops.poa_batch`, kernels K2 and K3 on the card) or, with
+`--poa-engine graph`, the graph POA (`ops.poa_graph_batch`, kernel G1).
 
 Output lines, their order, and the `.ckpt.npz` detection checkpoint are
 the JAX package's: a checkpoint written by either package restores in the
 other.  What the JAX pipeline does besides, and this one refuses
-(`Unsupported`): `--poa-engine graph`, mesh sharding (`--data-shards` > 1)
-and multi-host runs (SVTREK_COORDINATOR); and where the native GAF library
+(`Unsupported`): mesh sharding (`--data-shards` > 1) and multi-host runs
+(SVTREK_COORDINATOR); and where the native GAF library
 does not load, the JAX pipeline quietly takes the Python parse while this one
 raises.
 """
@@ -41,6 +42,7 @@ from ..ops.discover import (
     BP_CLIP, BP_DEL, BP_INS, scan_projected_runs_compact_csr,
 )
 from ..ops.poa_batch import consensus_sequence_batch
+from ..ops.poa_graph_batch import consensus_sequence_poa_batch
 from ..refusals import Unsupported, raise_refused
 
 _TYPE_NAME = {BP_INS: "INS", BP_DEL: "DEL", BP_CLIP: "CLIP"}
@@ -316,13 +318,16 @@ def cluster_breakpoints(bps: list[Breakpoint], min_count: int,
     return clusters
 
 
-def consensus_insert_sequences(clusters: list[SvCluster], fq_path: str, *,
+def consensus_insert_sequences(clusters: list[SvCluster], fq_path: str,
+                               engine: str = "star", *,
                                device: torch.device | str = "cpu",
                                counts: dict | None = None) -> None:
-    """Attach to each INS cluster the star consensus of its supporting
-    reads' inserted substrings (reverse-complement-normalized), all
-    clusters in one `consensus_sequence_batch` call on ``device``
-    (``counts["dp_calls"]`` counts its DP batches)."""
+    """Attach to each INS cluster the consensus of its supporting reads'
+    inserted substrings (reverse-complement-normalized), all clusters in
+    one call on ``device``: `consensus_sequence_batch` (star) or, with
+    ``engine == "graph"``, `consensus_sequence_poa_batch` (``counts`` as
+    theirs: "dp_calls" counts the DP batches, "graph_scalar" the graph
+    engine's clusters on the scalar route)."""
     wanted: dict[str, list[tuple[SvCluster, Breakpoint]]] = {}
     for c in clusters:
         if c.type != "INS":
@@ -343,9 +348,11 @@ def consensus_insert_sequences(clusters: list[SvCluster], fq_path: str, *,
             if sub:
                 per_cluster.setdefault(id(c), []).append(sub)
 
+    consensus_batch = consensus_sequence_poa_batch if engine == "graph" \
+        else consensus_sequence_batch
     ins = [c for c in clusters if c.type == "INS"]
     seq_lists = [per_cluster.get(id(c), []) for c in ins]
-    for c, s in zip(ins, consensus_sequence_batch(
+    for c, s in zip(ins, consensus_batch(
             seq_lists, device=device, counts=counts)):
         if s:
             c.seq = s
@@ -418,7 +425,8 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     cfg.output_file).  ``stats``, when given, receives phase seconds
     (detect_s, cluster_s, consensus_s, emit_s, total_s, scan_wait_s) and
     counts (reads, scan_batches, rescans, host_reads, breakpoints,
-    clusters, ins_clusters, dp_calls); nothing is printed for them.
+    clusters, ins_clusters, dp_calls, graph_scalar); nothing is printed for
+    them.
 
     Raises Unsupported for what the port does not run, and
     device.DeviceUnavailable when the card is asked for and absent."""
@@ -464,9 +472,9 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     clusters = cluster_breakpoints(bps, cfg.consensus_min_count,
                                    cfg.cluster_window)
     t_cluster = time.perf_counter()
-    counts = {"dp_calls": 0}
-    consensus_insert_sequences(clusters, cfg.fq_file, device=device,
-                               counts=counts)
+    counts = {"dp_calls": 0, "graph_scalar": 0}
+    consensus_insert_sequences(clusters, cfg.fq_file, cfg.poa_engine,
+                               device=device, counts=counts)
     t_cons = time.perf_counter()
 
     file_out = None
@@ -493,5 +501,6 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
             total_s=t_end - t_start, breakpoints=len(bps),
             clusters=len(clusters),
             ins_clusters=sum(c.type == "INS" for c in clusters),
-            dp_calls=counts["dp_calls"])
+            dp_calls=counts["dp_calls"],
+            graph_scalar=counts["graph_scalar"])
     return lines

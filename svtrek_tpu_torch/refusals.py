@@ -3,8 +3,8 @@
 `Unsupported` is raised for an option or environment that the JAX package
 runs and this port does not; each message names the ROADMAP item that ports
 it.  `raise_refused` holds the refusals of the audt and disc pipelines:
-mesh sharding (`--data-shards > 1`), multi-host runs
-(`SVTREK_COORDINATOR`) and the graph POA engine.  The scan pipeline
+mesh sharding (`--data-shards > 1`) and multi-host runs
+(`SVTREK_COORDINATOR`), both ROADMAP queue 1 item 9.  The scan pipeline
 refuses nothing.
 """
 from __future__ import annotations
@@ -18,8 +18,8 @@ class Unsupported(RuntimeError):
 
 def raise_refused(cfg, *extra: str) -> None:
     """Raise Unsupported, before any work, for what the audt and disc
-    pipelines both refuse (mesh sharding, multi-host runs, the graph POA
-    engine) and for the pipeline's own ``extra`` refusals."""
+    pipelines both refuse (mesh sharding, multi-host runs) and for the
+    pipeline's own ``extra`` refusals."""
     refused = []
     if cfg.data_shards > 1:
         refused.append("--data-shards > 1 (mesh sharding runs on one GPU "
@@ -27,9 +27,6 @@ def raise_refused(cfg, *extra: str) -> None:
     if os.environ.get("SVTREK_COORDINATOR"):
         refused.append("SVTREK_COORDINATOR (multi-host runs; ROADMAP "
                        "queue 1 item 9)")
-    if cfg.poa_engine == "graph":
-        refused.append("--poa-engine graph (graph POA; ROADMAP queue 1 "
-                       "item 8)")
     refused += extra
     if refused:
         raise Unsupported("not supported by svtrek_tpu_torch yet: "

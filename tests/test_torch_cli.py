@@ -68,12 +68,12 @@ def test_cli_trace_dir_writes_profiler_trace(audt_fixture, capsys):
 
 # Each option with the ROADMAP item that ports it, or None where the port
 # runs it (--extract device and --no-native-io, refused until the device
-# evidence walk was ported).
+# evidence walk was ported; --poa-engine graph, until the graph POA was).
 REFUSED = {
     "data_shards": (["--data-shards", "2"], "item 9"),
     "extract_device": (["--extract", "device"], None),
     "no_native_io": (["--no-native-io"], None),
-    "poa_graph": (["--poa-engine", "graph"], "item 8"),
+    "poa_graph": (["--poa-engine", "graph"], None),
 }
 
 
@@ -313,21 +313,46 @@ def test_cli_disc_cpu(disc_fixture, capsys):
     assert os.path.exists(out_path + ".ckpt.npz")
 
 
+# Each option with the ROADMAP item that ports it, or None where the port
+# runs it (--poa-engine graph, refused until the graph POA was ported).
 DISC_REFUSED = {
-    "poa_graph": (["--poa-engine", "graph"], {}, "item 8"),
+    "poa_graph": (["--poa-engine", "graph"], {}, None),
     "data_shards": (["--data-shards", "2"], {}, "item 9"),
     "coordinator": ([], {"SVTREK_COORDINATOR": "localhost:1234"}, "item 9"),
 }
 
 
+def _jax_disc_lines(d: str, inputs: list[str], flags: list[str]):
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        assert jax_cli.main(["disc", *inputs, "-o",
+                             os.path.join(d, "jax_run.txt"),
+                             "--data-shards", "1", *flags]) == 0
+    return [l for l in stdout.getvalue().splitlines()
+            if l.startswith("(DISC")]
+
+
 @pytest.mark.parametrize("name", sorted(DISC_REFUSED))
 def test_cli_disc_refuses_unported_options(disc_fixture, capsys,
                                            monkeypatch, name):
+    """An option the port does not run exits 1, naming its ROADMAP item,
+    before any output; one it runs prints svtrek_tpu's lines for it."""
     d, inputs, _ = disc_fixture
     flags, env, item = DISC_REFUSED[name]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     out_path = os.path.join(d, f"refused_{name}.txt")
+    if item is None:
+        want = _jax_disc_lines(d, inputs, flags)
+        capsys.readouterr()
+        assert cli.main(["disc", *inputs, "-o", out_path, "--device", "cpu",
+                         *flags]) == 0
+        got = [l for l in capsys.readouterr().out.splitlines()
+               if l.startswith("(DISC")]
+        assert got == want and any(", seq: " in l for l in want)
+        with open(out_path) as fh:
+            assert fh.read().splitlines() == want
+        return
     assert cli.main(["disc", *inputs, "-o", out_path, "--device", "cpu",
                      *flags]) == 1
     err = capsys.readouterr().err

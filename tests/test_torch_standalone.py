@@ -81,8 +81,11 @@ def test_module_list_covers_the_port():
             "svtrek_tpu_torch.io.gaf_native", "svtrek_tpu_torch.oracle",
             "svtrek_tpu_torch.pipeline.audit", "svtrek_tpu_torch.ops.cigar",
             "svtrek_tpu_torch.ops.window_scan",
-            "svtrek_tpu_torch.pipeline.scan"} <= set(PKG_MODULES)
-    assert len(PKG_MODULES) >= 38
+            "svtrek_tpu_torch.pipeline.scan",
+            "svtrek_tpu_torch.ops.poa_graph",
+            "svtrek_tpu_torch.ops.poa_graph_dp",
+            "svtrek_tpu_torch.ops.poa_graph_batch"} <= set(PKG_MODULES)
+    assert len(PKG_MODULES) >= 41
 
 
 @pytest.mark.parametrize("name", PKG_MODULES + SMOKE_TOOLS)
@@ -286,3 +289,53 @@ def test_python_bam_reader_matches(planted, tmp_path):
         want = [dataclasses.astuple(r) for t, b, e in regions
                 for r in JaxReader(path).fetch(t, b, e)]
         assert got == want and len(got) > 10
+
+
+def test_poa_graph_matches():
+    """ops/poa_graph.py (PoaGraph, consensus_sequence_poa): the same graphs
+    (nodes, edges, weights, rings), alignments, device arrays and consensus
+    as svtrek_tpu's on seeded clusters, with N bases, indels and a
+    two-allele cluster."""
+    import random
+
+    from svtrek_tpu.ops import poa_graph as jpg
+    from svtrek_tpu_torch.ops import poa_graph as pg
+    from svtrek_tpu_torch.ops.poa import encode
+    from tests.test_poa_graph import _mutate, _rand_seq
+
+    def state(g):
+        return _plain([g.base, [sorted(p) for p in g.preds],
+                       [sorted(x) for x in g.succs],
+                       [sorted(a) for a in g.aligned], g.node_w,
+                       sorted(g.edge_w.items()), g.n_seqs])
+
+    rng = random.Random(11)
+    clusters = []
+    for k in range(6):
+        truth = _rand_seq(rng, rng.randint(20, 90))
+        clusters.append([_mutate(rng, truth, 0.15)
+                         for _ in range(rng.randint(2, 7))])
+    clusters.append(["ACGNNTA", "ACGNTA", "ACNNNTA"])
+    a = _rand_seq(rng, 40)
+    clusters.append([a] * 3 + [a[:20] + _rand_seq(rng, 25) + a[20:]] * 2)
+    assert pg.NEG == jpg.NEG
+    for seqs in clusters:
+        g, jg = pg.PoaGraph(), jpg.PoaGraph()
+        g.add_first(encode(seqs[0]))
+        jg.add_first(encode(seqs[0]))
+        for s in seqs[1:]:
+            q = encode(s)
+            got, want = g.align(q), jg.align(q)
+            assert got == want
+            g.add_alignment(q, got[0])
+            jg.add_alignment(q, want[0])
+            assert state(g) == state(jg)
+        assert g.topo_order() == jg.topo_order()
+        assert g.max_indegree() == jg.max_indegree()
+        shape = (len(g.base) + 3, g.max_indegree() + 1)
+        assert _plain(g.to_arrays(*shape)) == _plain(jg.to_arrays(*shape))
+        assert g.consensus() == jg.consensus()
+        assert pg.consensus_sequence_poa(seqs) == \
+            jpg.consensus_sequence_poa(seqs)
+    assert pg.consensus_sequence_poa([]) == "" and \
+        pg.consensus_sequence_poa(["", "AC"]) == "AC"

@@ -382,11 +382,14 @@ def result_line(sv: str, chrom: int, pos: int, end: int, r0: int,
 
 
 def audt_lines(bam_path: str, vcf_path: str, ins_consensus: bool = False,
-               seq_lines=None) -> list[str]:
+               seq_lines=None, consensus=star_consensus) -> list[str]:
     """The reference's result lines for a VCF against a BAM, in input
     order.  With ``ins_consensus`` each INS line ends in `, seq: S` (NA
     without a refined position or a consensus); ``seq_lines``, when given,
-    limits that to the lines of those indices."""
+    limits that to the lines of those indices.  ``consensus`` maps a site's
+    inserts to S: by default the star consensus (`star_consensus`); a
+    caller may give another engine's scalar form, such as the graph POA's
+    `consensus_sequence_poa`."""
     bam = Bam(bam_path, with_seq=ins_consensus)
     lines = []
     with open(vcf_path) as fh:
@@ -410,7 +413,7 @@ def audt_lines(bam_path: str, vcf_path: str, ins_consensus: bool = False,
             line = result_line(sv, chrom, pos, end, *res)
             if ins_consensus and sv == "INS" and (
                     seq_lines is None or len(lines) in seq_lines):
-                seq = "" if res[0] == M32 or chrom < 1 else star_consensus(
+                seq = "" if res[0] == M32 or chrom < 1 else consensus(
                     ins_seqs(bam, chrom - 1, res[0] - INTERVAL,
                              res[0] + INTERVAL))
                 line += f", seq: {seq or 'NA'}"

@@ -92,9 +92,12 @@ def inserts(fq_path: str, wanted: dict) -> dict:
     return got
 
 
-def disc_lines(fq_path: str, cl, seq_clusters=None) -> list[str]:
+def disc_lines(fq_path: str, cl, seq_clusters=None,
+               consensus=star_consensus) -> list[str]:
     """The result lines of clusters ``cl``; INS lines carry `, seq:` only
-    for the cluster indices in ``seq_clusters`` (all when None)."""
+    for the cluster indices in ``seq_clusters`` (all when None), the
+    ``consensus`` of the cluster's inserts (by default the star
+    consensus)."""
     chosen = {i for i, c in enumerate(cl) if c[0] == "INS"
               and (seq_clusters is None or i in seq_clusters)}
     wanted: dict = {}
@@ -106,7 +109,7 @@ def disc_lines(fq_path: str, cl, seq_clusters=None) -> list[str]:
     for i, (t, pos, ln, n, _) in enumerate(cl):
         line = f"(DISC {t}) ref pos: {pos}, len: {ln}, support: {n}"
         if i in chosen:
-            line += f", seq: {star_consensus(subs.get(i, [])) or 'NA'}"
+            line += f", seq: {consensus(subs.get(i, [])) or 'NA'}"
         lines.append(line)
     return lines
 

@@ -2,7 +2,7 @@
 """End-to-end split of the PyTorch port's `audt` and `disc` runs on one
 card.
 
-    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--trace-dir DIR]
+    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--graph] [--trace-dir DIR]
 
 On chip_smoke.py's 5,000-record fixture (built there, or reused from the
 temp dir), runs `python -m svtrek_tpu_torch.cli audt --verbose` in this
@@ -12,9 +12,11 @@ process with --device cuda and --device cpu alternating, then twice with
 fixture instead, with `--ins-consensus --device cuda` twice (a
 `--device cpu` run takes minutes; chip_smoke.py makes one).  With
 `--disc` it runs `disc` on chip_smoke.py's 500,000-read disc fixture,
---device cuda, cpu, cuda, printing each run's wall time and stats.  A last
-run
-under `--trace-dir` writes a torch.profiler trace and prints its summary:
+--device cuda, cpu, cuda, printing each run's wall time and stats.  With
+`--graph` either of those runs the graph POA engine (`--poa-engine
+graph`), the ins-consensus runs on chip_smoke.py's graph sub-VCF (the
+first 400 sites whose insert is at most 700 bases).  A last run under
+`--trace-dir` writes a torch.profiler trace and prints its summary:
 the traced window, the events and time per category, the device events by
 name, and the card's busy and idle share of the window.  A trace slows the
 run several times, so it reads the device's share, not the wall time.
@@ -62,12 +64,12 @@ def run_cli(bam: str, vcf: str, flags: list[str]) -> None:
         sys.exit(f"audt failed: {err.getvalue()[-2000:]}")
 
 
-def measure_disc(trace_dir: str) -> None:
+def measure_disc(trace_dir: str, flags: list[str]) -> None:
     import torch
 
     inputs = chip_smoke.disc_fixture()
     for device in DISC_RUNS:
-        lines, st, wall = chip_smoke.run_disc(inputs, device)
+        lines, st, wall = chip_smoke.run_disc(inputs, device, flags)
         split = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else
                          f"{k}={v}" for k, v in sorted(st.items()))
         print(f"disc --device {device}: {len(lines)} lines, wall "
@@ -75,7 +77,7 @@ def measure_disc(trace_dir: str) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, _, wall = chip_smoke.run_disc(inputs, "cuda")
+        _, _, wall = chip_smoke.run_disc(inputs, "cuda", flags)
     print(f"disc --device cuda under torch.profiler: wall {wall:.4f}s",
           flush=True)
     os.makedirs(trace_dir, exist_ok=True)
@@ -118,17 +120,25 @@ def main() -> None:
                     help="measure the ins-consensus path on its fixture")
     ap.add_argument("--disc", action="store_true",
                     help="measure disc on chip_smoke.py's disc fixture")
+    ap.add_argument("--graph", action="store_true",
+                    help="with --ins-consensus or --disc: the graph POA "
+                         "engine")
     args = ap.parse_args()
+    engine = ["--poa-engine", "graph"] if args.graph else []
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip(), flush=True)
     if args.disc:
-        measure_disc(args.trace_dir)
+        measure_disc(args.trace_dir, engine)
         return
     if args.ins_consensus:
-        bam, vcf, _ = chip_smoke.ins_fixture()
-        runs, traced = INS_RUNS, INS_RUNS[0]
+        bam, vcf, sites = chip_smoke.ins_fixture()
+        if args.graph:
+            vcf = chip_smoke.graph_sub_vcf(vcf, sites,
+                                           chip_smoke.GRAPH_SITES)[0]
+        runs = [[*flags, *engine] for flags in INS_RUNS]
+        traced = runs[0]
     else:
         bam, vcf = chip_smoke.fixture()
         runs, traced = RUNS, ["--device", "cuda"]
