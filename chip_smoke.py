@@ -95,9 +95,16 @@ last line:
    insertions and deletions, grown on the card), a graph of V_CAP 2,048
    nodes with queries of N_CAP 1,024 bases, a node with P_CAP 32
    predecessors, and edge pairs (V = 1, n = 1, queries of N, identical
-   members); score, matched and ins_after exactly equal; CUDA-event times
-   of the wrapper and of the plain version on the ins mix, the profiler's
-   time of G1 alone and its bound;
+   members), and `long`, past the routing caps (a graph of 3 copies of a
+   4,000-base insert with a query of 4,096 bases, and a two-allele graph of
+   two 4,096-base alleles with V past 8,192, grown on the card); score,
+   matched and ins_after exactly equal; CUDA-event times of the wrapper
+   and of the plain version on the ins mix (on `long` the plain check's
+   wall time), the profiler's time of G1 alone and its bound on both, the
+   ins mix's share of filled predecessor slots within G1's shared ring of
+   8 rows, and the recorded times of the block-per-pair design it
+   replaced (commit c6ff5e5); and the wrapper must refuse a live row
+   without a predecessor;
 14. graph POA paths: `audt --ins-consensus --poa-engine graph --device
    cuda` on the first 400 sites of phase 7's fixture whose insert is at
    most 700 bases (so every read's insert stays under N_CAP): K1 once per
@@ -122,10 +129,11 @@ largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
 call's time where one computes the same function (`library_ms`, K4's
-torch.sum; none computes G1's) and the time of the design this one
+torch.sum; none computes G1's; G1 also `ring_hit_share` and
+`long_device_ms`) and the time of the design this one
 replaced where it is still live code (`ms_before`, K2's chunked kernel; null for the others, whose
-replaced designs left the tree: tools/torch_kernel_ab.py times K1's and
-K3's beside the new ones).  Those are CUDA-event times of one wrapper
+replaced designs left the tree: tools/torch_kernel_ab.py times K1's,
+K3's and G1's beside the new ones).  Those are CUDA-event times of one wrapper
 call, which also hold the host's work inside it (the K2/K3 plan, the
 ctypes call); `device_ms` and `device_ms_before` are torch.profiler's
 time of the kernels alone, and K1's `launch_floor_ms` the profiler's time
@@ -219,6 +227,15 @@ SCALAR_SEQ_CLUSTERS = 8
 # first GRAPH_CPU_SITES also run on the CPU (the plain DP takes about a
 # second a site there).
 GRAPH_MIX = (256, 50, 1024, 2, 12)
+# G1's `long` batch: the insert length and the query length of its pairs
+# (the ins path's max_len), past the routing caps but within G1's.
+GRAPH_LONG_INSERT, GRAPH_LONG_N = 4000, 4096
+# The block-per-pair G1 of commit c6ff5e5 on `ins_mix` (PERF.md §6: three
+# runs of this script on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside this run's times; tools/torch_kernel_ab.py times that design in
+# one process.
+GRAPH_BLOCK_DESIGN_MS = {"alone": (4.6024, 4.5962),
+                         "call": (5.3423, 5.2682, 5.4567)}
 GRAPH_SITES, GRAPH_MAX_LEN, GRAPH_CPU_SITES = 400, 700, 40
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
@@ -1305,9 +1322,10 @@ def graph_batches(rng):
     query one more copy; every sequence cut to N_CAP); a graph of V_CAP
     nodes (an insert of N_CAP bases and a second chain of N_CAP inserted
     nodes: two sources and two sinks) with queries of N_CAP bases; a node
-    with P_CAP predecessors (31 insertions before one node); and edge
-    pairs: V = 1, n = 1, queries of N against a graph of N, identical
-    members (matches only)."""
+    with P_CAP predecessors (31 insertions before one node); edge pairs:
+    V = 1, n = 1, queries of N against a graph of N, identical members
+    (matches only); and `long`, past the routing caps (n = 4,096, V past
+    8,192), its graphs grown on the card."""
     from ins_fixture import mutate
     from svtrek_tpu_torch.ops.poa_graph import PoaGraph
     from svtrek_tpu_torch.ops.poa_graph_batch import (
@@ -1322,6 +1340,9 @@ def graph_batches(rng):
 
     def full(t):  # a mutated copy of exactly N_CAP bases
         return codes(np.resize(mutate(rng, t), N_CAP))
+
+    def copy_long(t):
+        return codes(mutate(rng, t)[:GRAPH_LONG_N])
 
     def first(seq):
         g = PoaGraph()
@@ -1368,6 +1389,44 @@ def graph_batches(rng):
         [codes([0]), codes([4]), codes([4] * 10), codes(same),
          codes(rng.integers(0, 4, 30))]
 
+    # Past the routing caps: a graph of 3 mutated copies of a
+    # GRAPH_LONG_INSERT-base insert with a query of GRAPH_LONG_N bases, and
+    # a two-allele graph (a second allele of GRAPH_LONG_N bases in as
+    # insertions, then a mutated copy of each allele aligned on the card):
+    # V past 8,192.
+    t = rng.integers(0, 4, GRAPH_LONG_INSERT)
+    one = first(copy_long(t))
+    a1, a2 = (rng.integers(0, 4, GRAPH_LONG_N) for _ in range(2))
+    two = first(a1)
+    two.add_alignment(codes(a2), [(None, j) for j in range(GRAPH_LONG_N)])
+    for g, qs in ((one, [copy_long(t), copy_long(t)]),
+                  (two, [copy_long(a1), copy_long(a2)])):
+        for q in qs:
+            (path,), _ = align_batch([g], [q], device="cuda")
+            g.add_alignment(q, path)
+    queries = [codes(np.resize(mutate(rng, t), GRAPH_LONG_N)),
+               copy_long(a2)]
+    if len(two.base) <= 8192 or max(map(len, queries)) != GRAPH_LONG_N:
+        fail(f"the long batch has V {len(two.base)}, n "
+             f"{[len(q) for q in queries]}")
+    yield "long", [one, two], queries
+
+
+def ring_hits(arrays, ring: int) -> tuple[int, int]:
+    """(filled predecessor slots whose row lies within ring - 1 rows of
+    their node, all filled slots) of a batch: the share G1 reads from its
+    shared-memory ring rather than global H."""
+    _, pred_rows, npred, _, Vs, _, _ = arrays
+    P = pred_rows.shape[2]
+    hit = total = 0
+    for b in range(len(Vs)):
+        V = int(Vs[b])
+        filled = np.arange(P)[None, :] < np.minimum(npred[b, :V], P)[:, None]
+        near = np.arange(1, V + 1)[:, None] - pred_rows[b, :V] < ring
+        hit += int((filled & near).sum())
+        total += int(filled.sum())
+    return hit, total
+
 
 def graph_bound(arrays, P: int, Vmax: int, Nmax: int):
     """G1's bound (ms, resource) on a batch: it reads base_td, pred_rows,
@@ -1393,20 +1452,22 @@ def phase_graph_kernel():
     """G1 against its plain version on the card."""
     import torch
 
-    from svtrek_tpu_torch.kernels import poa_graph_dp_cuda
+    from svtrek_tpu_torch.kernels import GRAPH_RING, poa_graph_dp_cuda
     from svtrek_tpu_torch.ops.poa_graph_batch import pack_pairs
     from svtrek_tpu_torch.ops.poa_graph_dp import graph_dp_reference
     from torch_step_overhead import cuda_ms
 
     rng = np.random.default_rng(2029)
     max_err = 0
-    times = None
+    times = {}
     for name, graphs, queries in graph_batches(rng):
         _, arrays, shape = pack_pairs(graphs, queries)
         args = [torch.from_numpy(a).cuda() for a in arrays]
         got = poa_graph_dp_cuda(*args, **shape)
+        t0 = time.perf_counter()
         want = graph_dp_reference(*args, **shape)
         torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         err = max(int((g.long() - w.long()).abs().max())
                   for g, w in zip(got, want))
         max_err = max(max_err, err)
@@ -1421,21 +1482,44 @@ def phase_graph_kernel():
                 f"{int(Vs.max())} n {int(ns.min())}-{int(ns.max())} "
                 f"P={shape['P']} Vmax={shape['Vmax']} Nmax={shape['Nmax']}: "
                 f"score, matched and ins_after equal")
-        if name == "ins_mix":
+        if name in ("ins_mix", "long"):
             def g1():
                 return poa_graph_dp_cuda(*args, **shape)
 
             t = {"ms": cuda_ms(g1, 5),
                  "plain_ms": cuda_ms(lambda: graph_dp_reference(
-                     *args, **shape), 1),
+                     *args, **shape), 1) if name == "ins_mix"
+                 else plain_s * 1e3,
                  "device_ms": device_ms(g1, "poa_graph_dp", 3)}
             t["bound_ms"], t["bound_by"] = graph_bound(arrays, **shape)
-            times = t
+            times[name] = t
             line += (f"; G1 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                      f"alone (profiler) {fmt_ms(t['device_ms'])}, bound "
                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
                      f"{int(((Vs.astype(np.int64)) * (ns + 1)).sum())} cells")
         print(line, flush=True)
+        if name == "ins_mix":
+            hit, total = ring_hits(arrays, GRAPH_RING)
+            times["ring_hit"] = hit / total
+            alone, call = (" / ".join(f"{x:.4f}" for x in
+                                      GRAPH_BLOCK_DESIGN_MS[k])
+                           for k in ("alone", "call"))
+            print(f"[graph] ins_mix: {hit} of {total} filled predecessor "
+                  f"slots ({100 * hit / total:.4f} %) lie within "
+                  f"{GRAPH_RING - 1} rows of their node, in G1's "
+                  f"{GRAPH_RING}-row shared ring; the block-per-pair design "
+                  f"(c6ff5e5) on this batch: alone {alone} ms, call {call} "
+                  f"ms (recorded)", flush=True)
+            # A live row without a predecessor is refused, not computed.
+            bad = args[2].clone()
+            bad[0, 0] = 0
+            try:
+                poa_graph_dp_cuda(*args[:2], bad, *args[3:], **shape)
+            except ValueError:
+                print("[graph] G1's wrapper refuses a live row without a "
+                      "predecessor", flush=True)
+            else:
+                fail("G1's wrapper took a live row without a predecessor")
     return max_err, times
 
 
@@ -1723,14 +1807,16 @@ def main() -> int:
         "launches": graph_launches,
         "launches_disc": graph_disc_launches,
         "max_abs_err": graph_err,
-        "ms": graph["ms"],
-        "plain_ms": graph["plain_ms"],
-        "bound_ms": graph["bound_ms"],
-        "bound_by": graph["bound_by"],
+        "ms": graph["ins_mix"]["ms"],
+        "plain_ms": graph["ins_mix"]["plain_ms"],
+        "bound_ms": graph["ins_mix"]["bound_ms"],
+        "bound_by": graph["ins_mix"]["bound_by"],
         "library_ms": None,
         "ms_before": None,
-        "device_ms": graph["device_ms"],
+        "device_ms": graph["ins_mix"]["device_ms"],
         "device_ms_before": None,
+        "ring_hit_share": graph["ring_hit"],
+        "long_device_ms": graph["long"]["device_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

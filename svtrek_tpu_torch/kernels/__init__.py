@@ -30,10 +30,18 @@ POA_MAX_BAND = 2048
 POA_STRIPS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 33)
 POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
 # G1 (csrc/poa_graph.cu): the largest graph (nodes), query and predecessor
-# count it takes, ops/poa_graph_batch.py's V_CAP, N_CAP and P_CAP; and the
-# scratch of one launch (H int32 and a code byte a cell of each pair's
-# (V+1) x (n+1)): a larger batch is split into several launches.
-GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP = 2048, 1024, 32
+# count it takes (ops/poa_graph_batch.py routes at V_CAP, N_CAP and P_CAP,
+# which stay at or below these); a row's cells, n+1 rounded up to
+# GRAPH_ROW_ALIGN (whole lane strips and 16-byte chunks); and the scratch of
+# one launch (H int32 and a uint16 code a cell of each pair's (V+1) rows): a
+# larger batch is split into several launches.
+GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP = 16384, 4096, 32
+GRAPH_ROW_ALIGN = 32
+# The rows of H G1 keeps in shared memory: a predecessor within
+# GRAPH_RING - 1 rows of its node is read there (chip_smoke.py prints the
+# share of such slots).
+GRAPH_RING = 8
+GRAPH_CELL_BYTES = 6
 GRAPH_SCRATCH_BYTES = 1 << 31
 
 _LIB = None
@@ -81,17 +89,7 @@ def load_library():
             ptr, ct.c_longlong, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
             ct.c_int, ct.c_int, ptr, ptr, ptr,
         ]
-        lib.svtrek_poa_graph_cap.restype = ct.c_int
-        lib.svtrek_poa_graph_cap.argtypes = [ct.c_int]
-        if tuple(lib.svtrek_poa_graph_cap(k) for k in range(3)) != (
-                GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP):
-            raise RuntimeError("csrc/poa_graph.cu and kernels.GRAPH_*_CAP "
-                               "differ")
-        lib.svtrek_poa_graph_dp.restype = ct.c_int
-        lib.svtrek_poa_graph_dp.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ct.c_int, ct.c_int,
-            ct.c_int, ct.c_int, ct.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
-        ]
+        bind_graph(lib)
         lib.svtrek_step_probe.restype = ct.c_int
         lib.svtrek_step_probe.argtypes = [ptr, ct.c_int, ct.c_int, ct.c_int,
                                           ct.c_int, ct.c_int, ptr, ptr]
@@ -99,6 +97,24 @@ def load_library():
         lib.svtrek_cuda_error_string.argtypes = [ct.c_int]
         _LIB = lib
     return _LIB
+
+
+def bind_graph(lib) -> None:
+    """Give a library built from csrc/poa_graph.cu (or a copy of it) G1's
+    C interface; raises if its caps differ from kernels.GRAPH_*."""
+    ptr = ct.c_void_p
+    lib.svtrek_poa_graph_cap.restype = ct.c_int
+    lib.svtrek_poa_graph_cap.argtypes = [ct.c_int]
+    if tuple(lib.svtrek_poa_graph_cap(k) for k in range(5)) != (
+            GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP, GRAPH_ROW_ALIGN,
+            GRAPH_RING):
+        raise RuntimeError("csrc/poa_graph.cu and kernels.GRAPH_* differ")
+    lib.svtrek_poa_graph_dp.restype = ct.c_int
+    lib.svtrek_poa_graph_dp.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ct.c_int, ct.c_int,
+        ct.c_int, ct.c_int, ct.c_int, ct.c_int, ptr, ptr, ptr, ptr, ptr,
+        ptr,
+    ]
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device,
@@ -405,12 +421,12 @@ def poa_graph_dp_cuda(base_td: torch.Tensor, pred_rows: torch.Tensor,
     and results as `ops.poa_graph_dp.graph_dp_reference`, whose outputs it
     equals.
 
-    The pairs' V and n, and a count of predecessor entries outside [0, r]
-    in the rows r < V, come to the host in one read; a pair with V outside
-    [1, GRAPH_V_CAP], n outside [1, GRAPH_N_CAP], P above GRAPH_P_CAP or
-    such an entry raises (the pipeline sends these to the scalar route).
+    The pairs' V and n, and `graph_bad_entries`, come to the host in one
+    read; a pair with V outside [1, GRAPH_V_CAP], n outside [1,
+    GRAPH_N_CAP], P above GRAPH_P_CAP or a bad entry raises (the pipeline
+    sends the first three to the scalar route; PoaGraph makes no bad entry).
     Each launch takes pairs while their scratch stays within
-    GRAPH_SCRATCH_BYTES."""
+    GRAPH_SCRATCH_BYTES, and sizes its shared ring from its largest n."""
     _require_cuda("poa_graph_dp_cuda", base_td)
     if base_td.dim() != 2:
         raise ValueError(f"base_td must be [B, Vmax], got "
@@ -431,11 +447,8 @@ def poa_graph_dp_cuda(base_td: torch.Tensor, pred_rows: torch.Tensor,
     ins_after = torch.zeros((B, Vmax + 1), dtype=torch.int32, device=dev)
     if B == 0:
         return score, matched, ins_after
-    row = torch.arange(Vmax, dtype=torch.int32, device=dev)
-    live = row[None, :] < Vs[:, None]
-    bad = ((pred_rows < 0) | (pred_rows > row[None, :, None])) & \
-        live[:, :, None]
-    host = torch.cat([Vs.long(), ns.long(), bad.sum().reshape(1)]).tolist()
+    host = torch.cat([Vs.long(), ns.long(), graph_bad_entries(
+        pred_rows, npred, Vs).reshape(1)]).tolist()
     v_h, n_h, n_bad = host[:B], host[B:2 * B], host[-1]
     if min(v_h) < 1 or max(v_h) > min(Vmax, GRAPH_V_CAP) or min(n_h) < 1 \
             or max(n_h) > min(Nmax, GRAPH_N_CAP) or n_bad:
@@ -443,39 +456,62 @@ def poa_graph_dp_cuda(base_td: torch.Tensor, pred_rows: torch.Tensor,
             f"graph pairs out of range: V in [{min(v_h)}, {max(v_h)}] (1 to "
             f"{min(Vmax, GRAPH_V_CAP)}), n in [{min(n_h)}, {max(n_h)}] (1 to "
             f"{min(Nmax, GRAPH_N_CAP)}), {n_bad} predecessor entries not "
-            f"of an earlier row")
+            f"of an earlier row or rows without a predecessor")
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for b0, offsets in poa_graph_chunks(
-                [(v + 1) * (n + 1) for v, n in zip(v_h, n_h)]):
+                [(v + 1) * graph_row_cells(n) for v, n in zip(v_h, n_h)]):
+            count = len(offsets) - 1
             total = offsets[-1]
             offsets = torch.tensor(offsets, dtype=torch.int64, device=dev)
             H = torch.empty(total, dtype=torch.int32, device=dev)
-            codes = torch.empty(total, dtype=torch.int8, device=dev)
+            codes = torch.empty(total, dtype=torch.int16, device=dev)
             rc = lib.svtrek_poa_graph_dp(
                 base_td.data_ptr(), pred_rows.data_ptr(), npred.data_ptr(),
                 is_sink.data_ptr(), Vs.data_ptr(), qpad.data_ptr(),
-                ns.data_ptr(), offsets.data_ptr(), b0, len(offsets) - 1, P,
-                Vmax, Nmax, H.data_ptr(), codes.data_ptr(), score.data_ptr(),
-                matched.data_ptr(), ins_after.data_ptr(), stream)
+                ns.data_ptr(), offsets.data_ptr(), b0, count, P, Vmax, Nmax,
+                max(n_h[b0:b0 + count]), H.data_ptr(), codes.data_ptr(),
+                score.data_ptr(), matched.data_ptr(), ins_after.data_ptr(),
+                stream)
             _launched("poa_graph_dp", lib, rc)
     return score, matched, ins_after
 
 
+def graph_bad_entries(pred_rows: torch.Tensor, npred: torch.Tensor,
+                      Vs: torch.Tensor) -> torch.Tensor:
+    """What G1 refuses in the live rows r < V of each pair, as a count (a
+    0-dim int64 tensor on their device): predecessor entries outside [0, r]
+    (a walk could loop) and rows with a predecessor count below 1 (their
+    NEG row is past the range of G1's packed keys)."""
+    Vmax = pred_rows.shape[1]
+    row = torch.arange(Vmax, dtype=torch.int32, device=pred_rows.device)
+    live = row[None, :] < Vs[:, None]
+    bad = ((pred_rows < 0) | (pred_rows > row[None, :, None])) & \
+        live[:, :, None]
+    return bad.sum() + ((npred < 1) & live).sum()
+
+
+def graph_row_cells(n: int) -> int:
+    """The cells of one of G1's rows for a query of n bases: n+1 rounded up
+    to GRAPH_ROW_ALIGN, so that a lane's strip and its 16-byte chunks never
+    cross a row."""
+    return (n + GRAPH_ROW_ALIGN) // GRAPH_ROW_ALIGN * GRAPH_ROW_ALIGN
+
+
 def poa_graph_chunks(cells: list[int], budget: int = GRAPH_SCRATCH_BYTES
                      ) -> list[tuple[int, list[int]]]:
-    """G1's launches over pairs of ``cells[b]`` = (V+1)*(n+1) cells each:
-    runs of consecutive pairs whose scratch (5 bytes a cell: H int32 and a
-    code byte) stays within ``budget`` (a pair alone may pass it), each as
-    (its first pair, the offsets in cells of its pairs' H and codes, with
-    the run's total last)."""
+    """G1's launches over pairs of ``cells[b]`` = (V+1) * graph_row_cells(n)
+    cells each: runs of consecutive pairs whose scratch (GRAPH_CELL_BYTES a
+    cell: H int32 and a uint16 code) stays within ``budget`` (a pair alone
+    may pass it), each as (its first pair, the offsets in cells of its
+    pairs' H and codes, with the run's total last)."""
     out = []
     b0 = 0
     while b0 < len(cells):
         offsets = [0, cells[b0]]
         for c in cells[b0 + 1:]:
-            if (offsets[-1] + c) * 5 > budget:
+            if (offsets[-1] + c) * GRAPH_CELL_BYTES > budget:
                 break
             offsets.append(offsets[-1] + c)
         out.append((b0, offsets))

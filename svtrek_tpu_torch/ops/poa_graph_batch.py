@@ -90,9 +90,10 @@ def align_batch(graphs: list[PoaGraph], queries: list[np.ndarray], *,
     return paths, scores
 
 
-# Caps beyond which a cluster takes the scalar route (svtrek_tpu's: there
-# the dense DP's compiled shape would be dominated by one outlier).  G1
-# takes no larger graph, query or indegree (kernels.GRAPH_V_CAP, ...).
+# Caps beyond which a cluster takes the scalar route, svtrek_tpu's (there
+# the dense DP's compiled shape would be dominated by one outlier), so that
+# the port routes as the JAX package does.  G1 takes more: graphs of up to
+# kernels.GRAPH_V_CAP nodes, queries of up to GRAPH_N_CAP bases.
 V_CAP = 2048
 N_CAP = 1024
 P_CAP = 32

@@ -1,9 +1,12 @@
 """The graph POA engine of the port (`--poa-engine graph`) against
 svtrek_tpu, on the CPU: the plain DP `graph_dp_reference` against JAX's
 `_graph_dp_batch` over the whole padded outputs, a numpy model of kernel
-G1's decomposition (column strips, warp and block scans, the first-wins
-stack, the end-row reduction, the one-thread walk over its code bytes, the
-launch split) held to the plain DP, `align_batch` and
+G1's decomposition (a warp per pair: column tiles with the carried warp
+scan, the first-wins stack as a max over packed keys, the shared ring of
+recent rows and the rows kept in global H, the end-row reduction, the
+uint16 codes and the walk in runs, the launch split) held to the plain DP
+at the kernel's sizes, at small ones and past the routing caps,
+`align_batch` and
 `consensus_sequence_poa_batch` against JAX and the scalar oracle, the
 audt and disc pipelines against JAX's, and the dispatch.  Inputs come from
 seeds (Python's `random` and numpy); everything is integer, tolerance 0."""
@@ -131,110 +134,147 @@ def test_graph_dp_reference_matches_jax(case):
 
 # ------------------------- a model of kernel G1 ------------------------- #
 
-def _g1_pair(arrays, b, P, Vmax, threads, warp, H, code):
-    """G1's block on pair b, over its flat H and code cells: strips of S
-    columns a thread, the 2P stack first-wins, the warp scans and the warps'
-    totals, the end-row reduction, the walk.  Returns (score, matched,
-    ins_after) of the pair."""
+def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
+    """G1's warp on pair b, over its flat H and code cells (rows of
+    `kernels.graph_row_cells(n)`): row tiles of lanes x strip columns,
+    a lane's strip maximum, the warp's log-step scan carried from tile to
+    tile, the first-wins stack, predecessors within ring - 1 rows read from
+    a ring of ``ring`` rows (slot i % ring) and older ones from H, the
+    end-row reduction, and the walk in runs of ``lanes`` guessed cells over
+    the uint16 codes ((predecessor row << 2) | move).  Returns (score,
+    matched, ins_after, walk rounds) of the pair."""
     base_td, pred_rows, npred, is_sink, Vs, qpad, ns = arrays
     V, n = int(Vs[b]), int(ns[b])
     W = n + 1
-    S = -(-W // threads)
-    strips = [range(t * S, min(t * S + S, W)) for t in range(threads)]
-    q = qpad[b].tolist()
-    for j in range(W):
-        H[j] = GAP * j
+    Wg = kernels.graph_row_cells(n)
+    T = lanes * strip
+    scan_id = 2 * NEG
+    # qsh[j] = q[j-1]; column 0 and the columns past n never match.
+    qsh = np.full(Wg, -2, np.int64)
+    qsh[1:W] = qpad[b, :n]
+    rows = np.zeros((ring, Wg), np.int64)
+    rows[0] = GAP * np.arange(Wg)
+    H[:Wg] = rows[0]
+    lane = np.arange(lanes)
+    # The rows a later row reads from H (ring - 1 rows back or more): only
+    # they go to H whole; of the others only column n (the end row's).
+    need = np.zeros(V + 1, bool)
+    for r in range(V):
+        for pr in pred_rows[b, r, :min(int(npred[b, r]), P)]:
+            if r + 1 - pr >= ring:
+                need[pr] = True
     for i in range(1, V + 1):
         bi = int(base_td[b, i - 1])
         np_i = min(int(npred[b, i - 1]), P)
-        prs = pred_rows[b, i - 1].tolist()
-        best = [INT32_MIN] * W
-        sel = [0] * W
-        for cols in strips:
-            for p in range(P):
-                if p >= np_i:
-                    for j in cols:
-                        if NEG > best[j]:
-                            best[j], sel[j] = NEG, 2 * p
-                    continue
-                row = prs[p] * W
-                prev = H[row + cols[0] - 1] if len(cols) and cols[0] > 0 \
-                    else 0
-                for j in cols:
-                    cur = H[row + j]
-                    d = cur + GAP
-                    dg = prev + (MATCH if q[j - 1] == bi else MISMATCH) \
-                        if j > 0 else NEG + NEG
-                    if d > best[j]:
-                        best[j], sel[j] = d, 2 * p
-                    if dg > best[j]:
-                        best[j], sel[j] = dg, 2 * p + 1
-                    prev = cur
-        # Each thread's strip maximum, the warp's inclusive scan (shuffles
-        # by 1, 2, 4, ...), the warps' totals, each thread's exclusive max.
-        gmax = [max((best[j] - GAP * j for j in cols), default=INT32_MIN)
-                for cols in strips]
-        incl = []
-        for w0 in range(0, threads, warp):
-            lanes = gmax[w0:w0 + warp]
+        assert np_i >= 1  # the wrapper refuses a row without a predecessor
+        prs = [int(x) for x in pred_rows[b, i - 1]]
+        carry = scan_id
+        for t0 in range(0, W, T):
+            j = t0 + np.arange(T)
+            live = j < Wg            # the strips of active lanes
+            jl = np.minimum(j, Wg - 1)
+            sub = np.where(qsh[jl] == bi, MATCH, MISMATCH)
+            # The stack's first maximum as one max over keys value * 64 +
+            # (63 - rank), rank 2p for del_p and 2p + 1 for diag_p; diag_p's
+            # key is del_p's key of the column before plus a column term.
+            subk = np.where(j == 0, 0, sub * 64 - 1 - GAP * 64)
+            key = np.full(T, INT32_MIN, np.int64)
+            for p in range(np_i):
+                pr = prs[p]
+                src = rows[pr % ring] if i - pr < ring \
+                    else H[pr * Wg:(pr + 1) * Wg]
+                cur = np.where(live, src[jl], 0)
+                keyd = cur * 64 + GAP * 64 + 63 - 2 * p
+                prev = src[t0 - 1] * 64 + GAP * 64 + 63 - 2 * p if t0 \
+                    else INT32_MIN // 2     # column 0's diag never wins
+                keyg = np.concatenate([[prev], keyd[:-1]]) + subk
+                key = np.maximum(key, np.maximum(keyd, keyg))
+            assert np.abs(key).max() < 1 << 30
+            best = key >> 6
+            rank = 63 - (key & 63)
+            cd = np.array([prs[r >> 1] << 2 | (1 - (r & 1))
+                           for r in np.minimum(rank, 2 * P - 1)])
+            # Each lane's strip maximum, the warp's inclusive scan (shifts
+            # by 1, 2, 4, ...), the exclusive prefix with the carry, then the
+            # in-strip pass.
+            # Columns past n come after every valid one: unmasked.
+            g = (best - GAP * j).reshape(lanes, strip)
+            incl = g.max(1)
             d = 1
-            while d < warp:
-                lanes = [max(v, lanes[k - d]) if k >= d else v
-                         for k, v in enumerate(lanes)]
+            while d < lanes:
+                incl = np.where(lane >= d, np.maximum(incl, np.roll(incl, d)),
+                                incl)
                 d *= 2
-            incl += lanes
-        totals = [incl[min(w0 + warp, threads) - 1]
-                  for w0 in range(0, threads, warp)]
-        for t, cols in enumerate(strips):
-            run = incl[t - 1] if t % warp else INT32_MIN
-            for w in range(t // warp):
-                run = max(run, totals[w])
-            for j in cols:
-                left = (NEG if j == 0 else run) + GAP * j
-                assert INT32_MIN <= left <= INT32_MAX
-                if left > best[j]:
-                    H[i * W + j], code[i * W + j] = left, 2
-                else:
-                    H[i * W + j] = best[j]
-                    code[i * W + j] = ((sel[j] >> 1) << 2) | \
-                        (0 if sel[j] & 1 else 1)
-                run = max(run, best[j] - GAP * j)
-    # The end row: per thread the rows t, t + threads, ...; the partials
+            run0 = np.maximum(np.concatenate([[scan_id], incl[:-1]]), carry)
+            carry = max(carry, int(incl[-1]))
+            excl = np.maximum.accumulate(
+                np.concatenate([run0[:, None], g[:, :-1]], 1), 1).reshape(T)
+            bc = best
+            left = np.where(j == 0, NEG, excl) + GAP * j
+            assert left.min() >= INT32_MIN
+            use_ins = left > bc
+            hv = np.where(use_ins, left, bc)
+            cv = np.where(use_ins, 2, cd)
+            assert cv.max() < 1 << 16
+            m = live
+            rows[i % ring, j[m]] = hv[m]
+            hm = m if need[i] else m & (j == n)
+            H[i * Wg + j[hm]] = hv[hm]
+            code[(i - 1) * Wg + j[m]] = cv[m]
+    # The end row: per lane the rows lane, lane + lanes, ...; the partials
     # combined by (larger value, then lower row).
-    parts = []
-    for t in range(threads):
-        bv, br = INT32_MIN, INT32_MAX
-        for r in range(t, Vmax, threads):
-            v = H[(r + 1) * W + n] if r < V and is_sink[b, r] else NEG
-            if v > bv:
+    bv, br = INT32_MIN, INT32_MAX
+    for t in range(lanes):
+        for r in range(t, V, lanes):
+            v = H[(r + 1) * Wg + n] if is_sink[b, r] else NEG
+            if v > bv or (v == bv and r < br):
                 bv, br = v, r
-        parts.append((bv, br))
-    bv, br = parts[0]
-    for v, r in parts[1:]:
-        if v > bv or (v == bv and r < br):
-            bv, br = v, r
     matched = np.zeros(Vmax, np.int8)
     ins_after = np.zeros(Vmax + 1, np.int32)
-    i, j, steps = br + 1, n, 0
-    while (i > 0 or j > 0) and steps <= V + n:
-        steps += 1
-        if i == 0:
-            ins_after[0] += 1
-            j -= 1
-            continue
-        cd = code[i * W + j]
-        if cd & 3 == 2:
-            ins_after[min(i, Vmax)] += 1
-            j -= 1
-            continue
-        if cd & 3 == 0:
+
+    def cell_code(i, j):  # row 0: a virtual ins move
+        return 2 if i == 0 else int(code[(i - 1) * Wg + j])
+
+    def nxt(i, j, c):
+        return (i if c & 3 == 2 else c >> 2, j if c & 3 == 1 else j - 1)
+
+    def move(i, c, k=1):
+        if c & 3 == 0:
             matched[i - 1] = 1
-            j -= 1
-        i = int(pred_rows[b, i - 1, cd >> 2])
-    return bv, matched, ins_after
+        elif c & 3 == 2:
+            ins_after[min(i, Vmax)] += k
+
+    limit = V + n + 1
+    i, j = br + 1, n
+    c = cell_code(i, j)
+    steps = rounds = 0
+    while (i > 0 or j > 0) and steps < limit:
+        move(i, c)
+        steps += 1
+        i0, j0 = nxt(i, j, c)
+        if (i0, j0) == (0, 0) or steps >= limit:
+            break
+        di, dj = int(c & 3 != 2), int(c & 3 != 1)
+        rounds += 1
+        gi, gj = i0 - di * lane, j0 - dj * lane
+        ok = (gi >= 0) & (gj >= 0)
+        gc = [cell_code(a, e) if k else 2 for a, e, k in zip(gi, gj, ok)]
+        link = [bool(ok[k]) and (gi[k], gj[k]) != (0, 0) and k < lanes - 1
+                and nxt(gi[k], gj[k], gc[k]) == (gi[k] - di, gj[k] - dj)
+                and gi[k] - di >= 0 and gj[k] - dj >= 0
+                for k in range(lanes)]
+        L = link.index(False)
+        nap = min(L, limit - steps)
+        for k in range(nap) if c & 3 == 0 else ():
+            matched[gi[k] - 1] = 1
+        if c & 3 == 2 and nap:
+            move(i0, c, nap)
+        steps += nap
+        i, j, c = int(gi[nap]), int(gj[nap]), gc[nap]
+    return bv, matched, ins_after, rounds
 
 
-def _g1_model(arrays, *, P, Vmax, Nmax, threads=128, warp=32,
+def _g1_model(arrays, *, P, Vmax, Nmax, lanes=32, strip=32, ring=8,
               budget=kernels.GRAPH_SCRATCH_BYTES):
     """G1's launches as `kernels.poa_graph_dp_cuda` makes them: the pairs
     in runs under ``budget``, each run's pairs at their offsets in one flat
@@ -244,47 +284,140 @@ def _g1_model(arrays, *, P, Vmax, Nmax, threads=128, warp=32,
     score = np.empty(B, np.int32)
     matched = np.zeros((B, Vmax), np.int8)
     ins_after = np.zeros((B, Vmax + 1), np.int32)
+    rounds = []
     runs = kernels.poa_graph_chunks(
-        [(int(v) + 1) * (int(n) + 1) for v, n in zip(Vs, ns)], budget)
+        [(int(v) + 1) * kernels.graph_row_cells(int(n))
+         for v, n in zip(Vs, ns)], budget)
     for b0, offsets in runs:
-        H = [None] * offsets[-1]
-        code = [None] * offsets[-1]
+        H = np.zeros(offsets[-1], np.int64)
+        code = np.zeros(offsets[-1], np.int64)
         for k in range(len(offsets) - 1):
             lo, hi = offsets[k], offsets[k + 1]
-            h, c = H[lo:hi], code[lo:hi]
-            score[b0 + k], matched[b0 + k], ins_after[b0 + k] = _g1_pair(
-                arrays, b0 + k, P, Vmax, threads, warp, h, c)
-            H[lo:hi], code[lo:hi] = h, c
-    return [score, matched, ins_after], runs
+            score[b0 + k], matched[b0 + k], ins_after[b0 + k], r = _g1_pair(
+                arrays, b0 + k, P, Vmax, lanes, strip, ring, H[lo:hi],
+                code[lo:hi])
+            rounds.append(r)
+    return [score, matched, ins_after], runs, rounds
 
 
-@pytest.mark.parametrize("threads,warp", [(128, 32), (8, 4), (5, 1)])
+# (lanes, columns a lane, ring rows): the kernel's own, and small ones whose
+# tiles, ring eviction and walk runs all show on the test batches.
+G1_SIZES = [(32, 32, 8), (4, 2, 2), (8, 1, 4)]
+
+
+@pytest.mark.parametrize("lanes,strip,ring", G1_SIZES)
 @pytest.mark.parametrize("case", ["grown", "p_padding", "v1", "n1",
                                   "query_n", "identical"])
-def test_g1_model_matches_plain(case, threads, warp):
-    """G1's decomposition at its own block (128 threads, warps of 32) and
-    at small ones whose strips hold several columns, in one launch and
-    (at 8 threads) split over several, equals the plain DP (itself equal
-    to JAX)."""
+def test_g1_model_matches_plain(case, lanes, strip, ring):
+    """G1's decomposition at its own sizes (a warp of 32 lanes, 32 columns
+    a lane, a ring of 8 rows) and at small ones whose rows span several
+    tiles and whose predecessors leave the ring, in one launch and (at 4
+    lanes) split over several, equals the plain DP (itself equal to
+    JAX)."""
     graphs, queries, P = _pairs(case)
     arrays, shape = _pack(graphs, queries, P)
-    cells = [(len(g.base) + 1) * (len(q) + 1)
+    cells = [(len(g.base) + 1) * kernels.graph_row_cells(len(q))
              for g, q in zip(graphs, queries)]
-    # At 8 threads, a budget that the largest pair fills alone.
-    budget = 5 * max(cells) if threads == 8 else kernels.GRAPH_SCRATCH_BYTES
-    got, runs = _g1_model(arrays, threads=threads, warp=warp, budget=budget,
-                          **shape)
-    assert (len(runs) >= 2) if threads == 8 else (len(runs) == 1)
+    split = lanes == 4
+    budget = kernels.GRAPH_CELL_BYTES * max(cells) if split \
+        else kernels.GRAPH_SCRATCH_BYTES
+    got, runs, rounds = _g1_model(arrays, lanes=lanes, strip=strip,
+                                  ring=ring, budget=budget, **shape)
+    assert (len(runs) >= 2) if split else (len(runs) == 1)
     for g, w in zip(got, _plain(arrays, shape)):
         np.testing.assert_array_equal(g, w)
+    if case == "grown":
+        # The walk takes runs: fewer rounds than moves.
+        moves = [int(w.sum()) + int(n) for w, n in
+                 zip(got[1], arrays[6])]
+        assert sum(rounds) < sum(moves) // 2
+
+
+def _past_caps_pair():
+    """A two-allele graph past the routing caps, at a size the CPU can
+    align: two chains of 1,100 nodes from the virtual start (V 2,200 >
+    V_CAP, the second chain's first predecessor 1,101 rows back), and a
+    mutated copy of the second allele (n about 1,100 > N_CAP)."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 4, 1100).astype(np.int8)
+    other = rng.integers(0, 4, 1100).astype(np.int8)
+    g = PoaGraph()
+    g.add_first(a)
+    g.add_alignment(other, [(None, j) for j in range(len(other))])
+    from ins_fixture import mutate
+    q = mutate(rng, other).astype(np.int8)
+    return g, q
+
+
+def test_g1_model_past_routing_caps():
+    """A pair past V_CAP and N_CAP: the plain DP equals JAX's
+    `_graph_dp_batch` and the scalar `PoaGraph.align`, and G1's model at
+    its own sizes equals the plain DP."""
+    g, q = _past_caps_pair()
+    assert len(g.base) > tgb.V_CAP and len(q) > tgb.N_CAP
+    assert len(g.base) <= kernels.GRAPH_V_CAP
+    assert len(q) <= kernels.GRAPH_N_CAP
+    arrays, shape = _pack([g], [q])
+    want = _plain(arrays, shape)
+    for x, y in zip(want, jgb._graph_dp_batch(*arrays, **shape)):
+        np.testing.assert_array_equal(x, np.asarray(y))
+    path, score = g.align(q)
+    arrs = g.to_arrays(shape["Vmax"], shape["P"])
+    assert int(want[0][0]) == score
+    assert tgb.path_from_device(arrs, want[1][0], want[2][0], q) == \
+        [(v, j) for v, j in path if j is not None]
+    got, _, _ = _g1_model(arrays, **shape)
+    for x, w in zip(got, want):
+        np.testing.assert_array_equal(x, w)
+
+
+def test_routing_caps_are_the_jax_packages():
+    """The port routes as svtrek_tpu does; G1 takes at least as much."""
+    assert (tgb.V_CAP, tgb.N_CAP, tgb.P_CAP) == \
+        (jgb.V_CAP, jgb.N_CAP, jgb.P_CAP) == (2048, 1024, 32)
+    assert tgb.V_CAP <= kernels.GRAPH_V_CAP
+    assert tgb.N_CAP <= kernels.GRAPH_N_CAP
+    assert tgb.P_CAP <= kernels.GRAPH_P_CAP
+    assert (kernels.GRAPH_V_CAP, kernels.GRAPH_N_CAP,
+            kernels.GRAPH_P_CAP) == (16384, 4096, 32)
+    # A code holds the predecessor row in 14 bits.
+    assert (kernels.GRAPH_V_CAP - 1) << 2 | 3 < 1 << 16
+
+
+@pytest.mark.parametrize("edit,count", [
+    (None, 0), ("npred_0", 1), ("pred_later", 1), ("pred_negative", 1),
+    ("dead_row", 0)])
+def test_g1_refuses_bad_entries(edit, count):
+    """What G1's wrapper refuses: a live row with no predecessor (its NEG
+    row would overflow G1's packed keys) and a predecessor entry not of an
+    earlier row; rows past V do not count."""
+    graphs, queries, _ = _pairs("grown")
+    arrays, shape = _pack(graphs, queries)
+    _, pred_rows, npred, _, Vs, _, _ = (a.copy() for a in arrays)
+    if edit == "npred_0":
+        npred[0, 3] = 0
+    elif edit == "pred_later":
+        pred_rows[1, 2, 0] = 3
+    elif edit == "pred_negative":
+        pred_rows[0, 0, shape["P"] - 1] = -1
+    elif edit == "dead_row":
+        npred[0, int(Vs[0]):] = 0
+        pred_rows[0, int(Vs[0]):] = shape["Vmax"]
+        assert int(Vs[0]) < shape["Vmax"]
+    got = kernels.graph_bad_entries(*(torch.from_numpy(a) for a in
+                                      (pred_rows, npred, Vs)))
+    assert int(got) == count
 
 
 def test_launch_chunks():
     cells = [10, 20, 30, 40, 5, 1000, 1, 1]
-    runs = kernels.poa_graph_chunks(cells, 5 * 60)
+    runs = kernels.poa_graph_chunks(cells, kernels.GRAPH_CELL_BYTES * 60)
     assert runs == [(0, [0, 10, 30, 60]), (3, [0, 40, 45]), (5, [0, 1000]),
                     (6, [0, 1, 2])]
     assert kernels.poa_graph_chunks([], 100) == []
+    assert kernels.GRAPH_CELL_BYTES == 6
+    assert [kernels.graph_row_cells(n) for n in (1, 15, 16, 1020, 4096)] == \
+        [32, 32, 32, 1024, 4128]
 
 
 # ----------------------- align_batch and consensus ----------------------- #

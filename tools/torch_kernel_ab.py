@@ -1,31 +1,42 @@
 #!/usr/bin/env python
-"""Time kernels K1 and K3 of this checkout beside an earlier design of them,
-on the card, in one process and on the same inputs.
+"""Time kernels K1, K3 and G1 of this checkout beside an earlier design of
+them, on the card, in one process and on the same inputs.
 
     python tools/torch_kernel_ab.py DIR
 
-DIR holds the earlier design's `consensus.cu` and `poa.cu`, with the C
-entry points of K1's one-thread-per-window kernel and K3's one-thread-per-
-pair kernel: `svtrek_consensus_pos` (the same arguments as now) and
-`svtrek_poa_traceback(ptr, offsets, qpad, N, ms, ns, bands, B, M, cols,
-ins, stream)`, whose caller fills cols with -1 and ins with 0.  For
-example, from a git checkout:
+DIR holds the earlier design's sources, any of:
+- `consensus.cu` and `poa.cu`, with the C entry points of K1's
+  one-thread-per-window kernel and K3's one-thread-per-pair kernel:
+  `svtrek_consensus_pos` (the same arguments as now) and
+  `svtrek_poa_traceback(ptr, offsets, qpad, N, ms, ns, bands, B, M, cols,
+  ins, stream)`, whose caller fills cols with -1 and ins with 0 (at
+  commit 13c3105);
+- `poa_graph.cu`, G1's block-per-pair design (at commit c6ff5e5):
+  `svtrek_poa_graph_dp(base_td, pred_rows, npred, is_sink, Vs, qpad, ns,
+  offsets, b0, count, P, Vmax, Nmax, H, codes, score, matched, ins_after,
+  stream)` over (V+1)(n+1) cells a pair, H int32 and an int8 code a cell.
+For example, from a git checkout (into a gitignored directory, since the
+card's copy of the repo has no .git):
 
-    mkdir -p DIR && git show REV:svtrek_tpu_torch/csrc/poa.cu > DIR/poa.cu
-    (and the same for consensus.cu)
+    mkdir -p scratch_checkout/before
+    git show c6ff5e5:svtrek_tpu_torch/csrc/poa_graph.cu \
+        > scratch_checkout/before/poa_graph.cu
+    python tools/torch_kernel_ab.py scratch_checkout/before
 
-The two sources are built with nvcc into a library of their own in a
+The sources found are built with nvcc into a library of their own in a
 temporary directory.  Both designs run on chip_smoke.py's inputs: K1 at
 every `KERNEL_SHAPES` row, K3 on the `bench` and `flush` pair batches (the
-pointers from this checkout's K2).  For each it prints the kernel's time
-alone (torch.profiler) and per call (CUDA events of what each design's
-wrapper does: the new wrapper; for the earlier K1 the same checks and
-its launch, for the earlier K3 the output fills, the range checks' host
-read and its launch), whether the two designs' outputs
-are equal, and for K3 the longest walk's steps and ns a step.  The two
-designs are timed in turns (new, earlier, earlier, new), and each prints
-both of its readings.  It ends with the card's name and power limit.  It
-needs a CUDA card and nvcc.
+pointers from this checkout's K2), G1 on phase 13's `ins_mix` (256 pairs).
+For each it prints the kernel's time alone (torch.profiler) and per call
+(CUDA events of what each design's wrapper does: the new wrapper; for the
+earlier K1 the same checks and its launch, for the earlier K3 the output
+fills, the range checks' host read and its launch, for the earlier G1 PR
+7's wrapper: the range checks' host read, the offsets' copy, the scratch,
+the output fills and its launch), whether the two designs' outputs are
+equal, and for K3 the longest walk's steps and ns a step.  The two designs
+are timed in turns (new, earlier, earlier, new), and each prints both of
+its readings.  It ends with the card's name and power limit.  It needs a
+CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -44,25 +55,45 @@ import chip_smoke as smoke  # noqa: E402
 from torch_step_overhead import cuda_ms  # noqa: E402
 
 
-def build_before(src_dir: str, out_dir: str):
-    """The earlier design's library, loaded with its C interface."""
+SOURCES = ("consensus.cu", "poa.cu", "poa_graph.cu")
+
+
+def nvcc_library(srcs: list[str], out_dir: str, name: str):
+    """The CUDA sources ``srcs`` built by nvcc for this card, as the
+    kernels' build does, into ``out_dir``/lib``name``.so, loaded (no C
+    interface bound yet)."""
     from svtrek_tpu_torch.kernels import build as kbuild
 
-    lib_path = os.path.join(out_dir, "libsvtrek_before.so")
+    lib_path = os.path.join(out_dir, f"lib{name}.so")
     cmd = [kbuild.find_nvcc(), "-gencode", kbuild.ARCH, "-std=c++17", "-O3",
-           "-Xcompiler", "-fPIC", "-shared", "-o", lib_path,
-           os.path.join(src_dir, "consensus.cu"),
-           os.path.join(src_dir, "poa.cu")]
+           "-Xcompiler", "-fPIC", "-shared", "-o", lib_path, *srcs]
     subprocess.run(cmd, check=True, capture_output=True, text=True,
                    timeout=600)
-    lib = ct.CDLL(lib_path)
+    return ct.CDLL(lib_path)
+
+
+def build_before(src_dir: str, out_dir: str):
+    """The earlier design's library from the SOURCES found in src_dir,
+    loaded with its C interface; and the names of those sources."""
+    found = [f for f in SOURCES if os.path.exists(os.path.join(src_dir, f))]
+    if not found:
+        raise SystemExit(f"{src_dir} holds none of {SOURCES}")
+    lib = nvcc_library([os.path.join(src_dir, f) for f in found], out_dir,
+                       "svtrek_before")
     p = ct.c_void_p
-    lib.svtrek_consensus_pos.restype = ct.c_int
-    lib.svtrek_consensus_pos.argtypes = [p, p, p] + [ct.c_int] * 6 + [p] * 3
-    lib.svtrek_poa_traceback.restype = ct.c_int
-    lib.svtrek_poa_traceback.argtypes = [p, p, p, ct.c_int, p, p, p,
-                                         ct.c_int, ct.c_int, p, p, p]
-    return lib
+    if "consensus.cu" in found:
+        lib.svtrek_consensus_pos.restype = ct.c_int
+        lib.svtrek_consensus_pos.argtypes = [p, p, p] + [ct.c_int] * 6 + \
+            [p] * 3
+    if "poa.cu" in found:
+        lib.svtrek_poa_traceback.restype = ct.c_int
+        lib.svtrek_poa_traceback.argtypes = [p, p, p, ct.c_int, p, p, p,
+                                             ct.c_int, ct.c_int, p, p, p]
+    if "poa_graph.cu" in found:
+        lib.svtrek_poa_graph_dp.restype = ct.c_int
+        lib.svtrek_poa_graph_dp.argtypes = [p] * 8 + [ct.c_int] * 5 + \
+            [p] * 6
+    return lib, found
 
 
 def check(rc: int) -> None:
@@ -176,6 +207,57 @@ def k3(lib) -> None:
               f"equal={equal}", flush=True)
 
 
+def g1(lib) -> None:
+    import torch
+
+    from svtrek_tpu_torch.kernels import poa_graph_dp_cuda
+    from svtrek_tpu_torch.ops.poa_graph_batch import pack_pairs
+
+    rng = np.random.default_rng(2029)  # chip_smoke.phase_graph_kernel's
+    _, graphs, queries = next(iter(smoke.graph_batches(rng)))
+    _, arrays, shape = pack_pairs(graphs, queries)
+    args = [torch.from_numpy(a).cuda() for a in arrays]
+    base_td, pred_rows, npred, is_sink, Vs, qpad, ns = args
+    P, Vmax, Nmax = shape["P"], shape["Vmax"], shape["Nmax"]
+    B = len(arrays[4])
+
+    def new():
+        return poa_graph_dp_cuda(*args, **shape)
+
+    def before():  # its wrapper at c6ff5e5: one launch (565 MB scratch)
+        dev = base_td.device
+        score = torch.empty(B, dtype=torch.int32, device=dev)
+        matched = torch.zeros((B, Vmax), dtype=torch.int8, device=dev)
+        ins_after = torch.zeros((B, Vmax + 1), dtype=torch.int32, device=dev)
+        row = torch.arange(Vmax, dtype=torch.int32, device=dev)
+        live = row[None, :] < Vs[:, None]
+        bad = ((pred_rows < 0) | (pred_rows > row[None, :, None])) & \
+            live[:, :, None]
+        host = torch.cat([Vs.long(), ns.long(),
+                          bad.sum().reshape(1)]).tolist()
+        cells = [(v + 1) * (n + 1) for v, n in zip(host[:B], host[B:2 * B])]
+        offsets = torch.tensor(np.concatenate([[0], np.cumsum(cells)]),
+                               dtype=torch.int64, device=dev)
+        H = torch.empty(sum(cells), dtype=torch.int32, device=dev)
+        codes = torch.empty(sum(cells), dtype=torch.int8, device=dev)
+        check(lib.svtrek_poa_graph_dp(
+            base_td.data_ptr(), pred_rows.data_ptr(), npred.data_ptr(),
+            is_sink.data_ptr(), Vs.data_ptr(), qpad.data_ptr(),
+            ns.data_ptr(), offsets.data_ptr(), 0, B, P, Vmax, Nmax,
+            H.data_ptr(), codes.data_ptr(), score.data_ptr(),
+            matched.data_ptr(), ins_after.data_ptr(),
+            torch.cuda.current_stream().cuda_stream))
+        return score, matched, ins_after
+
+    a, b = new(), before()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    t = in_turns(new, before, "poa_graph_dp", 3, 5)
+    print(f"[ab] G1 ins_mix: B={B}, V {int(arrays[4].max())} and n "
+          f"{int(arrays[6].max())} at most; {readings(t, 'new')}; "
+          f"{readings(t, 'before')}; equal={equal}", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -191,9 +273,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
-        lib = build_before(sys.argv[1], tmp)
-        k1(lib)
-        k3(lib)
+        lib, found = build_before(sys.argv[1], tmp)
+        if "consensus.cu" in found:
+            k1(lib)
+        if "poa.cu" in found:
+            k3(lib)
+        if "poa_graph.cu" in found:
+            g1(lib)
     print(smi, flush=True)
     return 0
 
