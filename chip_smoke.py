@@ -118,12 +118,30 @@ last line:
    `disc --poa-engine graph --device cuda` on phase 8's fixture: G1 once
    per DP round or more, the plain paths never, the lines before `, seq:`
    equal to phase 8's, every line equal to a `--device cpu` graph run, and
-   `seq:` equal to the scalar graph consensus on phase 8's 8 clusters.
+   `seq:` equal to the scalar graph consensus on phase 8's 8 clusters;
+15. multi-device (run after phase 11; svtrek_tpu_torch.parallel.mesh):
+   (a) the four sharded steps at 2 and 4 shards on streams of cuda:0,
+   at the main path's widths (audit and CSR audit: B 512, 8 reads a
+   window, K 16 and 1,024; consensus B 512 x K 16; disc N 8,192), each
+   equal to the same step on CPU shards and to the dense step, K1 once
+   per shard per call; 50 consensus dispatches of different batches made
+   before the first collect, each equal to the plain version; one batch's
+   step time at 1, 2 and 4 shards; (b) `audt --data-shards 4 --device
+   cuda` and `--extract device --data-shards 4` on phase 6's fixture,
+   lines equal to phase 6's (and 9's), K1 4 times a batch, and `disc
+   --data-shards 4` on phase 8's fixture, lines equal to phase 8's, the
+   scan on the card 4 times a batch; (c) the audt CLI in a subprocess
+   with SVTREK_COORDINATOR, SVTREK_NUM_PROCS=1 and SVTREK_PROC_ID=0
+   (NCCL at world size 1), lines equal to phase 6's, and two gloo
+   processes on cuda:0 (this script with `--dist-worker`), 2 shards
+   each, whose assembled consensus and disc rows equal the dense steps'
+   and whose `init_distributed` returns 4.
 
 Every phase prints its wall time.  The line before the last two is
 {"kernels": [...]}: each kernel's launches on its path (K1 the
-ins-consensus audt, and in `launches_extract_device` the device-extract
-audt; K2 and K3 disc, K4 the probe, G1 the graph audt and in
+ins-consensus audt, in `launches_extract_device` the device-extract
+audt, and in `launches_sharded` / `launches_sharded_extract` phase 15's
+4-shard host-extract and device-extract audt; K2 and K3 disc, K4 the probe, G1 the graph audt and in
 `launches_disc` the graph disc), its
 largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
@@ -144,6 +162,7 @@ power limit, then
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1691,6 +1710,433 @@ def phase_graph_disc(disc_lines: list[str], cl, subset) -> int:
     return launches
 
 
+# Phase 15: the multi-device layer (svtrek_tpu_torch.parallel.mesh).  The
+# shard counts of the sharded steps' checks, the CLI runs' count, the
+# dispatches made before the first collect, and the sizes: the main path's
+# B 512 at K 16 and the device walk's K 1,024, disc's batch of 8,192 reads.
+SHARD_COUNTS = (2, 4)
+CLI_SHARDS = 4
+REPEATS = 50
+STEP_B, STEP_READS, DISC_N = 512, 8, 8192
+
+
+def consensus_problem(B: int, K: int, seed: int):
+    """Sorted candidate rows clustered within +-4 bp of a base position
+    (most refine to a value, some to NA: counts of 0 to K)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(10_000, 1_000_000, B).astype(np.int64)
+    counts = rng.integers(0, K + 1, B).astype(np.int32)
+    locs = np.full((B, K), BIG, np.int32)
+    for i in range(B):
+        locs[i, :counts[i]] = np.sort(
+            (base[i] + rng.integers(-4, 5, counts[i])).astype(np.int32))
+    return locs, counts, base.astype(np.int32)
+
+
+def disc_problem(N: int, seed: int):
+    """Projected-run rows at disc's batch size: 0-31 runs a read, about
+    one run in 500 a >= 50 bp INS, DEL or clip (the disc cell's density)."""
+    rng = np.random.default_rng(seed)
+    O = 32
+    ops = np.full((N, O), 9, np.int8)
+    lens = np.zeros((N, O), np.int32)
+    n_runs = rng.integers(0, O, N).astype(np.int32)
+    ref_start = rng.integers(1_000, 50_000_000, N).astype(np.int32)
+    cells = np.arange(O)[None, :] < n_runs[:, None]
+    ops[cells] = rng.choice([0, 1, 2, 4, 7, 8], int(cells.sum()))
+    lens[cells] = np.where(rng.random(int(cells.sum())) < 0.002,
+                           rng.integers(50, 400, int(cells.sum())),
+                           rng.integers(1, 45, int(cells.sum())))
+    return ops, lens, n_runs, ref_start
+
+
+def demo_csr(args, n: int):
+    """The padded shard-blockwise batch `args` in the CSR layout of the
+    sharded packer: each shard's runs back to back in its own block of the
+    flat streams."""
+    ops, lens, pos, n_ops, wid, *win = args
+    per = ops.shape[0] // n
+    real = np.arange(ops.shape[1])[None, :] < n_ops[:, None]
+    t = [int(n_ops[s * per:(s + 1) * per].sum()) for s in range(n)]
+    t_loc = 256
+    while t_loc < max(t):
+        t_loc *= 2
+    ops_flat = np.zeros(n * t_loc, np.uint8)
+    lens_flat = np.zeros(n * t_loc, np.int32)
+    for s in range(n):
+        rows = slice(s * per, (s + 1) * per)
+        ops_flat[s * t_loc:s * t_loc + t[s]] = ops[rows][real[rows]]
+        lens_flat[s * t_loc:s * t_loc + t[s]] = lens[rows][real[rows]]
+    return (ops_flat, lens_flat, pos, n_ops, wid, *win)
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock time (ms) of fn(), which ends in a copy to the
+    host, after a warm-up."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def same(tag: str, got, want) -> None:
+    """Exact equality of two tuples of arrays."""
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            bad = np.argwhere(a != b)[:3].tolist() if a.shape == b.shape \
+                else (a.shape, b.shape)
+            fail(f"{tag}: output {i} differs ({a.dtype} vs {b.dtype}; "
+                 f"first differences at {bad})")
+
+
+def check_sharded_steps() -> dict:
+    """Phase 15 (a): the four sharded steps on streams of cuda:0 at n 2
+    and 4, each equal to the same step on CPU shards (the plain path) and
+    to the dense step, K1 once per shard per call; the consensus step
+    dispatched REPEATS times before any collect; one batch's step time at
+    n 1, 2 and 4.  Returns the times."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from svtrek_tpu_torch.ops.audit_step import (
+        audit_consensus_step, audit_refine_step, audit_refine_step_csr,
+        to_device,
+    )
+    from svtrek_tpu_torch.ops.consensus import consensus_pos_batch
+    from svtrek_tpu_torch.ops.discover import scan_projected_runs_compact
+    from svtrek_tpu_torch.parallel.mesh import (
+        make_mesh, make_sharded_demo_batch, sharded_audit_step,
+        sharded_audit_step_csr, sharded_consensus_step, sharded_disc_step,
+    )
+
+    cuda0 = torch.device("cuda", 0)
+
+    def dense(fn, args, dtypes, **kw):
+        out = fn(*(to_device(a, cuda0, d) for a, d in zip(args, dtypes)),
+                 **kw)
+        return tuple(o.cpu().numpy() for o in out)
+
+    def k1_run(tag, n, call):
+        reset_launch_counts()
+        out = call().gather()
+        if launch_counts["consensus_pos"] != n:
+            fail(f"{tag}: K1 launched {launch_counts['consensus_pos']} "
+                 f"times on {n} shards")
+        return out
+
+    walk_dt = (np.int8,) + (np.int32,) * 8
+    csr_dt = (np.uint8,) + (np.int32,) * 8
+    locs, counts, ipos = cons = consensus_problem(STEP_B, 16, 15)
+    want_cons = dense(consensus_pos_batch, cons, (np.int32,) * 3)
+    disc = disc_problem(DISC_N, 15)
+    times = {"consensus": {}, "walk_csr": {}}
+    for n in SHARD_COUNTS:
+        gpu, cpu = make_mesh([cuda0], n), make_mesh(["cpu"], n)
+        b_per = STEP_B // n
+        demo = make_sharded_demo_batch(n, b_per_shard=b_per,
+                                       reads_per_window=STEP_READS, O=16,
+                                       seed=n)
+        ops, lens, pos, n_ops, wid, *win = demo
+        gwid = wid + np.repeat(np.arange(n, dtype=np.int32) * b_per,
+                               len(wid) // n)
+        csr = demo_csr(demo, n)
+        for K in (16, 1024):
+            want = dense(audit_refine_step,
+                         (ops, lens, pos, n_ops, gwid, *win), walk_dt,
+                         num_windows=STEP_B, K=K)
+            if want[2].any() or (want[0] < 0).sum() > STEP_B // 4:
+                fail(f"the demo batch at K={K} overflowed or refined to NA")
+            for name, make, args in (
+                    ("audit", sharded_audit_step, demo),
+                    ("audit_csr", functools.partial(
+                        sharded_audit_step_csr, O=16), csr)):
+                tag = f"{name} n={n} K={K}"
+                got = k1_run(tag, n, lambda: make(
+                    gpu, num_windows=STEP_B, K=K)(*args))
+                same(tag, got, make(cpu, num_windows=STEP_B,
+                                    K=K)(*args).gather())
+                same(f"{tag} against the dense step", got, want)
+        tag = f"consensus n={n}"
+        step = sharded_consensus_step(gpu, num_windows=STEP_B)
+        got = k1_run(tag, n, lambda: step(*cons))
+        same(tag, got, sharded_consensus_step(
+            cpu, num_windows=STEP_B)(*cons).gather())
+        same(f"{tag} against the dense step", got, want_cons)
+        times["consensus"][n] = host_ms(lambda: step(*cons).gather())
+        csr_step = sharded_audit_step_csr(gpu, num_windows=STEP_B, K=1024,
+                                          O=16)
+        times["walk_csr"][n] = host_ms(lambda: csr_step(*csr).gather())
+
+        cap = max(256, 2048 // n)
+        tag = f"disc n={n}"
+        got = sharded_disc_step(gpu, min_len=50, cap=cap)(*disc).gather()
+        same(tag, got, sharded_disc_step(cpu, min_len=50,
+                                         cap=cap)(*disc).gather())
+        totals, *res = got
+        if (totals > cap).any() or totals.sum() == 0:
+            fail(f"{tag}: shard totals {totals.tolist()} (cap {cap})")
+        rows = []
+        for s, t in enumerate(totals.tolist()):
+            sl = slice(s * cap, s * cap + t)
+            rows += zip((res[0][sl] + s * (DISC_N // n)).tolist(),
+                        *(a[sl].tolist() for a in res[1:]))
+        want = dense(scan_projected_runs_compact, disc,
+                     (np.int8,) + (np.int32,) * 3, min_len=50, cap=2048)
+        t = int(want[0])
+        if rows != list(zip(*(a[:t].tolist() for a in want[1:]))):
+            fail(f"{tag}: the shards' rows differ from the dense scan's")
+    print(f"[multi] sharded steps on cuda:0 streams at n "
+          f"{list(SHARD_COUNTS)}: audit and audit_csr (B {STEP_B}, "
+          f"{STEP_READS} reads a window, K 16 and 1,024), consensus "
+          f"(B {STEP_B}, K 16), disc (N {DISC_N}): equal to CPU shards and "
+          f"to the dense step; K1 once per shard per call", flush=True)
+
+    # REPEATS dispatches of different batches before the first collect:
+    # a gather that read a shard before its K1 had written would differ.
+    n = CLI_SHARDS
+    step = sharded_consensus_step(make_mesh([cuda0], n), num_windows=STEP_B)
+    problems = [consensus_problem(STEP_B, 16, 100 + r)
+                for r in range(REPEATS)]
+    reset_launch_counts()
+    outs = [step(*p) for p in problems]
+    got = [o.gather() for o in outs]
+    if launch_counts["consensus_pos"] != REPEATS * n:
+        fail(f"{REPEATS} dispatches on {n} shards launched K1 "
+             f"{launch_counts['consensus_pos']} times")
+    for r, (p, g) in enumerate(zip(problems, got)):
+        same(f"dispatch {r} of {REPEATS}", g, tuple(
+            o.numpy() for o in consensus_pos_batch(
+                *(torch.from_numpy(a) for a in p))))
+    print(f"[multi] {REPEATS} consensus dispatches on {n} shards, all "
+          f"made before the first collect: each equal to the plain "
+          f"version", flush=True)
+
+    times["consensus"][1] = host_ms(lambda: tuple(
+        o.cpu() for o in audit_consensus_step(locs, counts, ipos,
+                                              device=cuda0)))
+    demo = make_sharded_demo_batch(1, b_per_shard=STEP_B,
+                                   reads_per_window=STEP_READS, O=16, seed=1)
+    csr = [to_device(a, cuda0, d) for a, d in zip(demo_csr(demo, 1),
+                                                   csr_dt)]
+    times["walk_csr"][1] = host_ms(lambda: tuple(
+        o.cpu() for o in audit_refine_step_csr(
+            *csr, num_windows=STEP_B, K=1024, O=16)))
+    for name, by_n in times.items():
+        print(f"[multi] one batch's {name} step, dispatch and gather "
+              f"(host clock, median of 20): " + ", ".join(
+                  f"n={k} {v:.4f} ms" for k, v in sorted(by_n.items())),
+              flush=True)
+    return times
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+DIST_PROCS, DIST_LOCAL_SHARDS = 2, 2
+
+
+def dist_worker(coord: str, pid: int, out_path: str) -> None:
+    """One of the DIST_PROCS gloo processes of phase 15 (c), on cuda:0:
+    joins the group, runs the consensus and disc steps over its half of
+    the shared problems on DIST_LOCAL_SHARDS streams, and writes each
+    shard's rows with their global index."""
+    import torch
+
+    from svtrek_tpu_torch.parallel.mesh import (
+        init_distributed, make_global_array, make_mesh,
+        sharded_consensus_step, sharded_disc_step,
+    )
+
+    mesh = make_mesh([torch.device("cuda", 0)], DIST_LOCAL_SHARDS)
+    world = init_distributed(coord, DIST_PROCS, pid, backend="gloo",
+                             local_shards=mesh.size)
+
+    def half(arrays):
+        rows = arrays[0].shape[0] // DIST_PROCS
+        return [make_global_array(a[pid * rows:(pid + 1) * rows], mesh)
+                for a in arrays]
+
+    g = half(consensus_problem(STEP_B, 16, 15))
+    out = sharded_consensus_step(
+        mesh, num_windows=STEP_B // DIST_PROCS)(*g)
+    cons = [[off + k, v, o] for off, (ref, ovf) in zip(g[0].offsets,
+                                                       out.shards)
+            for k, (v, o) in enumerate(zip(ref.tolist(), ovf.tolist()))]
+    g = half(disc_problem(DISC_N, 15))
+    cap = max(256, 2048 // world)
+    out = sharded_disc_step(mesh, min_len=50, cap=cap)(*g)
+    disc = []
+    for off, (total, *res) in zip(g[0].offsets, out.shards):
+        t = int(total[0])
+        if t > cap:
+            raise RuntimeError(f"a shard's total {t} passed its cap {cap}")
+        disc += [[off + r, *rest] for r, *rest in
+                 zip(*(a[:t].tolist() for a in res))]
+    with open(out_path, "w") as fh:
+        json.dump({"world": world, "consensus": cons, "disc": disc}, fh)
+
+
+def check_bootstrap(bam: str, vcf: str, host_lines: list[str]) -> None:
+    """Phase 15 (c): the audt CLI in a subprocess with SVTREK_COORDINATOR,
+    SVTREK_NUM_PROCS=1 and SVTREK_PROC_ID=0 (NCCL at world size 1), its
+    lines equal to phase 6's; and DIST_PROCS gloo processes on cuda:0
+    whose assembled consensus and disc rows equal the dense steps', with
+    init_distributed's global shard count DIST_PROCS times the local one.
+    All started together; each waited for, or killed."""
+    import torch
+
+    from svtrek_tpu_torch.ops.consensus import consensus_pos_batch
+    from svtrek_tpu_torch.ops.discover import scan_projected_runs_compact
+
+    tmp = tempfile.mkdtemp(prefix="svtrek_smoke_dist_")
+    out_path = os.path.join(tmp, "nccl.txt")
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               SVTREK_COORDINATOR=f"127.0.0.1:{free_port()}",
+               SVTREK_NUM_PROCS="1", SVTREK_PROC_ID="0")
+    procs = {"nccl audt": subprocess.Popen(
+        [sys.executable, "-m", "svtrek_tpu_torch.cli", "audt", "-b", bam,
+         "-v", vcf, "-o", out_path, "--device", "cuda", "--verbose"],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)}
+    coord = f"127.0.0.1:{free_port()}"
+    dumps = [os.path.join(tmp, f"w{i}.json") for i in range(DIST_PROCS)]
+    for i in range(DIST_PROCS):
+        procs[f"gloo worker {i}"] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             coord, str(i), dumps[i]], env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    errs = {}
+    try:
+        for name, p in procs.items():
+            errs[name] = p.communicate(timeout=240)[1]
+    except subprocess.TimeoutExpired:
+        fail("a phase 15 subprocess did not end in 240 s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            fail(f"{name} exited {p.returncode}: {errs[name][-2000:]}")
+    info = [l for l in errs["nccl audt"].splitlines()
+            if l.startswith("[INFO] torch.distributed")]
+    if not info or "nccl backend, process 0 of 1" not in info[0]:
+        fail(f"the coordinated audt did not report an NCCL group: {info}")
+    with open(out_path) as fh:
+        got = [l.rstrip("\n") for l in fh if l.startswith("(")]
+    if got != host_lines:
+        fail(f"the coordinated audt's lines differ from phase 6's: "
+             f"{len(got)} vs {len(host_lines)}")
+    print(f"[multi] audt with SVTREK_COORDINATOR (world 1): {info[0]}; "
+          f"{len(got)} lines equal to phase 6's", flush=True)
+
+    res = []
+    for path in dumps:
+        with open(path) as fh:
+            res.append(json.load(fh))
+    world = DIST_PROCS * DIST_LOCAL_SHARDS
+    if [r["world"] for r in res] != [world] * DIST_PROCS:
+        fail(f"init_distributed returned {[r['world'] for r in res]}, "
+             f"expected {world} in each process")
+    cuda0 = torch.device("cuda", 0)
+    cons = consensus_problem(STEP_B, 16, 15)
+    ref, ovf = (o.cpu().tolist() for o in consensus_pos_batch(
+        *(torch.from_numpy(a).to(cuda0) for a in cons)))
+    rows = sorted(tuple(r) for w in res for r in w["consensus"])
+    if rows != [(i, v, o) for i, (v, o) in enumerate(zip(ref, ovf))]:
+        fail("the gloo processes' consensus rows differ from the dense "
+             "step's")
+    total, *arrs = scan_projected_runs_compact(
+        *(torch.from_numpy(a).to(cuda0) for a in disc_problem(DISC_N, 15)),
+        min_len=50, cap=2048)
+    t = int(total)
+    want = sorted(zip(*(a[:t].tolist() for a in arrs)))
+    got = sorted(tuple(r) for w in res for r in w["disc"])
+    if not want or got != want:
+        fail(f"the gloo processes' disc rows differ from the dense "
+             f"scan's: {len(got)} vs {len(want)}")
+    print(f"[multi] {DIST_PROCS} gloo processes on cuda:0, "
+          f"{DIST_LOCAL_SHARDS} shards each: init_distributed returned "
+          f"{world}; {STEP_B} consensus rows and {t} disc rows equal to "
+          f"the dense steps'", flush=True)
+
+
+def phase_multi_device(fx, host_lines: list[str], disc_inputs: list[str],
+                       disc_lines: list[str]):
+    """Phase 15: the sharded steps (a), the CLI at --data-shards
+    CLI_SHARDS on the card against phases 6 and 9 (``host_lines``; phase
+    9's equal phase 6's) and 8 (b), and the distributed bootstrap (c).  Returns (K1's launches in the sharded
+    host-extract audt, in the sharded device-extract audt, the step
+    times)."""
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops import cigar, consensus, discover
+
+    times = check_sharded_steps()
+    bam, vcf = fx
+    flags = ["--device", "cuda", "--data-shards", str(CLI_SHARDS)]
+    launches = {}
+    for tag, extra, want in (("sharded", [], host_lines),
+                             ("sharded extract", ["--extract", "device"],
+                              host_lines)):
+        reset_path_counts()
+        got, stats, wall = run_cli(["audt", "-b", bam, "-v", vcf, *flags,
+                                    *extra], tag)
+        batches = int(stats["batches"])
+        k1 = launches[tag] = launch_counts["consensus_pos"]
+        walks = dict(cigar.walk_calls)
+        if got != want:
+            bad = [(a, b) for a, b in zip(want, got) if a != b][:3]
+            fail(f"audt {' '.join(flags + extra)}: lines differ from the "
+                 f"one-shard run's: {len(got)} vs {len(want)}; {bad}")
+        if int(stats["data_shards"]) != CLI_SHARDS or \
+                k1 != CLI_SHARDS * batches or \
+                consensus.plain_calls["consensus_pos"] != 0:
+            fail(f"audt {' '.join(flags + extra)}: K1 launched {k1} times "
+                 f"for {batches} batches on {stats['data_shards']} shards")
+        if extra and walks != {"cuda": CLI_SHARDS * batches, "cpu": 0}:
+            fail(f"the sharded device walk ran {walks} for {batches} "
+                 f"batches")
+        print(f"[multi] audt {' '.join(flags + extra)}: {len(got)} lines "
+              f"equal to the one-shard run's; records/s="
+              f"{len(got) / wall:.1f} wall={wall:.3f}s batches={batches} "
+              f"K1_launches={k1} fallbacks kovf={stats['kovf']} "
+              f"sweep={stats['sweep']} long_ops={stats['long_ops']} "
+              f"dev_ovf={stats['dev_ovf']}", flush=True)
+
+    reset_path_counts()
+    got, st, wall = run_disc(disc_inputs, "cuda",
+                             ["--data-shards", str(CLI_SHARDS)])
+    scans = dict(discover.scan_calls)
+    if got != disc_lines:
+        fail(f"disc --data-shards {CLI_SHARDS}: lines differ from the "
+             f"one-shard run's: {len(got)} vs {len(disc_lines)}")
+    if st["data_shards"] != CLI_SHARDS or \
+            scans != {"cuda": CLI_SHARDS * st["scan_batches"], "cpu": 0}:
+        fail(f"disc --data-shards {CLI_SHARDS}: the scan ran {scans} for "
+             f"{st['scan_batches']} batches")
+    print(f"[multi] disc --data-shards {CLI_SHARDS}: {len(got)} lines equal "
+          f"to the one-shard run's; reads/s={st['reads'] / wall:.1f} "
+          f"wall={wall:.3f}s scan_batches={st['scan_batches']} "
+          f"rescans={st['rescans']} scans_on_cuda={scans['cuda']}",
+          flush=True)
+
+    check_bootstrap(bam, vcf, host_lines)
+    return launches["sharded"], launches["sharded extract"], times
+
+
 def phase_jax_check() -> None:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print(f"[jax] {len(loaded)} modules of jax, jaxlib or svtrek_tpu loaded",
@@ -1730,6 +2176,9 @@ def main() -> int:
                              host_lines)
     timed("python bam path", phase_python_bam)
     timed("scan", phase_scan_full)
+    sharded_launches, sharded_extract_launches, _ = timed(
+        "multi-device", phase_multi_device, fixture(), host_lines,
+        disc_fixture(), disc_lines)
     graph_launches = timed("graph audt", phase_graph_audt, ins_lines)
     graph_disc_launches = timed("graph disc", phase_graph_disc, disc_lines,
                                 disc_cl, disc_subset)
@@ -1744,6 +2193,8 @@ def main() -> int:
         "replaces": "svtrek_tpu/ops/sweep_pallas.py:113",
         "launches": launches["consensus_pos"],
         "launches_extract_device": extract_launches,
+        "launches_sharded": sharded_launches,
+        "launches_sharded_extract": sharded_extract_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1828,4 +2279,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        # A gloo process of phase 15 (c), started by check_bootstrap.
+        sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
+        dist_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -9,9 +9,11 @@ host-extract path and on the device evidence walk of `--extract device`
 and `--no-native-io`; K2 and K3 for the star POA of `--ins-consensus` and
 of disc's insertion clusters, G1 for their graph POA, `--poa-engine
 graph`), and fails where there is no card; cpu runs the plain PyTorch
-path.  What the port does not run yet (`--data-shards` > 1,
-`SVTREK_COORDINATOR`) exits with an error that names the ROADMAP item
-porting it.
+path.  `--data-shards N` (audt and disc) splits each batch over N shards
+of the visible cards (one card may hold several, each on its own stream)
+or of the CPU; with SVTREK_COORDINATOR, SVTREK_NUM_PROCS and
+SVTREK_PROC_ID exported, each process of a multi-process run joins a
+`torch.distributed` group first (NCCL on the cards, gloo on the CPU).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """`audt` mode pipeline: VCF + BAM → refined breakpoint records, with the
 device step in PyTorch.
 
-Port of svtrek_tpu/pipeline/audit.py on one device.  A pool of producer
+Port of svtrek_tpu/pipeline/audit.py.  A pool of producer
 threads fetches and packs each chunk of windows, each thread with its own
 BAM reader; this thread sends each batch to the device (`ops.audit_step`),
 keeps a few in flight, and emits result lines in input order as records
@@ -31,10 +31,14 @@ by a collected batch: the star POA (`ops.poa_batch`, kernels K2 and K3 on
 the card) or, with `--poa-engine graph`, the graph POA
 (`ops.poa_graph_batch`, kernel G1).
 
-What the JAX pipeline does besides, and this one refuses (`Unsupported`):
-mesh sharding (`--data-shards > 1`) and multi-host runs
-(`SVTREK_COORDINATOR`).  Each message names the ROADMAP item that ports
-it.  A native library that does not build is an error
+With ``data_shards`` > 1 (`--data-shards N`; 0 means one shard per
+visible card, or 1 on `--device cpu`) each batch is packed shard-blockwise
+and refined by the sharded steps of `parallel.mesh`: a launch per shard on
+its own device and stream (one card may hold several shards), gathered at
+collect time.  With SVTREK_COORDINATOR exported, `torch.distributed` is
+bootstrapped first (`parallel.mesh.init_distributed`); each process then
+runs the records its `--num-shards/--shard-index` give it on its own
+devices.  A native library that does not build is an error
 (`NativeReaderUnavailable`), not a switch to the Python reader: only
 `--no-native-io` asks for that.
 """
@@ -53,6 +57,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import constants as C
 from ..config import AudtConfig
@@ -70,6 +75,10 @@ from ..ops.audit_step import (
 )
 from ..ops.poa_batch import consensus_sequence_batch
 from ..ops.poa_graph_batch import consensus_sequence_poa_batch
+from ..parallel.mesh import (
+    ShardedOutput, init_distributed, run_mesh, sharded_audit_step,
+    sharded_audit_step_csr, sharded_consensus_step,
+)
 from ..refusals import raise_refused
 from .pack import (
     INT64_MIN, PackedBatch, PackedCandBatch, as_read_list, pack_chunk,
@@ -171,6 +180,7 @@ class AuditStats:
     fallback_long: int = 0   # a read exceeded the top ops bucket
     fallback_device: int = 0  # device-walk overflow (lumped causes)
     device: str = ""
+    data_shards: int = 1
 
     def report(self, err) -> None:
         # The JAX package prints the device-walk overflows as `device=N`;
@@ -181,7 +191,7 @@ class AuditStats:
             f"oracle_fallbacks={self.oracle_windows} "
             f"(kovf={self.fallback_kovf} sweep={self.fallback_sweep} "
             f"long_ops={self.fallback_long} dev_ovf={self.fallback_device}) "
-            f"device={self.device}",
+            f"device={self.device} data_shards={self.data_shards}",
             file=err,
         )
         print(
@@ -207,10 +217,58 @@ def _next_pow2(n: int, lo: int = 16) -> int:
     return v
 
 
+@functools.lru_cache(maxsize=None)
+def _get_sharded_step(device_type: str, n: int, num_windows: int, K: int,
+                      min_count: int, interval: int, range_: int,
+                      sweep_width: int):
+    return sharded_audit_step(
+        run_mesh(device_type, n), num_windows=num_windows, K=K,
+        min_count=min_count, interval=interval, range_=range_,
+        sweep_width=sweep_width)
+
+
+@functools.lru_cache(maxsize=None)
+def _get_sharded_csr(device_type: str, n: int, num_windows: int, K: int,
+                     O: int, min_count: int, interval: int, range_: int,
+                     sweep_width: int):
+    return sharded_audit_step_csr(
+        run_mesh(device_type, n), num_windows=num_windows, K=K, O=O,
+        min_count=min_count, interval=interval, range_=range_,
+        sweep_width=sweep_width)
+
+
+@functools.lru_cache(maxsize=None)
+def _get_sharded_consensus(device_type: str, n: int, num_windows: int,
+                           min_count: int, interval: int, range_: int,
+                           sweep_width: int):
+    return sharded_consensus_step(
+        run_mesh(device_type, n), num_windows=num_windows,
+        min_count=min_count, interval=interval, range_=range_,
+        sweep_width=sweep_width)
+
+
+def resolve_data_shards(cfg, device: torch.device, err=None) -> int:
+    """How many shards to pack for: cfg.data_shards, or (0) one per
+    visible card, 1 on the CPU.  With SVTREK_COORDINATOR exported,
+    `torch.distributed` is bootstrapped first (gloo for a CPU run), and
+    the process group and its shards in all are reported on ``err``."""
+    n = cfg.data_shards
+    if n <= 0:
+        n = max(1, torch.cuda.device_count()) if device.type == "cuda" else 1
+    if os.environ.get("SVTREK_COORDINATOR"):
+        world = init_distributed(
+            backend="gloo" if device.type == "cpu" else None, local_shards=n)
+        print(f"[INFO] torch.distributed: {dist.get_backend()} backend, "
+              f"process {dist.get_rank()} of {dist.get_world_size()}, "
+              f"{world} shard(s) in all", file=err or sys.stderr)
+    return n
+
+
 def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
                         cfg: AudtConfig, device: torch.device):
     """Launch the device step for one packed batch (asynchronous on
-    CUDA); returns the device tensors, or None for an empty batch."""
+    CUDA); returns the device tensors (a ShardedOutput for a batch packed
+    for several shards), or None for an empty batch."""
     b = packed.batch
     if b.num_windows == 0:
         return None
@@ -218,10 +276,24 @@ def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
               interval=cfg.consensus_interval,
               range_=cfg.consensus_interval_range,
               sweep_width=cfg.sweep_width)
+    n = packed.n_shards
     if isinstance(packed, PackedCandBatch):
+        if n > 1:
+            return _get_sharded_consensus(device.type, n, b.num_windows,
+                                          *kw.values())(
+                b.locs, b.counts, b.imprecise_pos)
         return audit_consensus_step(b.locs, b.counts, b.imprecise_pos,
                                     device=device, **kw)
     K = _next_pow2(min(cfg.max_candidates, 8192), 64)
+    if n > 1:
+        walk = (b.pos, b.n_ops, b.window_id, b.kind, b.inter_start,
+                b.inter_end, b.imprecise_pos)
+        if isinstance(b, AuditBatchCSR):
+            return _get_sharded_csr(device.type, n, b.num_windows, K,
+                                    b.ops_width, *kw.values())(
+                b.ops_flat, b.lens_flat, *walk)
+        return _get_sharded_step(device.type, n, b.num_windows, K,
+                                 *kw.values())(b.ops, b.lens, *walk)
     common = [to_device(a, device) for a in (
         b.pos, b.n_ops, b.window_id, b.kind, b.inter_start, b.inter_end,
         b.imprecise_pos)]
@@ -241,6 +313,14 @@ def _refine_on_host(w, reads, cfg: AudtConfig) -> int:
                        cfg.consensus_interval, cfg.consensus_interval_range)
 
 
+def _to_host(dev) -> tuple[np.ndarray, ...]:
+    """A dispatched batch's results on the host (a sharded one gathered
+    shard by shard)."""
+    if isinstance(dev, ShardedOutput):
+        return dev.gather()
+    return tuple(x.cpu().numpy() for x in dev)
+
+
 def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
                        cfg: AudtConfig,
                        stats: AuditStats | None = None) -> list:
@@ -250,7 +330,7 @@ def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
         return _collect_walk(packed, dev, cfg, stats)
     if dev is None:
         return []
-    refined, sweep_ovf = (x.cpu().numpy() for x in dev)
+    refined, sweep_ovf = _to_host(dev)
     out = []
     for i, w in enumerate(packed.windows):
         if packed.refined_c[i] != INT64_MIN:
@@ -285,16 +365,18 @@ def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
     bucket, are refined by the scalar oracle over their reads."""
     out = []
     if dev is not None:
-        refined, _, overflow = (x.cpu().numpy() for x in dev)
-        for i, w in enumerate(packed.windows):
-            if overflow[i]:
+        refined, _, overflow = _to_host(dev)
+        slots = (packed.window_slots if packed.window_slots is not None
+                 else range(len(packed.windows)))
+        for i, (w, slot) in enumerate(zip(packed.windows, slots)):
+            if overflow[slot]:
                 if stats:
                     stats.oracle_windows += 1
                     stats.fallback_device += 1
                 r = _refine_on_host(
                     w, as_read_list(packed.reads_per_window[i]), cfg)
             else:
-                r = int(refined[i])
+                r = int(refined[slot])
             out.append((w, r))
     for w, reads in packed.oracle_windows:
         if stats:
@@ -424,7 +506,8 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     err = err or sys.stderr
     raise_refused(cfg)
     device = resolve_device(cfg.device)
-    stats = AuditStats(device=str(device))
+    n_shards = resolve_data_shards(cfg, device, err)
+    stats = AuditStats(device=str(device), data_shards=n_shards)
     t_start = time.perf_counter()
 
     # Fail fast (bad BAM path, no native library) before the pool starts.
@@ -552,11 +635,12 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
                 tls.reader = open_reader(cfg)
             t0 = time.perf_counter()
             if not cfg.use_native_io:
-                pb = pack_chunk(chunk, python_fetch(tls.reader), cfg)
+                pb = pack_chunk(chunk, python_fetch(tls.reader), cfg,
+                                n_shards)
             elif cfg.extract == "device":
-                pb = pack_chunk_native(chunk, tls.reader, cfg)
+                pb = pack_chunk_native(chunk, tls.reader, cfg, n_shards)
             else:
-                pb = pack_chunk_cand(chunk, tls.reader, cfg)
+                pb = pack_chunk_cand(chunk, tls.reader, cfg, n_shards)
             dt = time.perf_counter() - t0
             with stats_lock:
                 stats.pack_s += dt  # aggregate worker-seconds

@@ -14,14 +14,16 @@ POA (`ops.poa_batch`, kernels K2 and K3 on the card) or, with
 
 Output lines, their order, and the `.ckpt.npz` detection checkpoint are
 the JAX package's: a checkpoint written by either package restores in the
-other.  What the JAX pipeline does besides, and this one refuses
-(`Unsupported`): mesh sharding (`--data-shards` > 1) and multi-host runs
-(SVTREK_COORDINATOR); and where the native GAF library
-does not load, the JAX pipeline quietly takes the Python parse while this one
-raises.
+other.  With ``data_shards`` > 1 the scan of each batch is split over the
+shards of `parallel.mesh` (`sharded_disc_step`), in the JAX package's
+padded per-shard layout, and SVTREK_COORDINATOR bootstraps
+`torch.distributed` first, as in audt.  Where the native GAF library does
+not load, the JAX pipeline quietly takes the Python parse while this one
+raises (`Unsupported`).
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import sys
@@ -43,7 +45,9 @@ from ..ops.discover import (
 )
 from ..ops.poa_batch import consensus_sequence_batch
 from ..ops.poa_graph_batch import consensus_sequence_poa_batch
+from ..parallel.mesh import ShardedOutput, run_mesh, sharded_disc_step
 from ..refusals import Unsupported, raise_refused
+from .audit import resolve_data_shards
 
 _TYPE_NAME = {BP_INS: "INS", BP_DEL: "DEL", BP_CLIP: "CLIP"}
 # Reads with more runs go through the host scalar scan when they are read
@@ -51,6 +55,32 @@ _TYPE_NAME = {BP_INS: "INS", BP_DEL: "DEL", BP_CLIP: "CLIP"}
 # depends on it.
 _MAX_DEVICE_RUNS = 8192
 _BP_CAP = 2048  # compact-scan capacity (overflow -> exact host rescan)
+
+
+@functools.lru_cache(maxsize=None)
+def _get_sharded_disc(device_type: str, n: int, min_len: int):
+    return sharded_disc_step(run_mesh(device_type, n), min_len=min_len,
+                             cap=max(256, _BP_CAP // n))
+
+
+def _padded_runs(N: int, O: int, counts, ref_start, flat_ops, flat_lens):
+    """The padded [N, O] layout of a batch's flat runs: op 9 / len 0 past
+    each read's runs; padding rows (past len(counts)) have n_runs 0."""
+    n = len(counts)
+    ops = np.full((N, O), 9, np.int8)
+    lens = np.zeros((N, O), np.int32)
+    n_runs = np.zeros(N, np.int32)
+    rs = np.zeros(N, np.int32)
+    n_runs[:n] = counts
+    rs[:n] = ref_start
+    total = len(flat_ops)
+    if total:
+        rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+        starts = np.cumsum(counts, dtype=np.int64) - counts
+        cols = np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
+        ops[rows, cols] = flat_ops
+        lens[rows, cols] = flat_lens
+    return ops, lens, n_runs, rs
 
 
 @dataclass
@@ -82,18 +112,22 @@ class _DeviceScanner:
 
     Batch k is scanned on the device while the host parses batches k+1 ..
     k+DEPTH; dispatch reads nothing back, and each collect makes one
-    device-to-host copy of a batch's packed results.  `meta` per dispatch
-    maps row indices back to read identity and carries the exact host
-    rescan for a batch with more than _BP_CAP hits."""
+    device-to-host copy of a batch's packed results (one a shard when
+    sharded).  `meta` per dispatch maps row indices back to read identity
+    and carries the exact host rescan for a batch with more hits than the
+    scan's capacity (of any shard, when sharded)."""
 
     DEPTH = 3
 
     def __init__(self, min_len: int, out: list, device: torch.device,
-                 stats: dict | None = None):
+                 stats: dict | None = None, n_shards: int = 1):
         self.min_len = min_len
         self.out = out
         self.device = device
         self.stats = stats
+        self.n_shards = n_shards
+        self.step = (_get_sharded_disc(device.type, n_shards, min_len)
+                     if n_shards > 1 else None)
         self.in_flight = deque()
         for key in ("reads", "scan_batches", "rescans", "host_reads"):
             _count(stats, key, 0)
@@ -101,15 +135,31 @@ class _DeviceScanner:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
-    def dispatch(self, ops_flat, lens_flat, n_runs, ref_start, O, meta):
-        """Flat-CSR dispatch (both feeds): the device scatters the runs
-        into the padded [N, O] layout and scans them."""
-        dev = scan_projected_runs_compact_csr(
-            *(self._to_dev(a) for a in (ops_flat, lens_flat, n_runs,
-                                        ref_start)),
-            O=O, min_len=self.min_len, cap=_BP_CAP)
-        # One buffer per batch: [total, rows, types, refs, read_pos, lens].
-        self.in_flight.append((meta, torch.cat([dev[0].view(1), *dev[1:]])))
+    def dispatch(self, ops_flat, lens_flat, n_runs, ref_start, batch_reads,
+                 meta):
+        """Dispatch one batch's flat runs (both feeds), padded to O, the
+        batch's longest read.  On one shard the device scatters them into
+        the padded [N, O] layout and scans them.  Sharded, the host builds
+        the JAX package's padded per-shard layout (N the batch size rounded
+        up to the shard count: it decides which reads share a shard's cap)
+        and each shard scans its block of rows.  JAX's pow2 run buckets
+        for O limit its recompiles; no result depends on them."""
+        O = max(int(n_runs.max()), 1)
+        if self.step is not None:
+            n = self.n_shards
+            N = -(-max(len(n_runs), batch_reads) // n) * n
+            dev = self.step(*_padded_runs(N, O, n_runs, ref_start,
+                                          ops_flat, lens_flat))
+            self.in_flight.append((meta, N // n, dev))
+        else:
+            dev = scan_projected_runs_compact_csr(
+                *(self._to_dev(a) for a in (ops_flat, lens_flat, n_runs,
+                                            ref_start)),
+                O=O, min_len=self.min_len, cap=_BP_CAP)
+            # One buffer per batch: [total, rows, types, refs, read_pos,
+            # lens].
+            self.in_flight.append(
+                (meta, 0, torch.cat([dev[0].view(1), *dev[1:]])))
         _count(self.stats, "scan_batches")
         if len(self.in_flight) > self.DEPTH:
             self._collect(self.in_flight.popleft())
@@ -118,34 +168,41 @@ class _DeviceScanner:
         while self.in_flight:
             self._collect(self.in_flight.popleft())
 
-    def _emit(self, meta, rows, types, refs, reads_pos, lns, n):
+    def _emit(self, meta, row_off, rows, types, refs, reads_pos, lns, n):
         name_of, rc_of, _ = meta
         for i in range(n):
-            r = int(rows[i])
+            r = row_off + int(rows[i])
             self.out.append(Breakpoint(
                 name_of(r), _TYPE_NAME[int(types[i])],
                 int(refs[i]), int(reads_pos[i]), int(lns[i]), rc_of(r),
             ))
 
     def _collect(self, item):
-        meta, packed = item
+        meta, n_loc, dev = item
         t0 = time.perf_counter()
-        res = packed.cpu().numpy()
+        if isinstance(dev, ShardedOutput):
+            totals, *res = dev.gather()
+        else:
+            flat = dev.cpu().numpy()
+            totals, res = flat[:1], flat[1:].reshape(5, _BP_CAP)
         _count(self.stats, "scan_wait_s", time.perf_counter() - t0)
-        total, cap = int(res[0]), _BP_CAP
-        if total > cap:
+        cap = len(res[0]) // len(totals)
+        if (totals > cap).any():
             # Rare overflow: exact host rescan of the whole batch.
             _count(self.stats, "rescans")
             self.out.extend(meta[2]())
             return
-        rows, types, refs, rpos, lns = res[1:].reshape(5, cap)
-        self._emit(meta, rows, types, refs, rpos, lns, total)
+        # Shard by shard, rows shifted by the shard's first row.
+        for s, total in enumerate(totals.tolist()):
+            self._emit(meta, s * n_loc,
+                       *(a[s * cap:s * cap + total] for a in res), total)
 
 
 def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
                        device: torch.device | str = "cpu",
                        use_device_scan: bool = True,
-                       stats: dict | None = None) -> list[Breakpoint]:
+                       stats: dict | None = None,
+                       n_shards: int = 1) -> list[Breakpoint]:
     """Batched device scan over projected reads (io.gaf.ProjectedRead) ->
     Breakpoint list, in the JAX package's order.
 
@@ -156,7 +213,8 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
     buckets and batch-size padding exist to limit recompiles, and no
     result depends on them.  ``use_device_scan=False`` runs everything
     through the host scalar scan (`io.gaf.scan_breakpoints`), as the JAX
-    package's ``device=False``."""
+    package's ``device=False``.  ``n_shards > 1`` splits each batch's
+    scan over the shards of a mesh (`_DeviceScanner`)."""
     from ..io.gaf import scan_breakpoints
 
     if not use_device_scan:
@@ -167,7 +225,8 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
 
     out: list[Breakpoint] = []
     batch: list = []
-    scanner = _DeviceScanner(min_len, out, torch.device(device), stats)
+    scanner = _DeviceScanner(min_len, out, torch.device(device), stats,
+                             n_shards)
 
     def flush():
         nonlocal batch
@@ -194,8 +253,8 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
         meta = (lambda r, reads=reads: reads[r].read_name,
                 lambda r, reads=reads: reads[r].rc,
                 rescan)
-        scanner.dispatch(flat_ops, flat_lens, cnt, ref_start,
-                         max(int(cnt.max()), 1), meta)
+        scanner.dispatch(flat_ops, flat_lens, cnt, ref_start, batch_reads,
+                         meta)
         batch = []
 
     for p in projected:
@@ -231,8 +290,8 @@ def _scan_csr_rows(b, rows, min_len: int) -> list[Breakpoint]:
 
 def detect_breakpoints_native(reader, min_len: int, batch_reads: int = 8192,
                               *, device: torch.device | str = "cpu",
-                              stats: dict | None = None
-                              ) -> list[Breakpoint]:
+                              stats: dict | None = None,
+                              n_shards: int = 1) -> list[Breakpoint]:
     """Device scan fed by the C GAF projector (io/gaf_native.py).
 
     Each CSR batch ships its flat run arrays as they are, and the device
@@ -240,9 +299,11 @@ def detect_breakpoints_native(reader, min_len: int, batch_reads: int = 8192,
     _MAX_DEVICE_RUNS runs go through the host scalar scan when their batch
     is read, as in the JAX package.  The JAX package's pow2 stream length
     and batch-size padding exist to limit recompiles and are not carried
-    over."""
+    over.  ``n_shards > 1`` splits each batch's scan over the shards of a
+    mesh (`_DeviceScanner`)."""
     out: list[Breakpoint] = []
-    scanner = _DeviceScanner(min_len, out, torch.device(device), stats)
+    scanner = _DeviceScanner(min_len, out, torch.device(device), stats,
+                             n_shards)
 
     while (b := reader.next_batch(batch_reads)) is not None:
         _count(stats, "reads", b.n)
@@ -257,7 +318,6 @@ def detect_breakpoints_native(reader, min_len: int, batch_reads: int = 8192,
         if n_keep == 0:
             continue
         counts = b.n_runs if keep is None else b.n_runs[keep]
-        O = max(int(counts.max()), 1)
         rs = b.ref_start if keep is None else b.ref_start[keep]
         if keep is None:
             # CSR is hole-free: the flat arrays are the concatenation.
@@ -281,7 +341,7 @@ def detect_breakpoints_native(reader, min_len: int, batch_reads: int = 8192,
                 lambda r, b=b, m=_map: bool(b.rc[m(r)]),
                 rescan)
         scanner.dispatch(of, lf, np.ascontiguousarray(counts),
-                         rs.astype(np.int32), O, meta)
+                         rs.astype(np.int32), batch_reads, meta)
     scanner.drain()
     return out
 
@@ -425,7 +485,8 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     cfg.output_file).  ``stats``, when given, receives phase seconds
     (detect_s, cluster_s, consensus_s, emit_s, total_s, scan_wait_s) and
     counts (reads, scan_batches, rescans, host_reads, breakpoints,
-    clusters, ins_clusters, dp_calls, graph_scalar); nothing is printed for
+    clusters, ins_clusters, dp_calls, graph_scalar) and, when the
+    detection runs, its shard count (data_shards); nothing is printed for
     them.
 
     Raises Unsupported for what the port does not run, and
@@ -443,6 +504,9 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
         print(f"[INFO] Resume: {len(bps)} breakpoint(s) restored from "
               f"{_ckpt_path(cfg)}; skipping GFA/GAF projection.", file=err)
     else:
+        n_shards = resolve_data_shards(cfg, device, err)
+        if stats is not None:
+            stats["data_shards"] = n_shards
         gfa = parse_gfa(cfg.gfa_file)
         errors: list[str] = []
         if cfg.use_native_parse and cfg.use_device_scan:
@@ -450,7 +514,7 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
             try:
                 bps = detect_breakpoints_native(
                     reader, cfg.sv_min_length, cfg.batch_reads,
-                    device=device, stats=stats)
+                    device=device, stats=stats, n_shards=n_shards)
                 errors = reader.errors
             finally:
                 reader.close()
@@ -459,7 +523,7 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
             bps = detect_breakpoints(projected, cfg.sv_min_length,
                                      cfg.batch_reads, device=device,
                                      use_device_scan=cfg.use_device_scan,
-                                     stats=stats)
+                                     stats=stats, n_shards=n_shards)
         for name in errors:
             print(f"[ERROR] Read {name} has an invalid path.", file=err)
         # Checkpoint the projection + scan on every run with an output

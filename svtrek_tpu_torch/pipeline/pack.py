@@ -1,13 +1,12 @@
 """Host-side window packer: VCF tasks → fixed-shape device batches.
 
-A JAX-free copy of the single-device part of svtrek_tpu/pipeline/pack.py.
-It is copied rather than imported because svtrek_tpu/pipeline/pack.py
-imports `ops.audit_step`, and through it every JAX op, at module load
+A JAX-free copy of svtrek_tpu/pipeline/pack.py.  It is copied rather
+than imported because svtrek_tpu/pipeline/pack.py imports
+`ops.audit_step`, and through it every JAX op, at module load
 (pack.py:40); a machine with the card has no JAX.  It is the port's own
-code; tests/test_torch_pack.py and tests/test_torch_audit_device.py hold
-it equal to the original.  The shard-blockwise packers of the JAX package
-(`_pack_native_sharded`, `_pack_one_sharded`) are not here: the port runs
-one device (ROADMAP queue 1 item 9).
+code; tests/test_torch_pack.py, tests/test_torch_audit_device.py and
+tests/test_torch_sharding.py hold it equal to the original, the
+shard-blockwise layouts of ``n_shards > 1`` included.
 
 Each accepted VCF record expands into 1-2 refine windows:
 
@@ -30,6 +29,12 @@ degenerate wrapped intervals yield empty BAM queries.  Three layouts:
   per-window fetch, normalised to `PackedReads`, scattered into the padded
   [N, O] matrices of `AuditBatch` on the host.  Windows whose reads exceed
   the top ops bucket go to the scalar oracle.
+
+With ``n_shards > 1`` each packer lays its batch out shard-blockwise for
+the sharded steps of `parallel.mesh`: every axis divisible by the shard
+count, window ids local to their shard's block (padding reads carry the
+local sentinel B_loc), and `PackedBatch.window_slots` mapping each window
+to its global result slot.
 """
 from __future__ import annotations
 
@@ -212,6 +217,11 @@ class PackedBatch:
     windows: list[WindowSpec]
     reads_per_window: list  # PackedReads (or list / lazy form) per window
     oracle_windows: list[tuple[WindowSpec, list]] = field(default_factory=list)
+    # The shard count the batch was packed for (1 = the dense layout) and,
+    # when > 1, the global result slot of each entry of `windows` (the
+    # batch is padded shard by shard, so slots are not the identity).
+    n_shards: int = 1
+    window_slots: list[int] | None = None
 
 
 def windows_for_task(task: VcfTask, cfg: AudtConfig
@@ -305,10 +315,10 @@ def query_region(fetch, w: WindowSpec):
 
 def pack_chunk(window_chunk: Sequence[WindowSpec],
                fetch: Callable[[int, int, int], object],
-               cfg: AudtConfig) -> PackedBatch:
-    """Fetch + pack one batch worth of windows in the dense layout.
-    ``fetch(tid, beg, end)`` returns PackedReads or
-    ``[(pos, [(op, len), ...]), ...]``."""
+               cfg: AudtConfig, n_shards: int = 1) -> PackedBatch:
+    """Fetch + pack one batch worth of windows in the dense layout, or
+    shard-blockwise for ``n_shards > 1``.  ``fetch(tid, beg, end)``
+    returns PackedReads or ``[(pos, [(op, len), ...]), ...]``."""
     items: list[tuple[WindowSpec, PackedReads]] = []
     for w in window_chunk:
         if w.kind == KIND_POINT:
@@ -316,6 +326,8 @@ def pack_chunk(window_chunk: Sequence[WindowSpec],
         else:
             reads = as_packed(query_region(fetch, w))
         items.append((w, reads))
+    if n_shards > 1:
+        return _pack_one_sharded(items, cfg, n_shards)
     return _pack_one(items, cfg)
 
 
@@ -338,7 +350,7 @@ def _window_attrs(window_chunk: Sequence[WindowSpec], B: int):
 
 
 def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
-                      cfg: AudtConfig) -> PackedBatch:
+                      cfg: AudtConfig, n_shards: int = 1) -> PackedBatch:
     """Dense fetch + CSR pack, the heavy work in C (`--extract device`).
 
     One `svbam_fetch_batch` call pulls every window's reads (GIL released
@@ -367,7 +379,12 @@ def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
         def fetch(tid, beg, end):
             return PackedReads(*reader.fetch_packed(tid, int(beg), int(end)))
 
-        return pack_chunk(window_chunk, fetch, cfg)
+        return pack_chunk(window_chunk, fetch, cfg, n_shards)
+
+    if n_shards > 1:
+        return _pack_native_sharded(window_chunk, reader, cfg, n_shards,
+                                    total, counts, max_ops,
+                                    tids, begs, ends)
 
     O = _bucket(max(max_ops, 1), OPS_BUCKETS)
     B = max(cfg.batch_windows, n_win, 1)
@@ -401,6 +418,78 @@ def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
                        reads_per_window=reads_per_window)
 
 
+def _pack_native_sharded(window_chunk, reader, cfg: AudtConfig,
+                         n_shards: int, total: int, counts: np.ndarray,
+                         max_ops: int, tids: np.ndarray, begs: np.ndarray,
+                         ends: np.ndarray) -> PackedBatch:
+    """Shard-blockwise CSR packing for `sharded_audit_step_csr`.
+
+    The native fetch already laid reads out in window order, so a
+    contiguous window->shard split keeps every per-shard read/flat-op
+    range a contiguous slice: the blocks are plain copies.  Layout
+    contract: T/N/B all divisible by n_shards, window_id shard-local
+    (padding sentinel b_loc), flat tails zero."""
+    n_win = len(window_chunk)
+    O = _bucket(max(max_ops, 1), OPS_BUCKETS)
+    rpos, rnops, fops, flens = reader.batch_flat_n(total)
+
+    b_loc = max(-(-cfg.batch_windows // n_shards), -(-n_win // n_shards), 1)
+    B = n_shards * b_loc
+
+    roff = np.concatenate([[0], np.cumsum(counts.astype(np.int64))])
+    ooff = np.concatenate([[0], np.cumsum(rnops.astype(np.int64))])
+
+    # Per-shard window ranges (contiguous) and their read/flat slices.
+    wlo = [min(s * b_loc, n_win) for s in range(n_shards + 1)]
+    rlo = [int(roff[w]) for w in wlo]
+    olo = [int(ooff[r]) for r in rlo]
+    n_loc = _pow2(max(1, max(rlo[s + 1] - rlo[s]
+                             for s in range(n_shards))), lo=64)
+    t_loc = _pow2(max(1, max(olo[s + 1] - olo[s]
+                             for s in range(n_shards))), lo=256)
+
+    N = n_shards * n_loc
+    T = n_shards * t_loc
+    ops_flat = np.zeros(T, np.uint8)
+    lens_flat = np.zeros(T, np.int32)
+    pos = np.zeros(N, np.int32)
+    n_ops = np.zeros(N, np.int32)          # padding rows MUST be 0
+    wid = np.full(N, b_loc, np.int32)      # shard-local padding sentinel
+    kind = np.full(B, KIND_POINT, np.int32)
+    istart = np.zeros(B, np.int32)
+    iend = np.zeros(B, np.int32)
+    ipos = np.zeros(B, np.int32)
+
+    window_slots: list[int] = []
+    for s in range(n_shards):
+        a, b = wlo[s], wlo[s + 1]
+        ra, rb = rlo[s], rlo[s + 1]
+        oa, ob = olo[s], olo[s + 1]
+        pos[s * n_loc:s * n_loc + (rb - ra)] = rpos[ra:rb].astype(np.int32)
+        n_ops[s * n_loc:s * n_loc + (rb - ra)] = rnops[ra:rb]
+        wid[s * n_loc:s * n_loc + (rb - ra)] = np.repeat(
+            np.arange(b - a, dtype=np.int32), counts[a:b])
+        ops_flat[s * t_loc:s * t_loc + (ob - oa)] = fops[oa:ob]
+        lens_flat[s * t_loc:s * t_loc + (ob - oa)] = flens[oa:ob]
+        attrs = _window_attrs(window_chunk[a:b], b - a)
+        for arr, vals in zip((kind, istart, iend, ipos), attrs):
+            arr[s * b_loc:s * b_loc + (b - a)] = vals
+        window_slots += range(s * b_loc, s * b_loc + (b - a))
+
+    reads_per_window = [
+        LazyWindowReads(reader.path, int(tids[i]), int(begs[i]), int(ends[i]))
+        for i in range(n_win)
+    ]
+    batch = AuditBatchCSR(
+        ops_flat=ops_flat, lens_flat=lens_flat, pos=pos, n_ops=n_ops,
+        window_id=wid, kind=kind, inter_start=istart, inter_end=iend,
+        imprecise_pos=ipos, ops_width=O,
+    )
+    return PackedBatch(batch=batch, windows=list(window_chunk),
+                       reads_per_window=reads_per_window,
+                       n_shards=n_shards, window_slots=window_slots)
+
+
 INT64_MIN = np.iinfo(np.int64).min
 _I32_PAD = 0x7FFFFFFF
 
@@ -430,10 +519,11 @@ class PackedCandBatch:
     true_counts: np.ndarray    # [n_win] int32, may exceed K
     refined_c: np.ndarray      # [n_win] int64; != INT64_MIN → precomputed
     num_reads: int = 0
+    n_shards: int = 1
 
 
 def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
-                    cfg: AudtConfig) -> PackedCandBatch:
+                    cfg: AudtConfig, n_shards: int = 1) -> PackedCandBatch:
     """Fetch + host-extract one chunk of windows (all heavy work in C).
 
     One `svbam_fetch_batch` + one `svbam_extract_batch` call per chunk;
@@ -482,8 +572,11 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
         locs = np.ascontiguousarray(locs[:, :keff])
         K = keff
 
-    # Pad the window axis to a stable bucket.
+    # Pad the window axis to a stable bucket; for a mesh, also to a
+    # multiple of the shard count (rows shard blockwise).
     B = max(cfg.batch_windows, n_win, 1)
+    if n_shards > 1:
+        B = -(-B // n_shards) * n_shards
     if B != n_win:
         locs_p = np.full((B, K), _I32_PAD, np.int32)
         locs_p[:n_win] = locs
@@ -503,6 +596,7 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
         true_counts=counts,
         refined_c=refined,
         num_reads=int(total),
+        n_shards=n_shards,
     )
 
 
@@ -601,4 +695,83 @@ def _pack_one(items: list[tuple[WindowSpec, PackedReads]],
         windows=[w for w, _ in device_items],
         reads_per_window=[pr for _, pr in device_items],
         oracle_windows=oracle_items,
+    )
+
+
+def _pack_one_sharded(items: list[tuple[WindowSpec, PackedReads]],
+                      cfg: AudtConfig, n_shards: int) -> PackedBatch:
+    """Shard-blockwise packing for the multi-device audit step.
+
+    Windows are binned greedily by descending read count, so that every
+    shard gets near-equal evidence.  Layout contract of
+    `sharded_audit_step`: both axes divisible by n_shards, window_id
+    shard-local, padding reads use the local sentinel B_local."""
+    device_items, oracle_items = _split_oracle(items)
+
+    bins: list[list[int]] = [[] for _ in range(n_shards)]
+    bin_reads = [0] * n_shards
+    order = sorted(
+        range(len(device_items)), key=lambda i: -device_items[i][1].num_reads
+    )
+    for i in order:
+        s = min(range(n_shards), key=lambda j: (bin_reads[j], len(bins[j])))
+        bins[s].append(i)
+        bin_reads[s] += device_items[i][1].num_reads
+
+    # Window axis padded to the ceil(batch_windows / n_shards) capacity,
+    # reads axis to pow2.
+    b_cap = -(-cfg.batch_windows // n_shards)
+    b_loc = max(b_cap, max((len(b) for b in bins), default=1), 1)
+    n_loc = _pow2(max(1, max(bin_reads, default=1)), lo=64)
+    B = n_shards * b_loc
+    N = n_shards * n_loc
+
+    max_ops = max((pr.max_ops for _, pr in device_items), default=1)
+    O = _bucket(max(max_ops, 1), OPS_BUCKETS)
+
+    ops = np.full((N, O), PAD_OP, np.int8)
+    lens = np.zeros((N, O), np.int32)
+    pos = np.zeros(N, np.int32)
+    n_ops = np.zeros(N, np.int32)
+    wid = np.full(N, b_loc, np.int32)       # shard-local padding sentinel
+    kind = np.full(B, KIND_POINT, np.int32)  # padding windows collect nothing
+    istart = np.zeros(B, np.int32)
+    iend = np.zeros(B, np.int32)
+    ipos = np.zeros(B, np.int32)
+
+    windows_out: list[WindowSpec] = []
+    window_slots: list[int] = []
+    prs: list[PackedReads] = []
+    row_starts: list[int] = []
+    wid_values: list[int] = []
+    for s, bin_idx in enumerate(bins):
+        r = s * n_loc
+        for k, i in enumerate(bin_idx):
+            w, pr = device_items[i]
+            prs.append(pr)
+            row_starts.append(r)
+            wid_values.append(k)
+            r += pr.num_reads
+            windows_out.append(w)
+            window_slots.append(s * b_loc + k)
+    attrs = _window_attrs(windows_out, len(windows_out))
+    for arr, vals in zip((kind, istart, iend, ipos), attrs):
+        arr[window_slots] = vals
+
+    _fill_reads(
+        ops, lens, pos, n_ops, wid, prs,
+        np.asarray(row_starts, np.int64), np.asarray(wid_values, np.int64), O,
+    )
+
+    batch = AuditBatch(
+        ops=ops, lens=lens, pos=pos, n_ops=n_ops, window_id=wid,
+        kind=kind, inter_start=istart, inter_end=iend, imprecise_pos=ipos,
+    )
+    return PackedBatch(
+        batch=batch,
+        windows=windows_out,
+        reads_per_window=prs,
+        oracle_windows=oracle_items,
+        n_shards=n_shards,
+        window_slots=window_slots,
     )

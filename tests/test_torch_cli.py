@@ -1,14 +1,16 @@
 """The port's command line (python -m svtrek_tpu_torch.cli): the audt run
 on --device cpu, with and without --ins-consensus, --extract device and
---no-native-io, the scan and disc runs against svtrek_tpu's CLI, what it
-refuses, and that it runs where JAX cannot be imported at all (the machine
-with the card has none)."""
+--no-native-io, the scan and disc runs against svtrek_tpu's CLI, that the options it once
+refused (`--data-shards 2`, SVTREK_COORDINATOR among them) now run, and
+that it runs where JAX cannot be imported at all (the machine with the
+card has none)."""
 from __future__ import annotations
 
 import contextlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -66,40 +68,35 @@ def test_cli_trace_dir_writes_profiler_trace(audt_fixture, capsys):
         assert "traceEvents" in json.load(fh)
 
 
-# Each option with the ROADMAP item that ports it, or None where the port
-# runs it (--extract device and --no-native-io, refused until the device
-# evidence walk was ported; --poa-engine graph, until the graph POA was).
+# The options the port refused until the slice that ported them: the
+# device evidence walk (--extract device, --no-native-io), the graph POA
+# (--poa-engine graph) and mesh sharding (--data-shards 2, ROADMAP queue 1
+# item 9), each with the shard count its run reports.
 REFUSED = {
-    "data_shards": (["--data-shards", "2"], "item 9"),
-    "extract_device": (["--extract", "device"], None),
-    "no_native_io": (["--no-native-io"], None),
-    "poa_graph": (["--poa-engine", "graph"], None),
+    "data_shards": (["--data-shards", "2"], 2),
+    "extract_device": (["--extract", "device"], 1),
+    "no_native_io": (["--no-native-io"], 1),
+    "poa_graph": (["--poa-engine", "graph"], 1),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_cli_refuses_unported_options(audt_fixture, capsys, name):
-    """An option the port does not run exits 1, naming its ROADMAP item,
-    before any output; one it runs prints svtrek_tpu's lines."""
+    """Each option the port once refused runs and prints svtrek_tpu's
+    lines (its data_shards=1 run's: the JAX package's lines do not depend
+    on the shard count)."""
     d, bam, vcf, want = audt_fixture
-    flags, item = REFUSED[name]
+    flags, shards = REFUSED[name]
     out_path = os.path.join(d, f"refused_{name}.txt")
     rc = cli.main(["audt", "-b", bam, "-v", vcf, "-o", out_path,
                    "--device", "cpu", "--verbose", *flags])
-    if item is None:
-        assert rc == 0
-        captured = capsys.readouterr()
-        assert [l for l in captured.out.splitlines()
-                if l.startswith("(")] == want
-        assert "dev_ovf=0) device=cpu" in captured.err
-        with open(out_path) as fh:
-            assert fh.read().splitlines() == want
-        return
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "not supported by svtrek_tpu_torch yet" in err
-    assert f"ROADMAP queue 1 {item}" in err
-    assert not os.path.exists(out_path)
+    assert rc == 0
+    captured = capsys.readouterr()
+    assert [l for l in captured.out.splitlines()
+            if l.startswith("(")] == want
+    assert f"dev_ovf=0) device=cpu data_shards={shards}" in captured.err
+    with open(out_path) as fh:
+        assert fh.read().splitlines() == want
 
 
 def test_cli_ins_consensus_cpu(audt_fixture, capsys):
@@ -121,11 +118,30 @@ def test_cli_ins_consensus_cpu(audt_fixture, capsys):
         assert fh.read().splitlines() == want
 
 
-def test_cli_refuses_coordinator(audt_fixture, capsys, monkeypatch):
-    _, bam, vcf, _ = audt_fixture
-    monkeypatch.setenv("SVTREK_COORDINATOR", "localhost:1234")
-    assert cli.main(["audt", "-b", bam, "-v", vcf, "--device", "cpu"]) == 1
-    assert "SVTREK_COORDINATOR" in capsys.readouterr().err
+def _run_coordinated(argv: list[str], cwd: str) -> list[str]:
+    """The port's CLI in a subprocess that joins a one-process gloo group:
+    SVTREK_COORDINATOR on a free local port, SVTREK_NUM_PROCS=1,
+    SVTREK_PROC_ID=0.  Returns its result lines."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               SVTREK_COORDINATOR=f"127.0.0.1:{port}", SVTREK_NUM_PROCS="1",
+               SVTREK_PROC_ID="0")
+    proc = subprocess.run(
+        [sys.executable, "-m", "svtrek_tpu_torch.cli", *argv, "--device",
+         "cpu"], capture_output=True, text=True, env=env, cwd=cwd,
+        timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return [l for l in proc.stdout.splitlines() if l.startswith("(")]
+
+
+def test_cli_refuses_coordinator(audt_fixture):
+    """SVTREK_COORDINATOR (refused until mesh sharding and multi-process
+    runs were ported) runs: the audt lines are svtrek_tpu's."""
+    d, bam, vcf, want = audt_fixture
+    assert _run_coordinated(["audt", "-b", bam, "-v", vcf, "-o",
+                             os.path.join(d, "coord.txt")], d) == want
 
 
 def _jax_cli_lines(argv) -> list[str]:
@@ -313,12 +329,13 @@ def test_cli_disc_cpu(disc_fixture, capsys):
     assert os.path.exists(out_path + ".ckpt.npz")
 
 
-# Each option with the ROADMAP item that ports it, or None where the port
-# runs it (--poa-engine graph, refused until the graph POA was ported).
+# The options disc refused until the slice that ported them: the graph POA
+# (--poa-engine graph), mesh sharding (--data-shards 2) and multi-process
+# runs (SVTREK_COORDINATOR, run in a subprocess of its own).
 DISC_REFUSED = {
-    "poa_graph": (["--poa-engine", "graph"], {}, None),
-    "data_shards": (["--data-shards", "2"], {}, "item 9"),
-    "coordinator": ([], {"SVTREK_COORDINATOR": "localhost:1234"}, "item 9"),
+    "poa_graph": ["--poa-engine", "graph"],
+    "data_shards": ["--data-shards", "2"],
+    "coordinator": [],
 }
 
 
@@ -333,32 +350,24 @@ def _jax_disc_lines(d: str, inputs: list[str], flags: list[str]):
 
 
 @pytest.mark.parametrize("name", sorted(DISC_REFUSED))
-def test_cli_disc_refuses_unported_options(disc_fixture, capsys,
-                                           monkeypatch, name):
-    """An option the port does not run exits 1, naming its ROADMAP item,
-    before any output; one it runs prints svtrek_tpu's lines for it."""
+def test_cli_disc_refuses_unported_options(disc_fixture, capsys, name):
+    """Each option disc once refused runs and prints svtrek_tpu's lines
+    for it (the JAX CLI at the same flags, --data-shards 2 included)."""
     d, inputs, _ = disc_fixture
-    flags, env, item = DISC_REFUSED[name]
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+    flags = DISC_REFUSED[name]
     out_path = os.path.join(d, f"refused_{name}.txt")
-    if item is None:
-        want = _jax_disc_lines(d, inputs, flags)
-        capsys.readouterr()
+    want = _jax_disc_lines(d, inputs, flags)
+    capsys.readouterr()
+    if name == "coordinator":
+        got = _run_coordinated(["disc", *inputs, "-o", out_path], d)
+    else:
         assert cli.main(["disc", *inputs, "-o", out_path, "--device", "cpu",
                          *flags]) == 0
         got = [l for l in capsys.readouterr().out.splitlines()
                if l.startswith("(DISC")]
-        assert got == want and any(", seq: " in l for l in want)
-        with open(out_path) as fh:
-            assert fh.read().splitlines() == want
-        return
-    assert cli.main(["disc", *inputs, "-o", out_path, "--device", "cpu",
-                     *flags]) == 1
-    err = capsys.readouterr().err
-    assert "not supported by svtrek_tpu_torch yet" in err
-    assert f"ROADMAP queue 1 {item}" in err
-    assert not os.path.exists(out_path)
+    assert got == want and any(", seq: " in l for l in want)
+    with open(out_path) as fh:
+        assert fh.read().splitlines() == want
 
 
 def test_cli_disc_device_cuda_without_card_fails(disc_fixture, capsys):
