@@ -31,7 +31,9 @@ last line:
    design (the chunked kernel over every pair, through its C entry point),
    of K2 + K3 on one plan, and the bounds of K2 and K3, the profiler's
    time of the kernels alone, without the wrappers' host work, and K3's
-   longest walk in steps and ns a step;
+   longest walk in steps and ns a step; on `wide2k` the profiler's time of
+   K2's chunked kernel alone on its pairs (bands above 527, which the
+   main path sends it) and its bound;
 5. step probe: K4 against its plain version on the default input of
    tools/torch_step_overhead.py (1280 x 256 x 256) and on int8 over its
    whole range at 1000 x 100 x WP, with WP and base alignments that take
@@ -53,10 +55,15 @@ last line:
 7. ins-consensus path: `audt --ins-consensus --device cuda --verbose` on
    the 2,000-site fixture of tools/ins_fixture.py; K1 must have run once
    per batch and K2 and K3 once per DP batch of every consensus flush, the
-   plain paths never; every line must equal an in-process `--device cpu`
-   run, the part before `, seq:` must be byte-identical to
-   tools/audt_scalar.py, and the `seq:` field equal to its scalar star
-   consensus on a subset of sites from every insert-length class;
+   plain paths never; `band_scalar` must count only degenerate pairs (band
+   >= m + n: every band up to K2's 2,048 goes to the card, `band_wide`
+   counts those past the JAX package's 512), and each DP batch's cols and
+   ins must come back at each pair's own width, in at most 1.1 x (sum m +
+   4 sum (m + 1)) bytes of pinned memory; every line must equal an
+   in-process `--device cpu` run, the part before `, seq:` must be
+   byte-identical to tools/audt_scalar.py, and the `seq:` field equal to
+   its scalar star consensus on a subset of sites from every insert-length
+   class;
 8. disc path: `disc --device cuda` (svtrek_tpu_torch.pipeline.discover,
    in this process, configured by the CLI's parser) on the 500,000-read
    fixture of tools/bench_disc.py; the scan must run on the card in every
@@ -95,7 +102,8 @@ last line:
    insertions and deletions, grown on the card), a graph of V_CAP 2,048
    nodes with queries of N_CAP 1,024 bases, a node with P_CAP 32
    predecessors, and edge pairs (V = 1, n = 1, queries of N, identical
-   members), and `long`, past the routing caps (a graph of 3 copies of a
+   members), and `long`, past those caps, the JAX package's routing
+   caps (a graph of 3 copies of a
    4,000-base insert with a query of 4,096 bases, and a two-allele graph of
    two 4,096-base alleles with V past 8,192, grown on the card); score,
    matched and ins_after exactly equal; CUDA-event times of the wrapper
@@ -107,14 +115,20 @@ last line:
    without a predecessor;
 14. graph POA paths: `audt --ins-consensus --poa-engine graph --device
    cuda` on the first 400 sites of phase 7's fixture whose insert is at
-   most 700 bases (so every read's insert stays under N_CAP): K1 once per
-   batch or more, G1 once per DP round or more, the plain paths never, no
-   cluster on the scalar route; the lines before `, seq:` byte-identical
-   to phase 7's lines of the same records, `seq:` equal to the port's
-   scalar graph consensus (`consensus_sequence_poa`, through
-   tools/audt_scalar.py) on 2 sites of each length class, the first 40
-   sites' lines equal to a `--device cpu` run; then the wall time of the
-   graph consensus of the cheapest site past N_CAP (its scalar route).
+   most 700 bases: K1 once per batch or more, G1 once per DP round or
+   more, the plain paths never, no cluster on the scalar route; the lines
+   before `, seq:` byte-identical to phase 7's lines of the same records,
+   `seq:` equal to the port's scalar graph consensus
+   (`consensus_sequence_poa`, through tools/audt_scalar.py) on 2 sites of
+   each length class, the first 40 sites' lines equal to a `--device cpu`
+   run.  Then the long sites: the first 64 sites whose insert passes the
+   JAX package's N_CAP 1,024 (its scalar route) and whose every allele
+   stays within G1's 4,096 bases, and the cheapest such site (site 675),
+   on the card with the same checks (no cluster on the scalar route, the
+   lines before `, seq:` equal to phase 7's), G1's wrapper time a DP
+   round, the first 3 sites' lines equal to a `--device cpu` run, and the
+   cheapest site's seq equal to the scalar `consensus_sequence_poa` of its
+   inserts (timed) and to `consensus_sequence_poa_batch` on the card.
    `disc --poa-engine graph --device cuda` on phase 8's fixture: G1 once
    per DP round or more, the plain paths never, the lines before `, seq:`
    equal to phase 8's, every line equal to a `--device cpu` graph run, and
@@ -147,8 +161,10 @@ largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
 call's time where one computes the same function (`library_ms`, K4's
-torch.sum; none computes G1's; G1 also `ring_hit_share` and
-`long_device_ms`) and the time of the design this one
+torch.sum; none computes G1's; G1 also `ring_hit_share`,
+`long_device_ms`, and on the long sites `launches_long_sites` and
+`long_sites_ms_per_round`; K2 also its chunked kernel's time alone on
+`wide2k` and its bound) and the time of the design this one
 replaced where it is still live code (`ms_before`, K2's chunked kernel; null for the others, whose
 replaced designs left the tree: tools/torch_kernel_ab.py times K1's,
 K3's and G1's beside the new ones).  Those are CUDA-event times of one wrapper
@@ -242,7 +258,8 @@ SCALAR_SEQ_CLUSTERS = 8
 # insert, fewest and most earlier members), and the audt graph cell: the
 # first GRAPH_SITES sites of the ins fixture whose sites.json length is at
 # most GRAPH_MAX_LEN (a two-allele site's longer allele, length + max(30,
-# length // 3), stays under N_CAP 1,024 with its mutations), of which the
+# length // 3), stays under the JAX package's N_CAP 1,024 with its
+# mutations: the graph engine's first cell), of which the
 # first GRAPH_CPU_SITES also run on the CPU (the plain DP takes about a
 # second a site there).
 GRAPH_MIX = (256, 50, 1024, 2, 12)
@@ -256,6 +273,19 @@ GRAPH_LONG_INSERT, GRAPH_LONG_N = 4000, 4096
 GRAPH_BLOCK_DESIGN_MS = {"alone": (4.6024, 4.5962),
                          "call": (5.3423, 5.2682, 5.4567)}
 GRAPH_SITES, GRAPH_MAX_LEN, GRAPH_CPU_SITES = 400, 700, 40
+# The JAX package's routing caps of the graph engine (graph nodes, query
+# bases, predecessors), beyond which it takes its scalar route; phase 13's
+# `v_cap`, `p_cap` and `ins_mix` batches are built at them.  The graph
+# audt's long-site run: the first GRAPH_LONG_SITES sites of the ins
+# fixture whose insert passes JAX_N_CAP and whose longest allele (a
+# two-allele site's second, length + max(30, length // 3)) stays at or
+# under GRAPH_LONG_ALLELE, so that every read's insert, mutations
+# included, stays within G1's 4,096 bases; and the cheapest such site,
+# whose seq is held to the scalar consensus.  The first
+# GRAPH_LONG_CPU_SITES also run on the CPU (the plain DP takes 10-30 s a
+# long site there).
+JAX_V_CAP, JAX_N_CAP, JAX_P_CAP = 2048, 1024, 32
+GRAPH_LONG_SITES, GRAPH_LONG_ALLELE, GRAPH_LONG_CPU_SITES = 64, 4000, 3
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
 # in the JAX program, and the scalar consensus, which does not wrap, may
@@ -687,6 +717,21 @@ def phase_poa_kernels():
                      f"plan {t['k23']:.4f} ms; kernel time alone "
                      f"(profiler): " + ", ".join(
                          f"{k} {fmt_ms(v)}" for k, v in dev.items()))
+        elif name == "wide2k":
+            # K2's chunked kernel alone on the pairs it takes (bands above
+            # POA_STRIP_MAX_BAND), which the main path now sends it.
+            wide = bands > POA_STRIP_MAX_BAND
+            bound_w = poa_bounds(ms[wide], ns[wide], bands[wide], M,
+                                 qpad.shape[1])[0]
+            t = {"k2": cuda_ms(lambda: poa_dp_ptr_cuda(*args), 20),
+                 "chunked_device": device_ms(lambda: poa_dp_ptr_cuda(*args),
+                                             "poa_dp_ptr_chunked"),
+                 "chunked_bound": bound_w, "chunked_pairs": n_wide}
+            times[name] = t
+            line += (f"; K2 {t['k2']:.4f} ms, its chunked kernel alone "
+                     f"(profiler) {fmt_ms(t['chunked_device'])} on "
+                     f"{n_wide} pairs, bound {bound_w[0]:.6f} ms "
+                     f"({bound_w[1]})")
         elif name == "longrun":
             line += (f"; K3 alone (profiler) "
                      f"{fmt_ms(device_ms(k3, 'poa_traceback'))}, longest walk "
@@ -1147,9 +1192,69 @@ def scalar_subset(sites) -> set[int]:
     return picked
 
 
+@contextlib.contextmanager
+def star_host_spy():
+    """While open, records each DP batch's copy back of the star engine
+    (`ops.poa_batch.cols_ins_flat`: its pairs B, its target width M, the
+    pairs' sum of m + 1, the bytes that came back, and whether into pinned
+    memory) and each pair of its scalar host DP (`banded_align_ins`: m, n
+    and the base band)."""
+    from svtrek_tpu_torch.ops import poa_batch
+
+    log = {"d2h": [], "scalar": []}
+    flat, scalar = poa_batch.cols_ins_flat, poa_batch.banded_align_ins
+
+    def flat_spy(cols, ins, idx):
+        out = flat(cols, ins, idx)
+        log["d2h"].append((cols.shape[0], cols.shape[1], idx.numel(),
+                           sum(t.nbytes for t in out),
+                           all(t.is_pinned() for t in out)))
+        return out
+
+    def scalar_spy(t, q, band):
+        log["scalar"].append((len(t), len(q), band))
+        return scalar(t, q, band)
+
+    poa_batch.cols_ins_flat = flat_spy
+    poa_batch.banded_align_ins = scalar_spy
+    try:
+        yield log
+    finally:
+        poa_batch.cols_ins_flat, poa_batch.banded_align_ins = flat, scalar
+
+
+def check_star_host(tag: str, stats, spy, dp_calls: int) -> str:
+    """After a star-engine run on cuda under `star_host_spy`: band_scalar
+    counts the host DP's pairs, each of them degenerate (band >= m + n);
+    each DP batch came back in at most 1.1 x (sum m + 4 sum (m + 1))
+    bytes, into pinned memory.  Returns the line to print."""
+    wide, scalar = int(stats["band_wide"]), int(stats["band_scalar"])
+    if scalar != len(spy["scalar"]):
+        fail(f"{tag}: band_scalar={scalar}, but {len(spy['scalar'])} pairs "
+             f"took the host DP")
+    bad = [(m, n) for m, n, band in spy["scalar"]
+           if max(band, abs(n - m) + 1) < max(m, 1) + n]
+    if bad:
+        fail(f"{tag}: {len(bad)} pairs that are not degenerate took the host "
+             f"DP (m, n): {bad[:5]}")
+    if len(spy["d2h"]) != dp_calls:
+        fail(f"{tag}: {len(spy['d2h'])} copies back for {dp_calls} DP "
+             f"batches")
+    parts = []
+    for B, M, lens, nbytes, pinned in spy["d2h"]:
+        need = (lens - B) + 4 * lens
+        if nbytes > 1.1 * need or not pinned:
+            fail(f"{tag}: a DP batch of {B} pairs came back in {nbytes} "
+                 f"bytes (sum m + 4 sum (m + 1) = {need}), pinned={pinned}")
+        parts.append(f"{nbytes} ({nbytes / need:.4f} x sum m + 4 sum (m+1); "
+                     f"padded {B * M + 4 * B * (M + 1)})")
+    return (f"band_wide={wide} band_scalar={scalar} (every one degenerate); "
+            f"D2H bytes a DP batch, pinned: " + ", ".join(parts))
+
+
 def phase_ins_path():
-    """`audt --ins-consensus` on the card: launch counts, the --device cpu
-    run, and tools/audt_scalar.py."""
+    """`audt --ins-consensus` on the card: launch counts, the band and
+    copy-back counts, the --device cpu run, and tools/audt_scalar.py."""
     from audt_scalar import audt_lines
     from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
     from svtrek_tpu_torch.ops import consensus, poa_dp
@@ -1160,7 +1265,8 @@ def phase_ins_path():
     for calls in (consensus.plain_calls, poa_dp.plain_calls):
         for k in calls:
             calls[k] = 0
-    got, stats, wall = run_cli([*argv, "--device", "cuda"], "ins")
+    with star_host_spy() as spy:
+        got, stats, wall = run_cli([*argv, "--device", "cuda"], "ins")
     launches = dict(launch_counts)
     plain = sum(consensus.plain_calls.values()) + \
         sum(poa_dp.plain_calls.values())
@@ -1183,11 +1289,15 @@ def phase_ins_path():
           f"launches K1={launches['consensus_pos']} "
           f"K2={launches['poa_dp_ptr']} K3={launches['poa_traceback']} "
           f"plain_calls={plain}", flush=True)
+    print(f"[ins] {check_star_host('ins', stats, spy, dp_calls)}", flush=True)
 
-    cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"], "ins cpu")
+    cpu, cpu_stats, cpu_wall = run_cli([*argv, "--device", "cpu"], "ins cpu")
     if cpu != got:
         bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
         fail(f"--device cuda and --device cpu lines differ: {bad}")
+    if [cpu_stats[k] for k in ("band_wide", "band_scalar")] != \
+            [stats[k] for k in ("band_wide", "band_scalar")]:
+        fail("--device cuda and --device cpu count other band routes")
     print(f"[ins] --device cpu: {len(cpu)} lines equal, wall "
           f"{cpu_wall:.3f}s", flush=True)
 
@@ -1343,13 +1453,15 @@ def graph_batches(rng):
     nodes: two sources and two sinks) with queries of N_CAP bases; a node
     with P_CAP predecessors (31 insertions before one node); edge pairs:
     V = 1, n = 1, queries of N against a graph of N, identical members
-    (matches only); and `long`, past the routing caps (n = 4,096, V past
-    8,192), its graphs grown on the card."""
+    (matches only); and `long`, past those caps (n = 4,096, V past 8,192),
+    its graphs grown on the card.  The caps are the JAX package's (JAX_*:
+    2,048 nodes, 1,024 bases, 32 predecessors), which the port routed at
+    until it took G1's own."""
     from ins_fixture import mutate
     from svtrek_tpu_torch.ops.poa_graph import PoaGraph
-    from svtrek_tpu_torch.ops.poa_graph_batch import (
-        N_CAP, P_CAP, V_CAP, align_batch,
-    )
+    from svtrek_tpu_torch.ops.poa_graph_batch import align_batch
+
+    N_CAP, V_CAP, P_CAP = JAX_N_CAP, JAX_V_CAP, JAX_P_CAP
 
     def codes(x):
         return np.asarray(x, np.int8)
@@ -1408,7 +1520,7 @@ def graph_batches(rng):
         [codes([0]), codes([4]), codes([4] * 10), codes(same),
          codes(rng.integers(0, 4, 30))]
 
-    # Past the routing caps: a graph of 3 mutated copies of a
+    # Past the JAX package's caps: a graph of 3 mutated copies of a
     # GRAPH_LONG_INSERT-base insert with a query of GRAPH_LONG_N bases, and
     # a two-allele graph (a second allele of GRAPH_LONG_N bases in as
     # insertions, then a mutated copy of each allele aligned on the card):
@@ -1542,20 +1654,82 @@ def phase_graph_kernel():
     return max_err, times
 
 
+def sub_vcf(vcf: str, keep: list[int], name: str) -> str:
+    """A VCF of the records ``keep`` of ``vcf``, as ``name`` beside it;
+    returns its path."""
+    with open(vcf) as fh:
+        lines = fh.read().splitlines()
+    recs = [l for l in lines if not l.startswith("#")]
+    path = os.path.join(os.path.dirname(vcf), name)
+    with open(path, "w") as fh:
+        fh.write("\n".join([l for l in lines if l.startswith("#")]
+                           + [recs[i] for i in keep]) + "\n")
+    return path
+
+
 def graph_sub_vcf(vcf: str, sites, count: int) -> tuple[str, list[int]]:
     """A VCF of the first ``count`` sites of the ins fixture whose insert
     is at most GRAPH_MAX_LEN bases, beside ``vcf``; returns (its path, the
     sites' indices)."""
     keep = [i for i, s in enumerate(sites)
             if s["length"] <= GRAPH_MAX_LEN][:count]
-    with open(vcf) as fh:
-        lines = fh.read().splitlines()
-    recs = [l for l in lines if not l.startswith("#")]
-    path = os.path.join(os.path.dirname(vcf), f"graph_{count}.vcf")
-    with open(path, "w") as fh:
-        fh.write("\n".join([l for l in lines if l.startswith("#")]
-                           + [recs[i] for i in keep]) + "\n")
-    return path, keep
+    return sub_vcf(vcf, keep, f"graph_{count}.vcf"), keep
+
+
+def long_site(s) -> bool:
+    """A site of the long-site run: its insert passes JAX_N_CAP, its
+    longest allele stays at or under GRAPH_LONG_ALLELE."""
+    longest = s["length"] + (max(30, s["length"] // 3)
+                             if s["alleles"] == 2 else 0)
+    return s["length"] > JAX_N_CAP and longest <= GRAPH_LONG_ALLELE
+
+
+def cheapest_long_site(sites, ins_lines: list[str]) -> int:
+    """The long site whose scalar graph consensus is the cheapest: one
+    allele, more than 2 reads and a refined position, by (reads - 1)
+    alignments of about length^2 cells each (site 675 of the fixture)."""
+    return min((i for i, s in enumerate(sites) if long_site(s) and
+                s["reads"] > 2 and s["alleles"] == 1 and
+                re.search(r"ref pos: \d", ins_lines[i])),
+               key=lambda i: (sites[i]["reads"] - 1) * sites[i]["length"] ** 2)
+
+
+def graph_long_sub_vcf(vcf: str, sites, ins_lines: list[str]
+                       ) -> tuple[str, list[int], int]:
+    """The long-site run's VCF beside ``vcf``: the first GRAPH_LONG_SITES
+    long sites and the cheapest one; returns (its path, the sites' indices
+    in fixture order, the cheapest site's index)."""
+    over = cheapest_long_site(sites, ins_lines)
+    keep = sorted(set([i for i, s in enumerate(sites) if long_site(s)]
+                      [:GRAPH_LONG_SITES]) | {over})
+    return sub_vcf(vcf, keep, "graph_long.vcf"), keep, over
+
+
+@contextlib.contextmanager
+def graph_dp_timer():
+    """While open, adds to the list it yields the CUDA-event time (ms) of
+    each `graph_dp` call of the graph rounds (ops.poa_graph_batch): G1's
+    wrapper with its checks, its host read and its launches."""
+    import torch
+    from svtrek_tpu_torch.ops import poa_graph_batch
+
+    times: list[float] = []
+    dp = poa_graph_batch.graph_dp
+
+    def timed_dp(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in (0, 1))
+        start.record()
+        out = dp(*args, **kw)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    poa_graph_batch.graph_dp = timed_dp
+    try:
+        yield times
+    finally:
+        poa_graph_batch.graph_dp = dp
 
 
 def check_graph_path(tag: str, dp_calls: int, graph_scalar: int) -> int:
@@ -1577,18 +1751,14 @@ def check_graph_path(tag: str, dp_calls: int, graph_scalar: int) -> int:
     return launches
 
 
-def phase_graph_audt(ins_lines: list[str]) -> int:
+def phase_graph_audt(ins_lines: list[str]):
     """`audt --ins-consensus --poa-engine graph` on the card on the graph
-    sub-VCF of the ins fixture; returns G1's launches."""
+    sub-VCF of the ins fixture, then on its long sites
+    (`phase_graph_long`); returns (G1's launches on each, G1's time a DP
+    round on the long sites)."""
     from audt_scalar import audt_lines
-    from svtrek_tpu_torch.config import AudtConfig
-    from svtrek_tpu_torch.constants import SV_MIN_LENGTH
     from svtrek_tpu_torch.kernels import launch_counts
     from svtrek_tpu_torch.ops.poa_graph import consensus_sequence_poa
-    from svtrek_tpu_torch.ops.poa_graph_batch import (
-        N_CAP, consensus_sequence_poa_batch,
-    )
-    from svtrek_tpu_torch.pipeline.audit import open_native_reader
 
     bam, vcf, sites = ins_fixture()
     sub, keep = graph_sub_vcf(vcf, sites, GRAPH_SITES)
@@ -1639,30 +1809,102 @@ def phase_graph_audt(ins_lines: list[str]) -> int:
           f"{len(subset)} sites (classes {classes}) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # The cheapest: (reads - 1) alignments of about length^2 cells each;
-    # its inserts as the audt path fetches them around the refined position.
-    over = min((i for i, s in enumerate(sites) if s["length"] > N_CAP and
-                s["reads"] > 2 and s["alleles"] == 1 and
-                re.search(r"ref pos: \d", ins_lines[i])),
-               key=lambda i: (sites[i]["reads"] - 1) * sites[i]["length"] ** 2)
+    long_launches, g1_per_round = phase_graph_long(bam, vcf, sites,
+                                                   ins_lines)
+    return launches, long_launches, g1_per_round
+
+
+def phase_graph_long(bam: str, vcf: str, sites, ins_lines: list[str]):
+    """The graph audt on the long-site VCF (inserts past JAX_N_CAP) on the
+    card: K1 once per batch or more, G1 once per DP round or more, no
+    plain path and no cluster on the scalar route; the lines before
+    `, seq:` equal to phase 7's, the first GRAPH_LONG_CPU_SITES sites'
+    lines equal to a `--device cpu` run, and the cheapest site's seq equal
+    to the scalar `consensus_sequence_poa` of its inserts (and to a direct
+    `consensus_sequence_poa_batch` call on the card).  Returns (G1's
+    launches, G1's time a DP round in ms)."""
+    from svtrek_tpu_torch.config import AudtConfig
+    from svtrek_tpu_torch.constants import SV_MIN_LENGTH
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops.poa_graph import consensus_sequence_poa
+    from svtrek_tpu_torch.ops.poa_graph_batch import (
+        N_CAP, consensus_sequence_poa_batch,
+    )
+    from svtrek_tpu_torch.pipeline.audit import open_native_reader
+
+    sub, keep, over = graph_long_sub_vcf(vcf, sites, ins_lines)
+    past_2k = sum(sites[i]["length"] > 2000 for i in keep)
+    two = sum(sites[i]["alleles"] == 2 for i in keep)
+    if len(keep) < 60 or past_2k < 10 or two < 1:
+        fail(f"graph long: {len(keep)} sites, {past_2k} past 2,000 bases, "
+             f"{two} with two alleles")
+    argv = ["audt", "-b", bam, "-v", sub, "--ins-consensus", "--poa-engine",
+            "graph"]
+    reset_path_counts()
+    with graph_dp_timer() as g1_ms:
+        got, stats, wall = run_cli([*argv, "--device", "cuda"], "graph long")
+    if launch_counts["consensus_pos"] < int(stats["batches"]):
+        fail(f"graph long: K1 launched {launch_counts['consensus_pos']} "
+             f"times for {stats['batches']} batches")
+    dp_calls = int(stats["dp_calls"])
+    launches = check_graph_path("graph long audt", dp_calls,
+                                int(stats["graph_scalar"]))
+    if [l.split(", seq:")[0] for l in got] != \
+            [ins_lines[i].split(", seq:")[0] for i in keep]:
+        fail("graph long: the lines before ', seq:' differ from phase 7's")
+    cons_sites, cons_s = int(stats["sites"]), float(stats["time"])
+    per_round = sum(g1_ms) / dp_calls
+    lengths = [sites[i]["length"] for i in keep]
+    print(f"[graph] long sites: {len(got)} lines (sites {keep[0]}-"
+          f"{keep[-1]} of the ins fixture, inserts {min(lengths)}-"
+          f"{max(lengths)} bases, {past_2k} past 2,000, {two} with two "
+          f"alleles), records/s={len(got) / wall:.1f} wall={wall:.3f}s; "
+          f"consensus sites={cons_sites} cons_s={cons_s:.3f}s sites/s="
+          f"{cons_sites / cons_s:.2f} dp_calls={dp_calls} (DP rounds) "
+          f"graph_scalar=0; launches K1={launch_counts['consensus_pos']} "
+          f"G1={launches}, plain_calls=0; G1's wrapper {sum(g1_ms):.3f} ms "
+          f"in all (CUDA events), {per_round:.4f} ms a round; lines before "
+          f"', seq:' equal to phase 7's", flush=True)
+
+    n_cpu = GRAPH_LONG_CPU_SITES
+    argv[4] = sub_vcf(vcf, keep[:n_cpu], f"graph_long_{n_cpu}.vcf")
+    cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"], "graph long cpu")
+    if cpu != got[:n_cpu]:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"graph long: --device cuda and --device cpu lines differ on "
+             f"the first {n_cpu} sites: {bad}")
+    print(f"[graph] long sites --device cpu: the first {len(cpu)} sites' "
+          f"lines (inserts {[sites[i]['length'] for i in keep[:n_cpu]]}) "
+          f"equal, wall {cpu_wall:.3f}s", flush=True)
+
+    # The cheapest site's inserts, as the audt path fetches them around
+    # the refined position.
     r = int(re.search(r"ref pos: (\d+)", ins_lines[over]).group(1))
     lo, hi = r - AudtConfig().consensus_interval, \
         r + AudtConfig().consensus_interval
     seqs = open_native_reader(bam).ins_seqs(0, max(lo, 0), hi + 1,
                                             SV_MIN_LENGTH, lo, hi)
+    t0 = time.perf_counter()
+    want = consensus_sequence_poa(seqs)
+    scalar_s = time.perf_counter() - t0
     counts = {}
     t0 = time.perf_counter()
-    consensus_sequence_poa_batch([seqs], device="cuda", counts=counts)
-    dt = time.perf_counter() - t0
-    if counts.get("graph_scalar") != 1 or len(seqs) < 3:
-        fail(f"the over-cap site {over}: {len(seqs)} inserts, "
-             f"graph_scalar={counts.get('graph_scalar')}")
-    print(f"[graph] the cheapest site past N_CAP {N_CAP} (site {over}, "
-          f"insert {sites[over]['length']} bases, {len(seqs)} reads of "
-          f"{min(map(len, seqs))}-{max(map(len, seqs))} bases): its graph "
-          f"consensus took {dt:.3f}s on the scalar route, graph_scalar=1",
-          flush=True)
-    return launches
+    batch = consensus_sequence_poa_batch([seqs], device="cuda",
+                                         counts=counts)
+    batch_s = time.perf_counter() - t0
+    line_seq = got[keep.index(over)].split(", seq: ")[1]
+    if len(seqs) < 3 or line_seq != want or batch != [want] or \
+            counts.get("graph_scalar") != 0:
+        fail(f"graph long: site {over} ({len(seqs)} inserts): seq differs "
+             f"from the scalar consensus_sequence_poa, or graph_scalar="
+             f"{counts.get('graph_scalar')}")
+    print(f"[graph] the cheapest site past {JAX_N_CAP} (site {over}, insert "
+          f"{sites[over]['length']} bases, {len(seqs)} reads of "
+          f"{min(map(len, seqs))}-{max(map(len, seqs))} bases): seq equal to "
+          f"the scalar consensus_sequence_poa ({scalar_s:.3f}s), and to "
+          f"consensus_sequence_poa_batch on the card ({batch_s:.3f}s, "
+          f"graph_scalar=0, N_CAP {N_CAP})", flush=True)
+    return launches, per_round
 
 
 def phase_graph_disc(disc_lines: list[str], cl, subset) -> int:
@@ -2179,7 +2421,8 @@ def main() -> int:
     sharded_launches, sharded_extract_launches, _ = timed(
         "multi-device", phase_multi_device, fixture(), host_lines,
         disc_fixture(), disc_lines)
-    graph_launches = timed("graph audt", phase_graph_audt, ins_lines)
+    graph_launches, long_launches, long_per_round = timed(
+        "graph audt", phase_graph_audt, ins_lines)
     graph_disc_launches = timed("graph disc", phase_graph_disc, disc_lines,
                                 disc_cl, disc_subset)
     phase_jax_check()
@@ -2220,6 +2463,8 @@ def main() -> int:
         "ms_before": flush["k2_before"],
         "device_ms": flush["k2_device"],
         "device_ms_before": flush["k2_before_device"],
+        "chunked_wide2k_device_ms": poa_times["wide2k"]["chunked_device"],
+        "chunked_wide2k_bound_ms": poa_times["wide2k"]["chunked_bound"][0],
     }, {
         "name": "poa_traceback",
         "route": "cuda",
@@ -2268,6 +2513,8 @@ def main() -> int:
         "device_ms_before": None,
         "ring_hit_share": graph["ring_hit"],
         "long_device_ms": graph["long"]["device_ms"],
+        "launches_long_sites": long_launches,
+        "long_sites_ms_per_round": long_per_round,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,8 +52,8 @@
 // - The wrapper hands the kernel a work list: the pairs sorted by
 //   n*(2*band+1), longest first, so the longest chains start in the first
 //   wave; the offsets stay in input order.
-// Pairs with a band above kStripMaxBand (up to POA_MAX_BAND 2048; the main
-// path sends at most band_cap 512) take the chunked kernel, the design this
+// Pairs with a band above kStripMaxBand (up to POA_MAX_BAND 2048, the main
+// path's band cap) take the chunked kernel, the design this
 // one replaced: the score rows in shared memory, the band striped over the
 // lanes in chunks of 32 with a warp scan carried from chunk to chunk, its
 // shared memory sized by the widest band of its own launch.  Its registers

@@ -30,8 +30,8 @@ POA_MAX_BAND = 2048
 POA_STRIPS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 33)
 POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
 # G1 (csrc/poa_graph.cu): the largest graph (nodes), query and predecessor
-# count it takes (ops/poa_graph_batch.py routes at V_CAP, N_CAP and P_CAP,
-# which stay at or below these); a row's cells, n+1 rounded up to
+# count it takes (ops/poa_graph_batch.py routes at these: its V_CAP, N_CAP
+# and P_CAP); a row's cells, n+1 rounded up to
 # GRAPH_ROW_ALIGN (whole lane strips and 16-byte chunks); and the scratch of
 # one launch (H int32 and a uint16 code a cell of each pair's (V+1) rows): a
 # larger batch is split into several launches.

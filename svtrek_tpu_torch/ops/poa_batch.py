@@ -2,13 +2,15 @@
 
 Port of svtrek_tpu/ops/poa_batch.py (`_segments_from_counts`,
 `banded_cols_batch`, `consensus_sequence_batch`), line for line where the
-output depends on it: the band_cap scalar fallback, the `s[: 4 * m]` query
-cut, `max_len`, the fixed point and `rounds`.  The DP runs in
-`ops.poa_dp.dp_cols` on the given device.  The JAX package's pow2 shape
-buckets (`_nbucket`) and its dispatch policy exist to limit TPU kernel
-recompiles and are not carried over: pairs are padded to the batch's
-longest target and query, and a pair's result does not depend on that
-padding.
+output depends on it: the scalar fallback of degenerate pairs, the
+`s[: 4 * m]` query cut, `max_len`, the fixed point and `rounds`.  The DP
+runs in `ops.poa_dp.dp_cols` on the given device.  The JAX package's pow2
+shape buckets (`_nbucket`), its dispatch policy and its band cap of 512
+exist to limit what one outlier costs a TPU kernel's compiled shape and
+are not carried over: pairs are padded to the batch's longest target and
+query, K2 stores each pair at its own band (up to kernels.POA_MAX_BAND),
+and a pair's result depends on neither.  Every route is exact, so the
+output is the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,7 +21,12 @@ from .poa import (
     accumulate_votes, assemble_consensus, banded_align_ins, decode,
     decode_ins, encode, majority_length_mode, new_vote_state,
 )
+from ..kernels import POA_MAX_BAND
 from .poa_dp import PAD, dp_cols
+
+# svtrek_tpu's band cap: wider pairs take its scalar host DP, and here
+# they are counted in counts["band_wide"].
+JAX_BAND_CAP = 512
 
 
 def _segments_from_counts(query: np.ndarray, cols: np.ndarray,
@@ -39,23 +46,60 @@ def _segments_from_counts(query: np.ndarray, cols: np.ndarray,
     return segs
 
 
-def banded_cols_batch(targets, queries, band: int = 64, band_cap: int = 512,
-                      *, device: torch.device | str = "cpu",
+def flat_index(ms: np.ndarray, M: int) -> np.ndarray:
+    """The flat index, into a [B, M+1] row-major array, of each pair's
+    columns 0..m_b: pair b's m_b+1 entries start at (m + 1)'s exclusive
+    prefix sum.  int32 where B*(M+1) fits, else int64."""
+    lens = ms.astype(np.int64) + 1
+    starts = np.cumsum(lens) - lens
+    shift = np.arange(len(ms), dtype=np.int64) * (M + 1) - starts
+    idx = np.arange(int(lens.sum()), dtype=np.int64) + np.repeat(shift, lens)
+    return idx.astype(np.int32 if len(ms) * (M + 1) < 1 << 31 else np.int64)
+
+
+def cols_ins_flat(cols: torch.Tensor, ins: torch.Tensor, idx: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A DP batch's cols [B, M] int8 and ins [B, M+1] int32 at each pair's
+    own width: both gathered at ``idx`` (`flat_index`, on their device;
+    cols padded by one column, so that both share it) into flat CPU
+    tensors, pair b's cols and ins at the same offset.  On CUDA each
+    comes back in one non-blocking copy into pinned memory, then the
+    stream is synchronized once: Σ(m+1) + 4·Σ(m+1) bytes, not the padded
+    B·M + 4·B·(M+1)."""
+    cols_f = torch.nn.functional.pad(cols, (0, 1)).view(-1).index_select(
+        0, idx)
+    ins_f = ins.reshape(-1).index_select(0, idx)
+    if cols.device.type == "cpu":
+        return cols_f, ins_f
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in (cols_f, ins_f)]
+    for h, t in zip(host, (cols_f, ins_f)):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(cols.device).synchronize()
+    return host[0], host[1]
+
+
+def banded_cols_batch(targets, queries, band: int = 64,
+                      band_cap: int = POA_MAX_BAND, *,
+                      device: torch.device | str = "cpu",
                       counts: dict | None = None):
     """Batched drop-in for ``banded_align_ins`` over pair lists.
 
     targets/queries: lists of int8 numpy arrays.  Returns
     (cols_list, segs_list): per pair, the per-target-column query bases
     and the decoded inserted segment per boundary.  Pairs whose effective
-    band max(band, |n-m|+1) exceeds ``band_cap`` or reaches the summed
-    lengths go through the scalar host path; the others through one
-    `dp_cols` call on ``device``, counted in ``counts["dp_calls"]`` when
-    ``counts`` is given."""
+    band max(band, |n-m|+1) exceeds ``band_cap`` (K2's widest by default)
+    or reaches the summed lengths go through the scalar host path; the
+    others through one `dp_cols` call on ``device``.  With ``counts``:
+    counts["dp_calls"] counts that call, counts["band_wide"] the pairs it
+    takes with a band above JAX_BAND_CAP (those the JAX package sends to
+    the host), counts["band_scalar"] the pairs on the host path."""
     assert len(targets) == len(queries)
     nn = len(targets)
     cols_out = [None] * nn
     segs_out = [None] * nn
     dev_idx = []
+    wide = 0
     for i, (t, q) in enumerate(zip(targets, queries)):
         eb = max(band, abs(len(q) - len(t)) + 1)
         if eb > band_cap or eb >= max(len(t), 1) + len(q):
@@ -63,6 +107,11 @@ def banded_cols_batch(targets, queries, band: int = 64, band_cap: int = 512,
             segs_out[i] = decode_ins(ins)
         else:
             dev_idx.append(i)
+            wide += eb > JAX_BAND_CAP
+    if counts is not None:
+        counts["band_wide"] = counts.get("band_wide", 0) + wide
+        counts["band_scalar"] = counts.get("band_scalar", 0) + \
+            nn - len(dev_idx)
     if not dev_idx:
         return cols_out, segs_out
     B = len(dev_idx)
@@ -74,15 +123,20 @@ def banded_cols_batch(targets, queries, band: int = 64, band_cap: int = 512,
     for bi, i in enumerate(dev_idx):
         tpad[bi, : ms[bi]] = targets[i]
         qpad[bi, : ns[bi]] = queries[i]
-    cols_all, ins_all = (x.cpu().numpy() for x in dp_cols(
-        *(torch.from_numpy(a).to(device)
-          for a in (tpad, ms, qpad, ns, bands))))
+    tpad_d, ms_d, qpad_d, ns_d, bands_d, idx_d = (
+        torch.from_numpy(a).to(device) for a in (
+            tpad, ms, qpad, ns, bands, flat_index(ms, tpad.shape[1])))
+    cols_h, ins_h = (t.numpy() for t in cols_ins_flat(
+        *dp_cols(tpad_d, ms_d, qpad_d, ns_d, bands_d), idx_d))
     if counts is not None:
         counts["dp_calls"] = counts.get("dp_calls", 0) + 1
+    start = 0
     for bi, i in enumerate(dev_idx):
-        cols_out[i] = cols_all[bi, : ms[bi]]
+        m = int(ms[bi])
+        cols_out[i] = cols_h[start: start + m]
         segs_out[i] = _segments_from_counts(
-            queries[i], cols_out[i], ins_all[bi, : ms[bi] + 1])
+            queries[i], cols_out[i], ins_h[start: start + m + 1])
+        start += m + 1
     return cols_out, segs_out
 
 

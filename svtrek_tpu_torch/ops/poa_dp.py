@@ -27,6 +27,16 @@ import torch
 
 from .poa import GAP, MATCH, MISMATCH
 
+# NEG is far below every reachable score, as the scalar DP's -10^9 in
+# int64 is (ops/poa.py): a cell's score is at least GAP * (i + j) and at
+# most MATCH * min(i, j), and the pairs reach m <= 4,096 (max_len) with
+# |n - m| < band <= 2,048 (kernels.POA_MAX_BAND), so n <= 6,143 and every
+# score lies in [-2 * 10,239, 8,192] = [-20,478, 8,192].  A value built on
+# NEG stays below NEG + 2 * (2 * 2,048 + 1) = -2^28 + 8,194 (a left gap's
+# prefix term adds at most -GAP a cell of the band), so it never wins
+# over a reachable score, and nothing comes near int32's -2^31.  (A later
+# round's consensus may pass max_len a little; the margin holds to m of
+# tens of millions.)
 NEG = -(1 << 28)
 PAD = 5  # the padding base of tpad/qpad
 PLAIN_CHUNK_BYTES = 1 << 27

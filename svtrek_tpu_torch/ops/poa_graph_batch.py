@@ -1,20 +1,26 @@
 """Batched graph POA consensus (`--poa-engine graph`): every active
-cluster aligns its next member to its graph in one DP call per round.
+cluster aligns its next member to its graph in one DP round.
 
 Port of svtrek_tpu/ops/poa_graph_batch.py (`_pow2`, `path_from_device`,
-`align_batch`, the caps and `consensus_sequence_poa_batch`), line for line
-where the output depends on it: the length-medoid seed, the round
-structure, the scalar route for clusters past the caps, and the pow2
-shapes (P >= 2, Vmax >= 16, Nmax >= 16), which do not change a pair's
-result but keep the arrays those of the JAX package.  The DP runs in
-`ops.poa_graph_dp.graph_dp` on the given device: kernel G1 on the card,
-the plain PyTorch version on the CPU.
+`align_batch`, `consensus_sequence_poa_batch`), line for line where the
+output depends on it: the length-medoid seed, the round structure, the
+scalar route for clusters past the caps, and the pow2 shapes (P >= 2,
+Vmax >= 16, Nmax >= 16), which do not change a pair's result.  Two
+things differ, and neither changes a result: the caps are kernel G1's
+own (the JAX package keeps lower ones for its compiled shapes), and a
+round is packed in groups of pairs of one pow2 size, not at the round's
+largest.  The DP runs in `ops.poa_graph_dp.graph_dp` on the given
+device: kernel G1 on the card, the plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..kernels import (
+    GRAPH_CELL_BYTES, GRAPH_N_CAP, GRAPH_P_CAP, GRAPH_SCRATCH_BYTES,
+    GRAPH_V_CAP,
+)
 from .poa import encode
 from .poa_graph import PoaGraph, consensus_sequence_poa
 from .poa_graph_dp import graph_dp
@@ -50,10 +56,10 @@ def path_from_device(arrs, matched, ins_after, q: np.ndarray):
 
 
 def pack_pairs(graphs: list[PoaGraph], queries: list[np.ndarray]):
-    """The DP's inputs for query[i] against graph[i]: (each graph's
-    to_arrays, the stacked numpy arrays (base_td, pred_rows, npred,
-    is_sink, Vs, qpad, ns) of `graph_dp`, its static shapes {P, Vmax,
-    Nmax}), as svtrek_tpu's align_batch builds them."""
+    """The DP's inputs for query[i] against graph[i], one group: (each
+    graph's to_arrays, the stacked numpy arrays (base_td, pred_rows,
+    npred, is_sink, Vs, qpad, ns) of `graph_dp`, its static shapes {P,
+    Vmax, Nmax}), as svtrek_tpu's align_batch builds them."""
     B = len(graphs)
     P = _pow2(max(max(g.max_indegree(), 1) for g in graphs), 2)
     Vmax = _pow2(max(len(g.base) for g in graphs), 16)
@@ -73,30 +79,63 @@ def pack_pairs(graphs: list[PoaGraph], queries: list[np.ndarray]):
         dict(P=P, Vmax=Vmax, Nmax=Nmax)
 
 
+def group_pairs(Vs: list[int], ns: list[int],
+                budget: int = GRAPH_SCRATCH_BYTES) -> list[list[int]]:
+    """A round's pairs (graph sizes Vs, query lengths ns) in groups that
+    are packed and aligned alone: sorted by (V, n) at pow2 granularity, a
+    group holds pairs of one pow2 V and one pow2 n (so no pair is padded
+    to twice its V or n or more, where the floor of 16 allows), and ends
+    where its DP cells, (Vmax+1) * (Nmax+1) a pair at GRAPH_CELL_BYTES
+    each (the plain DP's H and codes, G1's scratch), would pass
+    ``budget``; a pair alone may pass it.  Returns the pairs' indices."""
+    def key(i):
+        return _pow2(Vs[i], 16), _pow2(ns[i], 16)
+
+    groups: list[list[int]] = []
+    for i in sorted(range(len(Vs)), key=lambda i: (key(i), Vs[i], ns[i])):
+        vmax, nmax = key(i)
+        pair_bytes = (vmax + 1) * (nmax + 1) * GRAPH_CELL_BYTES
+        if groups and key(groups[-1][0]) == (vmax, nmax) and \
+                (len(groups[-1]) + 1) * pair_bytes <= budget:
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+    return groups
+
+
 def align_batch(graphs: list[PoaGraph], queries: list[np.ndarray], *,
                 device: torch.device | str = "cpu",
                 counts: dict | None = None):
-    """Align query[i] to graph[i] for the whole batch in one `graph_dp`
-    call on ``device`` (counted in ``counts["dp_calls"]`` when ``counts``
-    is given).  Returns (paths, scores): paths in add_alignment form.
-    Callers guard sizes (see consensus_sequence_poa_batch)."""
-    arrs, arrays, shape = pack_pairs(graphs, queries)
-    scores, matched, ins_after = (x.cpu().numpy() for x in graph_dp(
-        *(torch.from_numpy(a).to(device) for a in arrays), **shape))
+    """Align query[i] to graph[i] for the whole round on ``device``: one
+    `graph_dp` call per group of `group_pairs`, each packed at its own
+    shapes by `pack_pairs` (the round counted once in
+    ``counts["dp_calls"]`` when ``counts`` is given).  Returns (paths,
+    scores) in the round's order: paths in add_alignment form.  Callers
+    guard sizes (see consensus_sequence_poa_batch)."""
+    paths: list = [None] * len(graphs)
+    scores = np.zeros(len(graphs), np.int32)
+    for grp in group_pairs([len(g.base) for g in graphs],
+                           [len(q) for q in queries]):
+        qs = [queries[i] for i in grp]
+        arrs, arrays, shape = pack_pairs([graphs[i] for i in grp], qs)
+        score, matched, ins_after = (x.cpu().numpy() for x in graph_dp(
+            *(torch.from_numpy(a).to(device) for a in arrays), **shape))
+        for k, i in enumerate(grp):
+            paths[i] = path_from_device(arrs[k], matched[k], ins_after[k],
+                                        qs[k])
+            scores[i] = score[k]
     if counts is not None:
         counts["dp_calls"] = counts.get("dp_calls", 0) + 1
-    paths = [path_from_device(arrs[i], matched[i], ins_after[i],
-                              queries[i]) for i in range(len(graphs))]
     return paths, scores
 
 
-# Caps beyond which a cluster takes the scalar route, svtrek_tpu's (there
-# the dense DP's compiled shape would be dominated by one outlier), so that
-# the port routes as the JAX package does.  G1 takes more: graphs of up to
-# kernels.GRAPH_V_CAP nodes, queries of up to GRAPH_N_CAP bases.
-V_CAP = 2048
-N_CAP = 1024
-P_CAP = 32
+# Caps beyond which a cluster takes the scalar route: G1's own limits
+# (kernels.GRAPH_*_CAP).  svtrek_tpu keeps 2,048 nodes, 1,024 bases and
+# 32 predecessors, so that one outlier does not set its dense DP's
+# compiled shape; each route is exact, so the consensus is the same.
+V_CAP = GRAPH_V_CAP
+N_CAP = GRAPH_N_CAP
+P_CAP = GRAPH_P_CAP
 
 
 def consensus_sequence_poa_batch(clusters: list[list[str]], *,

@@ -18,7 +18,9 @@ is NEG + NEG), a first-wins argmax over it, then the in-row insertions as
 an exclusive cummax, taken only where strictly greater; the end row is the
 first best-scoring sink; the walk runs from (end row, n) to (0, 0).  Rows
 past a pair's V are never read by its walk, so the plain version stops at
-the batch's largest V instead of Vmax.
+the batch's largest V instead of Vmax, and each row's stack stops at the
+largest predecessor count of that row in the batch (the slots past it
+are NEG in every pair and never win).
 """
 from __future__ import annotations
 
@@ -27,7 +29,6 @@ import torch
 from .poa import GAP, MATCH, MISMATCH
 
 NEG = -(1 << 28)
-INT32_MIN = -(1 << 31)
 
 # Calls of the plain version through `graph_dp` (the CPU route).
 plain_calls: dict[str, int] = {"poa_graph_dp": 0}
@@ -51,52 +52,65 @@ def graph_dp_reference(base_td: torch.Tensor, pred_rows: torch.Tensor,
     dev = base_td.device
     i32 = torch.int32
     bidx = torch.arange(B, device=dev)
-    cols = torch.arange(Nmax + 1, dtype=i32, device=dev)
+    W = Nmax + 1
+    cols = torch.arange(W, dtype=i32, device=dev)
     gapj = GAP * cols
     n = ns.to(i32)
     V = Vs.to(i32)
     jvalid = cols[None, :] <= n[:, None]
     negcol = torch.full((B, 1), NEG, dtype=i32, device=dev)
-    pvalid_all = torch.arange(P, device=dev)[None, None, :] < \
-        npred.to(i32)[:, :, None]                       # [B, Vmax, P]
-    q = qpad.to(i32)
     rows_needed = int(V.max()) if B else 0
+    R = rows_needed + 1
 
     # Rows 0..rows_needed of H; the rows past them stay NEG in JAX's H.
-    H = torch.full((B, rows_needed + 1, Nmax + 1), NEG, dtype=i32, device=dev)
+    # Flat views: pair b's row r is row b * R + r of Hf.
+    H = torch.full((B, R, W), NEG, dtype=i32, device=dev)
     H[:, 0] = torch.where(jvalid, gapj, NEG)
-    moves = torch.zeros((B, max(rows_needed, 1), Nmax + 1), dtype=torch.int8,
+    Hf = H.view(B * R, W)
+    pred_long = pred_rows.long()
+    pred_in_hf = (bidx * R)[:, None, None] + pred_long[:, :rows_needed]
+    # The substitution score of each base code (0-5) against each query
+    # column, column 0 NEG (no diag move into it), as rows b * 6 + base.
+    sub_by_base = torch.full((B, 6, W), NEG, dtype=i32, device=dev)
+    sub_by_base[:, :, 1:] = torch.where(
+        qpad.to(i32)[:, None, :] == torch.arange(6, dtype=i32, device=dev)[
+            None, :, None], MATCH, MISMATCH)
+    sub_by_base = sub_by_base.view(B * 6, W)
+    sub_row = (bidx * 6)[:, None] + base_td.long()          # [B, Vmax]
+    # The candidate stack of a row, slot k = 2p + (0 del, 1 diag): where
+    # predecessor slot p is not filled, NEG.
+    slot_ok = (torch.arange(P, device=dev)[None, None, :] <
+               npred.to(i32)[:, :, None]).repeat_interleave(2, dim=2)
+    kidx = torch.arange(2 * P, dtype=torch.int8, device=dev)[None, :, None]
+    negdiag = torch.full((B, P, 1), NEG, dtype=i32, device=dev)
+    # The slots filled in some pair, a row: the others are NEG in every
+    # pair and never win, so the stack stops before them.
+    slots = npred[:, :rows_needed].amax(0).clamp(min=1).tolist() \
+        if B else []
+    # A cell's move (0 diag, 1 del, 2 ins) and predecessor slot, as
+    # slot * 4 + move (P <= 32 fits int8).
+    codes = torch.zeros((B, max(rows_needed, 1), W), dtype=torch.int8,
                         device=dev)
-    psels = torch.zeros_like(moves)
     for i in range(1, rows_needed + 1):
-        prs = pred_rows[:, i - 1].long()                   # [B, P]
-        rows = H[bidx[:, None], prs]                       # [B, P, N+1]
-        b = base_td[:, i - 1].to(i32)
-        sub = torch.cat([negcol, torch.where(q == b[:, None], MATCH,
-                                             MISMATCH).to(i32)], 1)
-        pvalid = pvalid_all[:, i - 1]
-        # The stack [del_p0, diag_p0, del_p1, ...] in order, each slot
-        # taken only where strictly greater: the first maximum wins.
-        best = torch.full((B, Nmax + 1), INT32_MIN, dtype=i32, device=dev)
-        sel = torch.zeros((B, Nmax + 1), dtype=torch.int8, device=dev)
-        for p in range(P):
-            pv = pvalid[:, p, None]
-            r = rows[:, p]
-            diag = torch.cat([negcol, r[:, :-1]], 1) + sub
-            for k, c in ((2 * p, r + GAP), (2 * p + 1, diag)):
-                c = torch.where(pv, c, NEG)
-                sel.masked_fill_(c > best, k)
-                best = torch.maximum(best, c)
-        base_move = (1 - sel % 2).to(torch.int8)           # 1 del, 0 diag
-        base_psel = sel // 2
+        p = slots[i - 1]
+        rows = Hf.index_select(0, pred_in_hf[:, i - 1, :p].reshape(-1)).view(
+            B, p, W)
+        sub = sub_by_base.index_select(0, sub_row[:, i - 1])
+        diag = torch.cat([negdiag[:, :p], rows[:, :, :-1]], 2) + sub[:, None]
+        stack = torch.stack([rows + GAP, diag], 2).view(B, 2 * p, W)
+        stack = torch.where(slot_ok[:, i - 1, :2 * p, None], stack, NEG)
+        # The first maximum of the stack wins (each later slot was taken
+        # only where strictly greater).
+        best = stack.amax(1)
+        sel = torch.where(stack == best[:, None], kidx[:, :2 * p],
+                          2 * P).amin(1)
         cm = torch.cummax(best - gapj, dim=1).values
         left = torch.cat([negcol, cm[:, :-1]], 1) + gapj
         use_ins = left > best                              # strict
+        # sel = 2 * slot + (0 del, 1 diag): code slot * 4 + 1 - sel % 2.
+        codes[:, i - 1] = torch.where(use_ins, 2, sel * 2 - sel % 2 * 3 + 1)
         row = torch.where(use_ins, left, best)
-        moves[:, i - 1] = torch.where(use_ins, 2, base_move).to(torch.int8)
-        psels[:, i - 1] = torch.where(use_ins, 0, base_psel).to(torch.int8)
-        row = torch.where(jvalid & (i <= V)[:, None], row, NEG)
-        H[:, i] = row
+        H[:, i] = torch.where(jvalid & (i <= V)[:, None], row, NEG)
 
     finals = torch.full((B, Vmax), NEG, dtype=i32, device=dev)
     finals[:, :rows_needed] = H[bidx, 1:, n.long()]        # H[i, n]
@@ -105,24 +119,29 @@ def graph_dp_reference(base_td: torch.Tensor, pred_rows: torch.Tensor,
     end_row = torch.argmax(scores, dim=1) + 1              # lowest rank tie
     score = scores[bidx, end_row - 1]
 
+    # The walk, one step of every pair at a time, through flat indices:
+    # (i, j) reads the code of row i-1, column j; row 0 moves left.  A
+    # diag or del move goes to the predecessor row its slot names; each
+    # row is matched at most once, so the marks are added.
     matched = torch.zeros((B, Vmax), dtype=torch.int8, device=dev)
     ins_after = torch.zeros((B, Vmax + 1), dtype=torch.int32, device=dev)
+    codes_f = codes.view(-1)
+    pred_f = pred_long.view(-1)
+    code_row = bidx * codes.shape[1]
     i = end_row.long()
     j = n.long()
     while B and bool(((i > 0) | (j > 0)).any()):
-        active = (i > 0) | (j > 0)
-        im1 = (i - 1).clamp(min=0).clamp(max=moves.shape[1] - 1)
-        m = torch.where(i == 0, 2, moves[bidx, im1, j].long())
-        dg = active & (m == 0)
-        dl = active & (m == 1)
-        ins = active & (m == 2)
-        matched[bidx, im1] = torch.where(dg, 1, matched[bidx, im1]).to(
-            torch.int8)
-        slot = i.clamp(0, Vmax)
-        ins_after[bidx, slot] += ins.to(torch.int32)
-        p = psels[bidx, im1, j].long()
-        prow = pred_rows[bidx, (i - 1).clamp(min=0), p].long()
-        i = torch.where(dg | dl, prow, i)
+        im1 = (i - 1).clamp(min=0)
+        c = codes_f[(code_row + im1) * W + j].long()
+        m = torch.where(i == 0, 2, c & 3)
+        dg = m == 0
+        ins = (m == 2) & (j > 0)
+        matched.view(-1).index_put_((bidx * Vmax + im1,), dg.to(torch.int8),
+                                    accumulate=True)
+        ins_after.view(-1).index_put_((bidx * (Vmax + 1) + i,),
+                                      ins.to(i32), accumulate=True)
+        prow = pred_f[(bidx * Vmax + im1) * P + (c >> 2)]
+        i = torch.where(m < 2, prow, i)
         j = j - (dg | ins).long()
     return score.to(i32), matched, ins_after
 

@@ -169,6 +169,9 @@ class AuditStats:
     cons_flushes: int = 0    # batched consensus calls
     cons_dp_calls: int = 0   # DP batches those calls sent to the device
     cons_graph_scalar: int = 0  # graph engine: clusters on the scalar route
+    cons_band_wide: int = 0  # star engine: pairs on the DP with a band
+                             # above the JAX package's cap of 512
+    cons_band_scalar: int = 0  # star engine: pairs on the host DP
     total_s: float = 0.0
     records: int = 0
     windows: int = 0
@@ -205,7 +208,9 @@ class AuditStats:
                 f"[VERBOSE] ins_consensus sites={self.cons_sites} "
                 f"time={self.cons_s:.3f}s flushes={self.cons_flushes} "
                 f"dp_calls={self.cons_dp_calls} "
-                f"graph_scalar={self.cons_graph_scalar}",
+                f"graph_scalar={self.cons_graph_scalar} "
+                f"band_wide={self.cons_band_wide} "
+                f"band_scalar={self.cons_band_scalar}",
                 file=err,
             )
 
@@ -434,7 +439,8 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
             continue
         seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
                                   C.SV_MIN_LENGTH, lo, hi))
-    counts = {"dp_calls": 0, "graph_scalar": 0}
+    counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
+              "band_scalar": 0}
     for res, s in zip(records, consensus_batch(
             seq_lists, device=device, counts=counts)):
         res.seq = s or ""
@@ -443,6 +449,8 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     stats.cons_flushes += 1
     stats.cons_dp_calls += counts["dp_calls"]
     stats.cons_graph_scalar += counts["graph_scalar"]
+    stats.cons_band_wide += counts["band_wide"]
+    stats.cons_band_scalar += counts["band_scalar"]
     stats.cons_s += time.perf_counter() - t0
 
 

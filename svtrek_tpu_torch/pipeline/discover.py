@@ -387,7 +387,9 @@ def consensus_insert_sequences(clusters: list[SvCluster], fq_path: str,
     one call on ``device``: `consensus_sequence_batch` (star) or, with
     ``engine == "graph"``, `consensus_sequence_poa_batch` (``counts`` as
     theirs: "dp_calls" counts the DP batches, "graph_scalar" the graph
-    engine's clusters on the scalar route)."""
+    engine's clusters on the scalar route, "band_wide" and "band_scalar"
+    the star engine's pairs with a band above the JAX package's 512 on
+    the DP and its pairs on the host DP)."""
     wanted: dict[str, list[tuple[SvCluster, Breakpoint]]] = {}
     for c in clusters:
         if c.type != "INS":
@@ -485,8 +487,9 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     cfg.output_file).  ``stats``, when given, receives phase seconds
     (detect_s, cluster_s, consensus_s, emit_s, total_s, scan_wait_s) and
     counts (reads, scan_batches, rescans, host_reads, breakpoints,
-    clusters, ins_clusters, dp_calls, graph_scalar) and, when the
-    detection runs, its shard count (data_shards); nothing is printed for
+    clusters, ins_clusters, dp_calls, graph_scalar, band_wide,
+    band_scalar) and, when the detection runs, its shard count
+    (data_shards); nothing is printed for
     them.
 
     Raises Unsupported for what the port does not run, and
@@ -536,7 +539,8 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     clusters = cluster_breakpoints(bps, cfg.consensus_min_count,
                                    cfg.cluster_window)
     t_cluster = time.perf_counter()
-    counts = {"dp_calls": 0, "graph_scalar": 0}
+    counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
+              "band_scalar": 0}
     consensus_insert_sequences(clusters, cfg.fq_file, cfg.poa_engine,
                                device=device, counts=counts)
     t_cons = time.perf_counter()
@@ -565,6 +569,5 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
             total_s=t_end - t_start, breakpoints=len(bps),
             clusters=len(clusters),
             ins_clusters=sum(c.type == "INS" for c in clusters),
-            dp_calls=counts["dp_calls"],
-            graph_scalar=counts["graph_scalar"])
+            **counts)
     return lines

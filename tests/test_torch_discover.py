@@ -362,6 +362,7 @@ def test_run_discover_bench_fixture(tmp_path):
     assert stats["scan_batches"] == 3 and stats["reads"] == 20_000
     assert stats["ins_clusters"] == len(got) >= 40
     assert stats["dp_calls"] >= 1 and stats["rescans"] == 0
+    assert stats["band_wide"] >= 0 and stats["band_scalar"] == 0
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

@@ -98,6 +98,9 @@ def test_multi_site_fixture_matches_jax(tmp_path, batch_windows):
     dp_calls = int(re.search(r"dp_calls=(\d+)", err).group(1))
     assert flushes >= (4 if batch_windows == 7 else 1)
     assert dp_calls >= flushes
+    # The star engine's band routes: no pair of this fixture is
+    # degenerate, so none takes the host DP.
+    assert re.search(r"band_wide=\d+ band_scalar=0\b", err)
 
 
 def test_cli_ins_consensus_runs_with_jax_blocked(fixtures, tmp_path):

@@ -225,7 +225,67 @@ def test_banded_cols_band_cap_fallback():
     for a, b in zip(got[0], want[0]):
         np.testing.assert_array_equal(a, b)
     assert got[1] == want[1]
-    assert counts == {"dp_calls": 1}
+    assert counts == {"dp_calls": 1, "band_wide": 0, "band_scalar": 1}
+
+
+def test_banded_cols_bands_past_jax_cap_take_the_device_path():
+    """Pairs with |n - m| + 1 in 513-2,048 (past the JAX package's
+    band_cap 512, which sends them to its scalar DP) go through the
+    default call's DP, counted in band_wide, and give JAX's default cols
+    and segs; a degenerate pair (band >= m + n) and a pair past K2's
+    widest band stay on the scalar DP, counted in band_scalar."""
+    rng = np.random.default_rng(17)
+    shapes = [(200, 800), (150, 700), (900, 300), (60, 40), (0, 600),
+              (30, 2100)]
+    targets, queries = [], []
+    for m, n in shapes:
+        t = _rand_seq(rng, m)
+        q = _mutate_batch(rng, t) + _rand_seq(rng, max(n - m, 0))
+        targets.append(jpoa.encode(t))
+        queries.append(jpoa.encode(q[:n] if n < m else q))
+    bands = [max(16, abs(len(q) - len(t)) + 1)
+             for t, q in zip(targets, queries)]
+    assert sum(512 < b <= kernels.POA_MAX_BAND and b < len(t) + len(q)
+               for b, t, q in zip(bands, targets, queries)) == 3
+    assert bands[4] >= len(targets[4]) + len(queries[4])
+    assert bands[5] > kernels.POA_MAX_BAND
+    counts = {}
+    got_cols, got_segs = poa_batch.banded_cols_batch(targets, queries, 16,
+                                                     counts=counts)
+    jax_cols, jax_segs = jbatch.banded_cols_batch(targets, queries, 16)
+    for i, (t, q) in enumerate(zip(targets, queries)):
+        np.testing.assert_array_equal(got_cols[i], jax_cols[i],
+                                      err_msg=str(i))
+        assert got_segs[i] == jax_segs[i], i
+    assert counts == {"dp_calls": 1, "band_wide": 3, "band_scalar": 2}
+
+
+@pytest.mark.parametrize("B,M,noncontig", [(7, 40, False), (5, 1, True),
+                                           (2, 300, True)])
+def test_flat_gather_equals_slicing_the_padded_rows(B, M, noncontig):
+    """`flat_index` and `cols_ins_flat` give each pair's cols[b, :m_b]
+    and ins[b, :m_b+1] at one offset a pair, equal to slicing the padded
+    rows, for contiguous and strided (the plain traceback's) outputs."""
+    rng = np.random.default_rng(B * 1000 + M)
+    ms = rng.integers(0, M + 1, B).astype(np.int32)
+    ms[0] = M
+    cols = torch.from_numpy(rng.integers(-1, 5, (B, M)).astype(np.int8))
+    ins_full = torch.from_numpy(rng.integers(0, 9, (B, M + 2)).astype(
+        np.int32))
+    ins = ins_full[:, :M + 1] if noncontig else ins_full[:, :M + 1].clone()
+    assert ins.is_contiguous() != noncontig
+    idx = poa_batch.flat_index(ms, M)
+    assert idx.dtype == np.int32 and len(idx) == int(ms.sum()) + B
+    cols_h, ins_h = (t.numpy() for t in poa_batch.cols_ins_flat(
+        cols, ins, torch.from_numpy(idx)))
+    start = 0
+    for b, m in enumerate(ms.tolist()):
+        np.testing.assert_array_equal(cols_h[start:start + m],
+                                      cols[b, :m].numpy())
+        np.testing.assert_array_equal(ins_h[start:start + m + 1],
+                                      ins[b, :m + 1].numpy())
+        start += m + 1
+    assert start == len(cols_h) == len(ins_h)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -334,10 +334,11 @@ def test_g1_model_matches_plain(case, lanes, strip, ring):
 
 
 def _past_caps_pair():
-    """A two-allele graph past the routing caps, at a size the CPU can
-    align: two chains of 1,100 nodes from the virtual start (V 2,200 >
-    V_CAP, the second chain's first predecessor 1,101 rows back), and a
-    mutated copy of the second allele (n about 1,100 > N_CAP)."""
+    """A two-allele graph past the JAX package's routing caps, at a size
+    the CPU can align: two chains of 1,100 nodes from the virtual start
+    (V 2,200 > its V_CAP, the second chain's first predecessor 1,101 rows
+    back), and a mutated copy of the second allele (n about 1,100 > its
+    N_CAP)."""
     rng = np.random.default_rng(8)
     a = rng.integers(0, 4, 1100).astype(np.int8)
     other = rng.integers(0, 4, 1100).astype(np.int8)
@@ -350,12 +351,13 @@ def _past_caps_pair():
 
 
 def test_g1_model_past_routing_caps():
-    """A pair past V_CAP and N_CAP: the plain DP equals JAX's
-    `_graph_dp_batch` and the scalar `PoaGraph.align`, and G1's model at
-    its own sizes equals the plain DP."""
+    """A pair past the JAX package's V_CAP and N_CAP, which the port
+    batches: the plain DP equals JAX's `_graph_dp_batch` and the scalar
+    `PoaGraph.align`, and G1's model at its own sizes equals the plain
+    DP."""
     g, q = _past_caps_pair()
-    assert len(g.base) > tgb.V_CAP and len(q) > tgb.N_CAP
-    assert len(g.base) <= kernels.GRAPH_V_CAP
+    assert len(g.base) > jgb.V_CAP and len(q) > jgb.N_CAP
+    assert len(g.base) <= tgb.V_CAP == kernels.GRAPH_V_CAP
     assert len(q) <= kernels.GRAPH_N_CAP
     arrays, shape = _pack([g], [q])
     want = _plain(arrays, shape)
@@ -372,12 +374,14 @@ def test_g1_model_past_routing_caps():
 
 
 def test_routing_caps_are_the_jax_packages():
-    """The port routes as svtrek_tpu does; G1 takes at least as much."""
-    assert (tgb.V_CAP, tgb.N_CAP, tgb.P_CAP) == \
-        (jgb.V_CAP, jgb.N_CAP, jgb.P_CAP) == (2048, 1024, 32)
-    assert tgb.V_CAP <= kernels.GRAPH_V_CAP
-    assert tgb.N_CAP <= kernels.GRAPH_N_CAP
-    assert tgb.P_CAP <= kernels.GRAPH_P_CAP
+    """The port routes at G1's own limits; the JAX package keeps its
+    caps of 2,048 nodes, 1,024 bases and 32 predecessors (read here, not
+    changed), at or below G1's."""
+    assert (tgb.V_CAP, tgb.N_CAP, tgb.P_CAP) == (
+        kernels.GRAPH_V_CAP, kernels.GRAPH_N_CAP, kernels.GRAPH_P_CAP)
+    assert (jgb.V_CAP, jgb.N_CAP, jgb.P_CAP) == (2048, 1024, 32)
+    assert jgb.V_CAP <= tgb.V_CAP and jgb.N_CAP <= tgb.N_CAP and \
+        jgb.P_CAP <= tgb.P_CAP
     assert (kernels.GRAPH_V_CAP, kernels.GRAPH_N_CAP,
             kernels.GRAPH_P_CAP) == (16384, 4096, 32)
     # A code holds the predecessor row in 14 bits.
@@ -460,16 +464,18 @@ def test_consensus_batch_matches_jax_and_scalar():
     assert counts["dp_calls"] == max(len(c) for c in clusters) - 1
 
 
-def test_consensus_over_n_cap_takes_the_scalar_route():
+def test_consensus_over_n_cap_takes_the_scalar_route(monkeypatch):
     """A member of N_CAP + 1 bases sends its cluster to the scalar POA (one
-    alignment), in both packages."""
+    alignment), in both packages: the port's N_CAP set to the JAX
+    package's 1,024, so that the CPU runs the scalar route at the size
+    where JAX takes it."""
+    monkeypatch.setattr(tgb, "N_CAP", jgb.N_CAP)
     rng = random.Random(3)
     long = _rand_seq(rng, tgb.N_CAP + 1)
     clusters = [[long, long[:500] + long[510:]],
                 _random_cluster(rng, 3, 50, err=0.1)]
     counts = {}
     got = tgb.consensus_sequence_poa_batch(clusters, counts=counts)
-    assert tgb.N_CAP == jgb.N_CAP
     assert got == jgb.consensus_sequence_poa_batch(clusters)
     assert got == [consensus_sequence_poa(c) for c in clusters]
     assert counts == {"dp_calls": 2, "graph_scalar": 1}
@@ -478,7 +484,8 @@ def test_consensus_over_n_cap_takes_the_scalar_route():
 @pytest.mark.parametrize("cap,value", [("V_CAP", 60), ("P_CAP", 1)])
 def test_consensus_graph_caps_take_the_scalar_route(monkeypatch, cap, value):
     """A graph past V_CAP nodes or P_CAP predecessors finishes on the
-    scalar POA, with both modules' caps set small."""
+    scalar POA, with both modules' caps set small (the port's are G1's,
+    past any graph the CPU can grow in a test)."""
     monkeypatch.setattr(tgb, cap, value)
     monkeypatch.setattr(jgb, cap, value)
     clusters = _consensus_cases()
@@ -487,6 +494,83 @@ def test_consensus_graph_caps_take_the_scalar_route(monkeypatch, cap, value):
     assert got == jgb.consensus_sequence_poa_batch(clusters)
     assert got == [consensus_sequence_poa(c) for c in clusters]
     assert 0 < counts["graph_scalar"] < 10
+
+
+def test_consensus_past_jax_caps_takes_the_batched_dp():
+    """A cluster of members of 1,100-1,200 bases, past the JAX package's
+    N_CAP 1,024 (its scalar route) and within G1's: the port aligns it on
+    the batched DP (graph_scalar 0) to JAX's consensus and the scalar
+    consensus_sequence_poa's."""
+    rng = random.Random(11)
+    truth = _rand_seq(rng, 1150)
+    from tests.test_poa_graph import _mutate
+    cluster = [_mutate(rng, truth, 0.04) for _ in range(3)]
+    assert all(jgb.N_CAP < len(s) <= tgb.N_CAP for s in cluster)
+    counts = {}
+    got = tgb.consensus_sequence_poa_batch([cluster], counts=counts)
+    assert counts == {"dp_calls": 2, "graph_scalar": 0}
+    assert got == jgb.consensus_sequence_poa_batch([cluster])
+    assert got == [consensus_sequence_poa(cluster)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_consensus_where_jax_goes_scalar_and_the_port_batches(monkeypatch,
+                                                              seed):
+    """The JAX package's N_CAP and V_CAP set low, so that it takes its
+    scalar route for most clusters; the port, at its own caps, batches
+    every one.  The consensus is the same."""
+    monkeypatch.setattr(jgb, "N_CAP", 60)
+    monkeypatch.setattr(jgb, "V_CAP", 90)
+    rng = random.Random(f"caps-{seed}")
+    clusters = [_random_cluster(rng, rng.randint(2, 6), rng.randint(30, 110),
+                                err=0.12) for _ in range(8)]
+    counts = {}
+    got = tgb.consensus_sequence_poa_batch(clusters, counts=counts)
+    assert counts["graph_scalar"] == 0
+    assert max(len(s) for c in clusters for s in c) > jgb.N_CAP
+    assert got == jgb.consensus_sequence_poa_batch(clusters)
+
+
+def test_round_groups_by_size():
+    """A round of one long pair and many short ones: `align_batch` packs
+    them in groups of one pow2 size (no pair padded to twice its V or n,
+    past the floor of 16) and gives the paths and scores of one ungrouped
+    `graph_dp` call over the whole round, in the round's order."""
+    rng = random.Random(21)
+    graphs, queries = [], []
+    for k in range(13):
+        length = 400 if k == 5 else rng.randint(20, 90)
+        seqs = _random_cluster(rng, 3, length, err=0.1)
+        graphs.append(_grow(seqs[:2]))
+        queries.append(encode(seqs[2]))
+    Vs = [len(g.base) for g in graphs]
+    ns = [len(q) for q in queries]
+    groups = tgb.group_pairs(Vs, ns)
+    assert sorted(i for g in groups for i in g) == list(range(13))
+    assert 1 < len(groups) < 13
+    for grp in groups:
+        _, _, shape = tgb.pack_pairs([graphs[i] for i in grp],
+                                     [queries[i] for i in grp])
+        for i in grp:
+            assert shape["Vmax"] < 2 * Vs[i] or shape["Vmax"] == 16
+            assert shape["Nmax"] < 2 * ns[i] or shape["Nmax"] == 16
+    arrays, shape = _pack(graphs, queries)
+    score, matched, ins_after = _plain(arrays, shape)
+    arrs = [g.to_arrays(shape["Vmax"], shape["P"]) for g in graphs]
+    want = [tgb.path_from_device(arrs[i], matched[i], ins_after[i],
+                                 queries[i]) for i in range(13)]
+    counts = {}
+    calls = poa_graph_dp.plain_calls["poa_graph_dp"]
+    paths, scores = tgb.align_batch(graphs, queries, counts=counts)
+    assert poa_graph_dp.plain_calls["poa_graph_dp"] - calls == len(groups)
+    assert counts == {"dp_calls": 1}
+    assert paths == want
+    np.testing.assert_array_equal(scores, score)
+    # The budget splits a group of one size; a pair alone may pass it.
+    cell = kernels.GRAPH_CELL_BYTES
+    assert tgb.group_pairs([100] * 5, [50] * 5, budget=129 * 65 * cell * 2) \
+        == [[0, 1], [2, 3], [4]]
+    assert tgb.group_pairs([100, 30], [50, 20], budget=1) == [[1], [0]]
 
 
 # ------------------------------ pipelines ------------------------------ #

@@ -2,7 +2,7 @@
 """End-to-end split of the PyTorch port's `audt` and `disc` runs on one
 card.
 
-    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--graph] [--trace-dir DIR]
+    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--graph [--long]] [--trace-dir DIR]
 
 On chip_smoke.py's 5,000-record fixture (built there, or reused from the
 temp dir), runs `python -m svtrek_tpu_torch.cli audt --verbose` in this
@@ -15,7 +15,9 @@ fixture instead, with `--ins-consensus --device cuda` twice (a
 --device cuda, cpu, cuda, printing each run's wall time and stats.  With
 `--graph` either of those runs the graph POA engine (`--poa-engine
 graph`), the ins-consensus runs on chip_smoke.py's graph sub-VCF (the
-first 400 sites whose insert is at most 700 bases).  A last run under
+first 400 sites whose insert is at most 700 bases; with `--long`, on the
+first 64 sites of its long-site run, inserts past 1,024 bases).  A last
+run under
 `--trace-dir` writes a torch.profiler trace and prints its summary:
 the traced window, the events and time per category, the device events by
 name, and the card's busy and idle share of the window.  A trace slows the
@@ -123,6 +125,8 @@ def main() -> None:
     ap.add_argument("--graph", action="store_true",
                     help="with --ins-consensus or --disc: the graph POA "
                          "engine")
+    ap.add_argument("--long", action="store_true",
+                    help="with --ins-consensus --graph: the long sites")
     args = ap.parse_args()
     engine = ["--poa-engine", "graph"] if args.graph else []
     print(subprocess.run(
@@ -134,7 +138,12 @@ def main() -> None:
         return
     if args.ins_consensus:
         bam, vcf, sites = chip_smoke.ins_fixture()
-        if args.graph:
+        if args.graph and args.long:
+            vcf = chip_smoke.sub_vcf(
+                vcf, [i for i, s in enumerate(sites)
+                      if chip_smoke.long_site(s)][:chip_smoke.GRAPH_LONG_SITES],
+                "graph_long_measure.vcf")
+        elif args.graph:
             vcf = chip_smoke.graph_sub_vcf(vcf, sites,
                                            chip_smoke.GRAPH_SITES)[0]
         runs = [[*flags, *engine] for flags in INS_RUNS]
