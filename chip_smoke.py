@@ -102,16 +102,20 @@ last line:
    insertions and deletions, grown on the card), a graph of V_CAP 2,048
    nodes with queries of N_CAP 1,024 bases, a node with P_CAP 32
    predecessors, and edge pairs (V = 1, n = 1, queries of N, identical
-   members), and `long`, past those caps, the JAX package's routing
+   members), `long`, past those caps, the JAX package's routing
    caps (a graph of 3 copies of a
    4,000-base insert with a query of 4,096 bases, and a two-allele graph of
-   two 4,096-base alleles with V past 8,192, grown on the card); score,
-   matched and ins_after exactly equal; CUDA-event times of the wrapper
-   and of the plain version on the ins mix (on `long` the plain check's
-   wall time), the profiler's time of G1 alone and its bound on both, the
-   ins mix's share of filled predecessor slots within G1's shared ring of
-   8 rows, and the recorded times of the block-per-pair design it
-   replaced (commit c6ff5e5); and the wrapper must refuse a live row
+   two 4,096-base alleles with V past 8,192, grown on the card), and at
+   G1's own caps `xlong` (a two-allele graph of two 8,600-base alleles,
+   V past 16,384, queries past 8,192: a ring of 4 rows) and `n_cap` (a
+   query of 16,384 bases: a ring of 2 rows); score, matched and ins_after
+   exactly equal; each batch's ring rows (`kernels.graph_ring_rows` of its
+   longest query); CUDA-event times of the wrapper and of the plain
+   version on the ins mix (on `long`, `xlong` and `n_cap` the plain
+   check's wall time), the profiler's time of G1 alone and its bound on
+   those four, the ins mix's share of filled predecessor slots within
+   G1's shared ring, and the recorded times of the block-per-pair design
+   it replaced (commit c6ff5e5); and the wrapper must refuse a live row
    without a predecessor;
 14. graph POA paths: `audt --ins-consensus --poa-engine graph --device
    cuda` on the first 400 sites of phase 7's fixture whose insert is at
@@ -123,12 +127,17 @@ last line:
    each length class, the first 40 sites' lines equal to a `--device cpu`
    run.  Then the long sites: the first 64 sites whose insert passes the
    JAX package's N_CAP 1,024 (its scalar route) and whose every allele
-   stays within G1's 4,096 bases, and the cheapest such site (site 675),
+   stays within 4,000 bases, and the cheapest such site (site 675),
    on the card with the same checks (no cluster on the scalar route, the
    lines before `, seq:` equal to phase 7's), G1's wrapper time a DP
-   round, the first 3 sites' lines equal to a `--device cpu` run, and the
+   round, the first site's line equal to a `--device cpu` run, and the
    cheapest site's seq equal to the scalar `consensus_sequence_poa` of its
    inserts (timed) and to `consensus_sequence_poa_batch` on the card.
+   Then the xlong sites: every site whose longest allele passes 4,000
+   bases (45 sites, to 6,416 bases), on the card with the same checks, a
+   query past 4,096 bases on G1, the sites/s, rounds, G1's launches and
+   wrapper time a round, the largest V and n, and the cheapest such
+   site's line equal to a `--device cpu` run.
    `disc --poa-engine graph --device cuda` on phase 8's fixture: G1 once
    per DP round or more, the plain paths never, the lines before `, seq:`
    equal to phase 8's, every line equal to a `--device cpu` graph run, and
@@ -162,8 +171,10 @@ plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
 call's time where one computes the same function (`library_ms`, K4's
 torch.sum; none computes G1's; G1 also `ring_hit_share`,
-`long_device_ms`, and on the long sites `launches_long_sites` and
-`long_sites_ms_per_round`; K2 also its chunked kernel's time alone on
+`long_device_ms`, `xlong_device_ms`, `n_cap_device_ms`, and on the long
+and xlong sites `launches_long_sites`, `long_sites_ms_per_round`,
+`launches_xlong_sites` and `xlong_sites_ms_per_round`; K2 also its
+chunked kernel's time alone on
 `wide2k` and its bound) and the time of the design this one
 replaced where it is still live code (`ms_before`, K2's chunked kernel; null for the others, whose
 replaced designs left the tree: tools/torch_kernel_ab.py times K1's,
@@ -266,6 +277,11 @@ GRAPH_MIX = (256, 50, 1024, 2, 12)
 # G1's `long` batch: the insert length and the query length of its pairs
 # (the ins path's max_len), past the routing caps but within G1's.
 GRAPH_LONG_INSERT, GRAPH_LONG_N = 4000, 4096
+# G1's batches at its own caps: `xlong`, two alleles of GRAPH_XLONG_ALLELE
+# bases (V past 16,384, queries past 8,192: the ring of 4 rows), and
+# `n_cap`, a query of kernels.GRAPH_N_CAP bases against a graph of two
+# copies of a GRAPH_NCAP_INSERT-base insert (the ring of 2 rows).
+GRAPH_XLONG_ALLELE, GRAPH_NCAP_INSERT = 8600, 16000
 # The block-per-pair G1 of commit c6ff5e5 on `ins_mix` (PERF.md §6: three
 # runs of this script on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's times; tools/torch_kernel_ab.py times that design in
@@ -280,12 +296,14 @@ GRAPH_SITES, GRAPH_MAX_LEN, GRAPH_CPU_SITES = 400, 700, 40
 # fixture whose insert passes JAX_N_CAP and whose longest allele (a
 # two-allele site's second, length + max(30, length // 3)) stays at or
 # under GRAPH_LONG_ALLELE, so that every read's insert, mutations
-# included, stays within G1's 4,096 bases; and the cheapest such site,
-# whose seq is held to the scalar consensus.  The first
-# GRAPH_LONG_CPU_SITES also run on the CPU (the plain DP takes 10-30 s a
-# long site there).
+# included, stays within 4,096 bases (G1's cap before it took 16,384);
+# and the cheapest such site, whose seq is held to the scalar consensus.
+# The first GRAPH_LONG_CPU_SITES also run on the CPU (the plain DP takes
+# 10-30 s a long site there; 1 since the xlong run's CPU site, for the
+# smoke's time).  The sites past GRAPH_LONG_ALLELE are the
+# xlong run's.
 JAX_V_CAP, JAX_N_CAP, JAX_P_CAP = 2048, 1024, 32
-GRAPH_LONG_SITES, GRAPH_LONG_ALLELE, GRAPH_LONG_CPU_SITES = 64, 4000, 3
+GRAPH_LONG_SITES, GRAPH_LONG_ALLELE, GRAPH_LONG_CPU_SITES = 64, 4000, 1
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
 # in the JAX program, and the scalar consensus, which does not wrap, may
@@ -1453,10 +1471,11 @@ def graph_batches(rng):
     nodes: two sources and two sinks) with queries of N_CAP bases; a node
     with P_CAP predecessors (31 insertions before one node); edge pairs:
     V = 1, n = 1, queries of N against a graph of N, identical members
-    (matches only); and `long`, past those caps (n = 4,096, V past 8,192),
-    its graphs grown on the card.  The caps are the JAX package's (JAX_*:
-    2,048 nodes, 1,024 bases, 32 predecessors), which the port routed at
-    until it took G1's own."""
+    (matches only); `long`, past those caps (n = 4,096, V past 8,192),
+    its graphs grown on the card; and at G1's own caps `xlong` (V past
+    16,384, n past 8,192) and `n_cap` (n = GRAPH_N_CAP).  The caps of the
+    first batches are the JAX package's (JAX_*: 2,048 nodes, 1,024 bases,
+    32 predecessors), which the port routed at until it took G1's own."""
     from ins_fixture import mutate
     from svtrek_tpu_torch.ops.poa_graph import PoaGraph
     from svtrek_tpu_torch.ops.poa_graph_batch import align_batch
@@ -1542,6 +1561,31 @@ def graph_batches(rng):
              f"{[len(q) for q in queries]}")
     yield "long", [one, two], queries
 
+    # At G1's own caps: a two-allele graph of V past 16,384 with queries
+    # past 8,192 (a mutated copy of each allele aligned on the card
+    # first), and a query of GRAPH_N_CAP bases against two copies of a
+    # GRAPH_NCAP_INSERT-base insert.
+    from svtrek_tpu_torch.kernels import GRAPH_N_CAP
+
+    a1, a2 = (rng.integers(0, 4, GRAPH_XLONG_ALLELE) for _ in range(2))
+    xl = first(a1)
+    xl.add_alignment(codes(a2), [(None, j) for j in range(len(a2))])
+    for q in (codes(mutate(rng, a1)), codes(mutate(rng, a2))):
+        (path,), _ = align_batch([xl], [q], device="cuda")
+        xl.add_alignment(q, path)
+    queries = [codes(mutate(rng, a2)), codes(mutate(rng, a1))]
+    if len(xl.base) <= 16384 or min(map(len, queries)) <= 8192:
+        fail(f"the xlong batch has V {len(xl.base)}, n "
+             f"{[len(q) for q in queries]}")
+    yield "xlong", [xl, xl], queries
+
+    t = rng.integers(0, 4, GRAPH_NCAP_INSERT)
+    cap = first(codes(mutate(rng, t)))
+    q = codes(mutate(rng, t))
+    (path,), _ = align_batch([cap], [q], device="cuda")
+    cap.add_alignment(q, path)
+    yield "n_cap", [cap], [codes(np.resize(mutate(rng, t), GRAPH_N_CAP))]
+
 
 def ring_hits(arrays, ring: int) -> tuple[int, int]:
     """(filled predecessor slots whose row lies within ring - 1 rows of
@@ -1583,7 +1627,7 @@ def phase_graph_kernel():
     """G1 against its plain version on the card."""
     import torch
 
-    from svtrek_tpu_torch.kernels import GRAPH_RING, poa_graph_dp_cuda
+    from svtrek_tpu_torch.kernels import graph_ring_rows, poa_graph_dp_cuda
     from svtrek_tpu_torch.ops.poa_graph_batch import pack_pairs
     from svtrek_tpu_torch.ops.poa_graph_dp import graph_dp_reference
     from torch_step_overhead import cuda_ms
@@ -1609,19 +1653,22 @@ def phase_graph_kernel():
                  f"{torch.equal(got[1], want[1])}, ins_after equal "
                  f"{torch.equal(got[2], want[2])}")
         Vs, ns = arrays[4], arrays[6]
+        ring = graph_ring_rows(int(ns.max()))
         line = (f"[graph] {name}: B={len(Vs)} V {int(Vs.min())}-"
                 f"{int(Vs.max())} n {int(ns.min())}-{int(ns.max())} "
-                f"P={shape['P']} Vmax={shape['Vmax']} Nmax={shape['Nmax']}: "
-                f"score, matched and ins_after equal")
-        if name in ("ins_mix", "long"):
+                f"P={shape['P']} Vmax={shape['Vmax']} Nmax={shape['Nmax']}, "
+                f"ring of {ring} rows: score, matched and ins_after equal")
+        if name in ("ins_mix", "long", "xlong", "n_cap"):
             def g1():
                 return poa_graph_dp_cuda(*args, **shape)
 
-            t = {"ms": cuda_ms(g1, 5),
+            big = name in ("xlong", "n_cap")
+            t = {"ms": cuda_ms(g1, 2 if big else 5),
                  "plain_ms": cuda_ms(lambda: graph_dp_reference(
                      *args, **shape), 1) if name == "ins_mix"
                  else plain_s * 1e3,
-                 "device_ms": device_ms(g1, "poa_graph_dp", 3)}
+                 "device_ms": device_ms(g1, "poa_graph_dp", 1 if big else 3),
+                 "ring": ring}
             t["bound_ms"], t["bound_by"] = graph_bound(arrays, **shape)
             times[name] = t
             line += (f"; G1 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -1630,15 +1677,15 @@ def phase_graph_kernel():
                      f"{int(((Vs.astype(np.int64)) * (ns + 1)).sum())} cells")
         print(line, flush=True)
         if name == "ins_mix":
-            hit, total = ring_hits(arrays, GRAPH_RING)
+            hit, total = ring_hits(arrays, ring)
             times["ring_hit"] = hit / total
             alone, call = (" / ".join(f"{x:.4f}" for x in
                                       GRAPH_BLOCK_DESIGN_MS[k])
                            for k in ("alone", "call"))
             print(f"[graph] ins_mix: {hit} of {total} filled predecessor "
                   f"slots ({100 * hit / total:.4f} %) lie within "
-                  f"{GRAPH_RING - 1} rows of their node, in G1's "
-                  f"{GRAPH_RING}-row shared ring; the block-per-pair design "
+                  f"{ring - 1} rows of their node, in G1's "
+                  f"{ring}-row shared ring; the block-per-pair design "
                   f"(c6ff5e5) on this batch: alone {alone} ms, call {call} "
                   f"ms (recorded)", flush=True)
             # A live row without a predecessor is refused, not computed.
@@ -1676,12 +1723,17 @@ def graph_sub_vcf(vcf: str, sites, count: int) -> tuple[str, list[int]]:
     return sub_vcf(vcf, keep, f"graph_{count}.vcf"), keep
 
 
+def longest_allele(s) -> int:
+    """A site's longest allele: a two-allele site's second is length +
+    max(30, length // 3) bases (tools/ins_fixture.py)."""
+    return s["length"] + (max(30, s["length"] // 3)
+                          if s["alleles"] == 2 else 0)
+
+
 def long_site(s) -> bool:
     """A site of the long-site run: its insert passes JAX_N_CAP, its
     longest allele stays at or under GRAPH_LONG_ALLELE."""
-    longest = s["length"] + (max(30, s["length"] // 3)
-                             if s["alleles"] == 2 else 0)
-    return s["length"] > JAX_N_CAP and longest <= GRAPH_LONG_ALLELE
+    return s["length"] > JAX_N_CAP and longest_allele(s) <= GRAPH_LONG_ALLELE
 
 
 def cheapest_long_site(sites, ins_lines: list[str]) -> int:
@@ -1707,13 +1759,15 @@ def graph_long_sub_vcf(vcf: str, sites, ins_lines: list[str]
 
 @contextlib.contextmanager
 def graph_dp_timer():
-    """While open, adds to the list it yields the CUDA-event time (ms) of
-    each `graph_dp` call of the graph rounds (ops.poa_graph_batch): G1's
-    wrapper with its checks, its host read and its launches."""
+    """While open, adds to the first list it yields the CUDA-event time
+    (ms) of each `graph_dp` call of the graph rounds
+    (ops.poa_graph_batch): G1's wrapper with its checks, its host read and
+    its launches; and to the second the call's largest (V, n)."""
     import torch
     from svtrek_tpu_torch.ops import poa_graph_batch
 
     times: list[float] = []
+    sizes: list[tuple[int, int]] = []
     dp = poa_graph_batch.graph_dp
 
     def timed_dp(*args, **kw):
@@ -1723,11 +1777,12 @@ def graph_dp_timer():
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        sizes.append((int(args[4].max()), int(args[6].max())))
         return out
 
     poa_graph_batch.graph_dp = timed_dp
     try:
-        yield times
+        yield times, sizes
     finally:
         poa_graph_batch.graph_dp = dp
 
@@ -1811,7 +1866,8 @@ def phase_graph_audt(ins_lines: list[str]):
 
     long_launches, g1_per_round = phase_graph_long(bam, vcf, sites,
                                                    ins_lines)
-    return launches, long_launches, g1_per_round
+    xlong = phase_graph_xlong(bam, vcf, sites, ins_lines)
+    return launches, long_launches, g1_per_round, xlong
 
 
 def phase_graph_long(bam: str, vcf: str, sites, ins_lines: list[str]):
@@ -1841,7 +1897,7 @@ def phase_graph_long(bam: str, vcf: str, sites, ins_lines: list[str]):
     argv = ["audt", "-b", bam, "-v", sub, "--ins-consensus", "--poa-engine",
             "graph"]
     reset_path_counts()
-    with graph_dp_timer() as g1_ms:
+    with graph_dp_timer() as (g1_ms, _):
         got, stats, wall = run_cli([*argv, "--device", "cuda"], "graph long")
     if launch_counts["consensus_pos"] < int(stats["batches"]):
         fail(f"graph long: K1 launched {launch_counts['consensus_pos']} "
@@ -1905,6 +1961,73 @@ def phase_graph_long(bam: str, vcf: str, sites, ins_lines: list[str]):
           f"consensus_sequence_poa_batch on the card ({batch_s:.3f}s, "
           f"graph_scalar=0, N_CAP {N_CAP})", flush=True)
     return launches, per_round
+
+
+def phase_graph_xlong(bam: str, vcf: str, sites, ins_lines: list[str]):
+    """The graph audt on the xlong sites, every site of the ins fixture
+    whose longest allele passes GRAPH_LONG_ALLELE (45 at seed 0, to 6,416
+    bases: before G1 took 16,384 bases, the scalar route), on the card: K1
+    once per batch or more, G1 once per DP round or more, no plain path
+    and no cluster on the scalar route; the lines before `, seq:` equal to
+    phase 7's, and the cheapest site's line (by (reads - 1) x longest
+    allele^2, more than 2 reads and a refined position) equal to its
+    `--device cpu` run.  Returns {launches, ms_per_round, sites_per_s}."""
+    from svtrek_tpu_torch.kernels import launch_counts
+
+    keep = [i for i, s in enumerate(sites)
+            if longest_allele(s) > GRAPH_LONG_ALLELE]
+    if len(keep) < 40 or max(longest_allele(sites[i]) for i in keep) < 6000:
+        fail(f"graph xlong: {len(keep)} sites, longest allele "
+             f"{max(longest_allele(sites[i]) for i in keep)}")
+    sub = sub_vcf(vcf, keep, "graph_xlong.vcf")
+    argv = ["audt", "-b", bam, "-v", sub, "--ins-consensus", "--poa-engine",
+            "graph"]
+    reset_path_counts()
+    with graph_dp_timer() as (g1_ms, sizes):
+        got, stats, wall = run_cli([*argv, "--device", "cuda"],
+                                   "graph xlong")
+    if launch_counts["consensus_pos"] < int(stats["batches"]):
+        fail(f"graph xlong: K1 launched {launch_counts['consensus_pos']} "
+             f"times for {stats['batches']} batches")
+    dp_calls = int(stats["dp_calls"])
+    launches = check_graph_path("graph xlong audt", dp_calls,
+                                int(stats["graph_scalar"]))
+    if [l.split(", seq:")[0] for l in got] != \
+            [ins_lines[i].split(", seq:")[0] for i in keep]:
+        fail("graph xlong: the lines before ', seq:' differ from phase 7's")
+    cons_sites, cons_s = int(stats["sites"]), float(stats["time"])
+    per_round = sum(g1_ms) / dp_calls
+    big_v, big_n = max(v for v, _ in sizes), max(n for _, n in sizes)
+    print(f"[graph] xlong sites: {len(got)} lines (sites {keep[0]}-"
+          f"{keep[-1]} of the ins fixture, longest alleles "
+          f"{min(longest_allele(sites[i]) for i in keep)}-"
+          f"{max(longest_allele(sites[i]) for i in keep)} bases, "
+          f"{sum(sites[i]['reads'] for i in keep)} reads), records/s="
+          f"{len(got) / wall:.2f} wall={wall:.3f}s; consensus sites="
+          f"{cons_sites} cons_s={cons_s:.3f}s sites/s="
+          f"{cons_sites / cons_s:.3f} dp_calls={dp_calls} (DP rounds) "
+          f"graph_scalar=0; launches K1={launch_counts['consensus_pos']} "
+          f"G1={launches}, plain_calls=0; G1's wrapper {sum(g1_ms):.3f} ms "
+          f"in all (CUDA events), {per_round:.4f} ms a round; largest V "
+          f"{big_v}, largest n {big_n}; lines before ', seq:' equal to "
+          f"phase 7's", flush=True)
+    if big_n <= 4096:
+        fail(f"graph xlong: no query past 4,096 bases reached G1 ({big_n})")
+
+    k = min((k for k, i in enumerate(keep) if sites[i]["reads"] > 2 and
+             re.search(r"ref pos: \d", ins_lines[i])),
+            key=lambda k: (sites[keep[k]]["reads"] - 1) *
+            longest_allele(sites[keep[k]]) ** 2)
+    argv[4] = sub_vcf(vcf, [keep[k]], "graph_xlong_cpu.vcf")
+    cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"], "graph xlong cpu")
+    if cpu != got[k:k + 1] or "seq: NA" in got[k]:
+        fail(f"graph xlong: site {keep[k]}'s line differs between --device "
+             f"cuda and --device cpu, or has no seq: {cpu[:1]} {got[k]}")
+    print(f"[graph] xlong site {keep[k]} (insert {sites[keep[k]]['length']} "
+          f"bases, {sites[keep[k]]['reads']} reads) --device cpu: line "
+          f"equal, wall {cpu_wall:.3f}s", flush=True)
+    return {"launches": launches, "ms_per_round": per_round,
+            "sites_per_s": cons_sites / cons_s}
 
 
 def phase_graph_disc(disc_lines: list[str], cl, subset) -> int:
@@ -2421,7 +2544,7 @@ def main() -> int:
     sharded_launches, sharded_extract_launches, _ = timed(
         "multi-device", phase_multi_device, fixture(), host_lines,
         disc_fixture(), disc_lines)
-    graph_launches, long_launches, long_per_round = timed(
+    graph_launches, long_launches, long_per_round, xlong = timed(
         "graph audt", phase_graph_audt, ins_lines)
     graph_disc_launches = timed("graph disc", phase_graph_disc, disc_lines,
                                 disc_cl, disc_subset)
@@ -2513,8 +2636,12 @@ def main() -> int:
         "device_ms_before": None,
         "ring_hit_share": graph["ring_hit"],
         "long_device_ms": graph["long"]["device_ms"],
+        "xlong_device_ms": graph["xlong"]["device_ms"],
+        "n_cap_device_ms": graph["n_cap"]["device_ms"],
         "launches_long_sites": long_launches,
         "long_sites_ms_per_round": long_per_round,
+        "launches_xlong_sites": xlong["launches"],
+        "xlong_sites_ms_per_round": xlong["ms_per_round"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

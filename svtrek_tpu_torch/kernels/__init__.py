@@ -31,17 +31,16 @@ POA_STRIPS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 33)
 POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
 # G1 (csrc/poa_graph.cu): the largest graph (nodes), query and predecessor
 # count it takes (ops/poa_graph_batch.py routes at these: its V_CAP, N_CAP
-# and P_CAP); a row's cells, n+1 rounded up to
-# GRAPH_ROW_ALIGN (whole lane strips and 16-byte chunks); and the scratch of
-# one launch (H int32 and a uint16 code a cell of each pair's (V+1) rows): a
-# larger batch is split into several launches.
-GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP = 16384, 4096, 32
+# and P_CAP); a row's cells, n+1 rounded up to GRAPH_ROW_ALIGN (whole lane
+# strips and 16-byte chunks); the scratch's bytes a cell (H int32 and a
+# one-byte code, slot * 4 + move, of each pair's (V+1) rows) and of one
+# launch (a larger batch is split into several launches); and a block's
+# shared memory on the card, which holds G1's ring of recent rows
+# (`graph_ring_rows`).
+GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP = 65536, 16384, 32
 GRAPH_ROW_ALIGN = 32
-# The rows of H G1 keeps in shared memory: a predecessor within
-# GRAPH_RING - 1 rows of its node is read there (chip_smoke.py prints the
-# share of such slots).
-GRAPH_RING = 8
-GRAPH_CELL_BYTES = 6
+GRAPH_CELL_BYTES = 5
+GRAPH_SMEM_BYTES = 232_448
 GRAPH_SCRATCH_BYTES = 1 << 31
 
 _LIB = None
@@ -101,14 +100,27 @@ def load_library():
 
 def bind_graph(lib) -> None:
     """Give a library built from csrc/poa_graph.cu (or a copy of it) G1's
-    C interface; raises if its caps differ from kernels.GRAPH_*."""
+    C interface; raises if its caps or its shared-memory arithmetic
+    differ from kernels.GRAPH_* and `graph_smem_bytes`."""
     ptr = ct.c_void_p
-    lib.svtrek_poa_graph_cap.restype = ct.c_int
-    lib.svtrek_poa_graph_cap.argtypes = [ct.c_int]
+    for name, argc in (("svtrek_poa_graph_cap", 1),
+                       ("svtrek_poa_graph_ring_rows", 1),
+                       ("svtrek_poa_graph_smem", 2)):
+        fn = getattr(lib, name)
+        fn.restype = ct.c_int
+        fn.argtypes = [ct.c_int] * argc
     if tuple(lib.svtrek_poa_graph_cap(k) for k in range(5)) != (
             GRAPH_V_CAP, GRAPH_N_CAP, GRAPH_P_CAP, GRAPH_ROW_ALIGN,
-            GRAPH_RING):
+            GRAPH_CELL_BYTES):
         raise RuntimeError("csrc/poa_graph.cu and kernels.GRAPH_* differ")
+    for n in (0, 1, 1020, 4096, 6751, 6752, 13119, 13120, GRAPH_N_CAP,
+              GRAPH_N_CAP + 1):
+        for V in (16, GRAPH_V_CAP):
+            if (lib.svtrek_poa_graph_ring_rows(n),
+                    lib.svtrek_poa_graph_smem(n, V)) != (
+                    graph_ring_rows(n), graph_smem_bytes(n, V)):
+                raise RuntimeError(f"csrc/poa_graph.cu and kernels differ "
+                                   f"on G1's ring at n={n}, V={V}")
     lib.svtrek_poa_graph_dp.restype = ct.c_int
     lib.svtrek_poa_graph_dp.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ct.c_int, ct.c_int,
@@ -426,7 +438,9 @@ def poa_graph_dp_cuda(base_td: torch.Tensor, pred_rows: torch.Tensor,
     GRAPH_N_CAP], P above GRAPH_P_CAP or a bad entry raises (the pipeline
     sends the first three to the scalar route; PoaGraph makes no bad entry).
     Each launch takes pairs while their scratch stays within
-    GRAPH_SCRATCH_BYTES, and sizes its shared ring from its largest n."""
+    GRAPH_SCRATCH_BYTES (a pair alone past it takes a launch of its own),
+    and sets its shared ring's rows and size from its largest n
+    (`graph_ring_rows`)."""
     _require_cuda("poa_graph_dp_cuda", base_td)
     if base_td.dim() != 2:
         raise ValueError(f"base_td must be [B, Vmax], got "
@@ -466,7 +480,7 @@ def poa_graph_dp_cuda(base_td: torch.Tensor, pred_rows: torch.Tensor,
             total = offsets[-1]
             offsets = torch.tensor(offsets, dtype=torch.int64, device=dev)
             H = torch.empty(total, dtype=torch.int32, device=dev)
-            codes = torch.empty(total, dtype=torch.int16, device=dev)
+            codes = torch.empty(total, dtype=torch.uint8, device=dev)
             rc = lib.svtrek_poa_graph_dp(
                 base_td.data_ptr(), pred_rows.data_ptr(), npred.data_ptr(),
                 is_sink.data_ptr(), Vs.data_ptr(), qpad.data_ptr(),
@@ -499,11 +513,41 @@ def graph_row_cells(n: int) -> int:
     return (n + GRAPH_ROW_ALIGN) // GRAPH_ROW_ALIGN * GRAPH_ROW_ALIGN
 
 
+def _graph_smem(ring: int, max_n: int, V: int) -> int:
+    """G1's dynamic shared memory with a ring of ``ring`` rows: the ring
+    (int32 rows of graph_row_cells(max_n)), the stage of a tile's codes
+    (1,024 bytes), the shifted query (a byte a column) and a bit a row
+    0 .. V of the global-H flags, in 32-bit words."""
+    cells = graph_row_cells(max_n)
+    return ring * cells * 4 + 1024 + cells + (V // 32 + 1) * 4
+
+
+def graph_ring_rows(max_n: int) -> int:
+    """The rows of H in G1's shared ring for a launch whose longest query
+    is max_n bases: the largest of 8, 4 and 2 whose launch fits
+    GRAPH_SMEM_BYTES with the flags of a GRAPH_V_CAP-node graph (8 up to
+    6,751 bases, 4 up to 13,119, 2 up to GRAPH_N_CAP); 0 for max_n outside
+    [1, GRAPH_N_CAP].  A predecessor within ring - 1 rows of its node is
+    read from the ring (csrc/poa_graph.cu `ring_rows`, checked at load)."""
+    if not 1 <= max_n <= GRAPH_N_CAP:
+        return 0
+    return next((r for r in (8, 4, 2) if _graph_smem(r, max_n, GRAPH_V_CAP)
+                 <= GRAPH_SMEM_BYTES), 0)
+
+
+def graph_smem_bytes(max_n: int, Vmax: int) -> int:
+    """The dynamic shared memory of G1's launch whose longest query is
+    max_n bases over graphs of at most Vmax nodes (its flags sized at
+    min(Vmax, GRAPH_V_CAP)); 0 for max_n outside [1, GRAPH_N_CAP]."""
+    ring = graph_ring_rows(max_n)
+    return _graph_smem(ring, max_n, min(Vmax, GRAPH_V_CAP)) if ring else 0
+
+
 def poa_graph_chunks(cells: list[int], budget: int = GRAPH_SCRATCH_BYTES
                      ) -> list[tuple[int, list[int]]]:
     """G1's launches over pairs of ``cells[b]`` = (V+1) * graph_row_cells(n)
     cells each: runs of consecutive pairs whose scratch (GRAPH_CELL_BYTES a
-    cell: H int32 and a uint16 code) stays within ``budget`` (a pair alone
+    cell: H int32 and a one-byte code) stays within ``budget`` (a pair alone
     may pass it), each as (its first pair, the offsets in cells of its
     pairs' H and codes, with the run's total last)."""
     out = []

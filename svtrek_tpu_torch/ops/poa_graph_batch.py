@@ -86,8 +86,9 @@ def group_pairs(Vs: list[int], ns: list[int],
     group holds pairs of one pow2 V and one pow2 n (so no pair is padded
     to twice its V or n or more, where the floor of 16 allows), and ends
     where its DP cells, (Vmax+1) * (Nmax+1) a pair at GRAPH_CELL_BYTES
-    each (the plain DP's H and codes, G1's scratch), would pass
-    ``budget``; a pair alone may pass it.  Returns the pairs' indices."""
+    each (int32 H and a one-byte code: the plain DP's arrays and G1's
+    scratch), would pass ``budget``; a pair alone may pass it.  Returns
+    the pairs' indices."""
     def key(i):
         return _pow2(Vs[i], 16), _pow2(ns[i], 16)
 
@@ -130,9 +131,12 @@ def align_batch(graphs: list[PoaGraph], queries: list[np.ndarray], *,
 
 
 # Caps beyond which a cluster takes the scalar route: G1's own limits
-# (kernels.GRAPH_*_CAP).  svtrek_tpu keeps 2,048 nodes, 1,024 bases and
-# 32 predecessors, so that one outlier does not set its dense DP's
-# compiled shape; each route is exact, so the consensus is the same.
+# (kernels.GRAPH_*_CAP: 65,536 nodes, 16,384 bases, 32 predecessors), on
+# either device (the plain DP on the CPU holds int32 H and an int8 code
+# a cell, 5.4 GB a pair at the caps).  svtrek_tpu keeps 2,048 nodes,
+# 1,024 bases and 32 predecessors, so that one outlier does not set its
+# dense DP's compiled shape; each route is exact, so the consensus is the
+# same.
 V_CAP = GRAPH_V_CAP
 N_CAP = GRAPH_N_CAP
 P_CAP = GRAPH_P_CAP

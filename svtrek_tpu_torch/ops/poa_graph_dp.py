@@ -18,9 +18,13 @@ is NEG + NEG), a first-wins argmax over it, then the in-row insertions as
 an exclusive cummax, taken only where strictly greater; the end row is the
 first best-scoring sink; the walk runs from (end row, n) to (0, 0).  Rows
 past a pair's V are never read by its walk, so the plain version stops at
-the batch's largest V instead of Vmax, and each row's stack stops at the
-largest predecessor count of that row in the batch (the slots past it
-are NEG in every pair and never win).
+the batch's largest V instead of Vmax; a cell depends only on cells of
+its own column or to its left, and the walk starts at column n, so the
+columns stop at the batch's largest n instead of Nmax; and each row's
+stack stops at the largest predecessor count of that row in the batch
+(the slots past it are NEG in every pair and never win).  It holds int32
+H and an int8 code a cell of those rows and columns: 5.4 GB a pair at
+G1's caps (65,536 nodes, 16,384 bases).
 """
 from __future__ import annotations
 
@@ -52,14 +56,15 @@ def graph_dp_reference(base_td: torch.Tensor, pred_rows: torch.Tensor,
     dev = base_td.device
     i32 = torch.int32
     bidx = torch.arange(B, device=dev)
-    W = Nmax + 1
-    cols = torch.arange(W, dtype=i32, device=dev)
-    gapj = GAP * cols
     n = ns.to(i32)
     V = Vs.to(i32)
+    rows_needed, cols_needed = (int(x) for x in torch.stack(
+        [V.max(), n.max()]).tolist()) if B else (0, 0)
+    W = cols_needed + 1
+    cols = torch.arange(W, dtype=i32, device=dev)
+    gapj = GAP * cols
     jvalid = cols[None, :] <= n[:, None]
     negcol = torch.full((B, 1), NEG, dtype=i32, device=dev)
-    rows_needed = int(V.max()) if B else 0
     R = rows_needed + 1
 
     # Rows 0..rows_needed of H; the rows past them stay NEG in JAX's H.
@@ -73,8 +78,8 @@ def graph_dp_reference(base_td: torch.Tensor, pred_rows: torch.Tensor,
     # column, column 0 NEG (no diag move into it), as rows b * 6 + base.
     sub_by_base = torch.full((B, 6, W), NEG, dtype=i32, device=dev)
     sub_by_base[:, :, 1:] = torch.where(
-        qpad.to(i32)[:, None, :] == torch.arange(6, dtype=i32, device=dev)[
-            None, :, None], MATCH, MISMATCH)
+        qpad[:, :cols_needed].to(i32)[:, None, :] == torch.arange(
+            6, dtype=i32, device=dev)[None, :, None], MATCH, MISMATCH)
     sub_by_base = sub_by_base.view(B * 6, W)
     sub_row = (bidx * 6)[:, None] + base_td.long()          # [B, Vmax]
     # The candidate stack of a row, slot k = 2p + (0 del, 1 diag): where

@@ -3,9 +3,11 @@ svtrek_tpu, on the CPU: the plain DP `graph_dp_reference` against JAX's
 `_graph_dp_batch` over the whole padded outputs, a numpy model of kernel
 G1's decomposition (a warp per pair: column tiles with the carried warp
 scan, the first-wins stack as a max over packed keys, the shared ring of
-recent rows and the rows kept in global H, the end-row reduction, the
-uint16 codes and the walk in runs, the launch split) held to the plain DP
-at the kernel's sizes, at small ones and past the routing caps,
+recent rows, its depth from the launch's longest query, and the rows kept
+in global H, the end-row reduction, the one-byte slot codes and the walk
+in runs, the launch split) held to the plain DP at the kernel's sizes, at
+small ones, past the JAX package's routing caps and past G1's earlier
+ones (n past 4,096, V past 16,384), G1's shared memory at its caps,
 `align_batch` and
 `consensus_sequence_poa_batch` against JAX and the scalar oracle, the
 audt and disc pipelines against JAX's, and the dispatch.  Inputs come from
@@ -135,20 +137,22 @@ def test_graph_dp_reference_matches_jax(case):
 # ------------------------- a model of kernel G1 ------------------------- #
 
 def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
-    """G1's warp on pair b, over its flat H and code cells (rows of
-    `kernels.graph_row_cells(n)`): row tiles of lanes x strip columns,
-    a lane's strip maximum, the warp's log-step scan carried from tile to
-    tile, the first-wins stack, predecessors within ring - 1 rows read from
-    a ring of ``ring`` rows (slot i % ring) and older ones from H, the
-    end-row reduction, and the walk in runs of ``lanes`` guessed cells over
-    the uint16 codes ((predecessor row << 2) | move).  Returns (score,
-    matched, ins_after, walk rounds) of the pair."""
+    """G1's warp on pair b, over its flat H (int32) and code (uint8) cells
+    (rows of `kernels.graph_row_cells(n)`): row tiles of lanes x strip
+    columns, a lane's strip maximum, the warp's log-step scan carried from
+    tile to tile, the first-wins stack, predecessors within ring - 1 rows
+    read from a ring of ``ring`` rows (slot i & (ring - 1)) and older ones
+    from H, the end-row reduction, and the walk in runs of ``lanes``
+    guessed cells over the one-byte codes (slot * 4 + move), each lane
+    loading its cell's code and then the predecessor row its slot names.
+    Returns (score, matched, ins_after, walk rounds) of the pair."""
     base_td, pred_rows, npred, is_sink, Vs, qpad, ns = arrays
     V, n = int(Vs[b]), int(ns[b])
     W = n + 1
     Wg = kernels.graph_row_cells(n)
     T = lanes * strip
     scan_id = 2 * NEG
+    assert ring & (ring - 1) == 0 and ring >= 2
     # qsh[j] = q[j-1]; column 0 and the columns past n never match.
     qsh = np.full(Wg, -2, np.int64)
     qsh[1:W] = qpad[b, :n]
@@ -181,19 +185,19 @@ def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
             key = np.full(T, INT32_MIN, np.int64)
             for p in range(np_i):
                 pr = prs[p]
-                src = rows[pr % ring] if i - pr < ring \
-                    else H[pr * Wg:(pr + 1) * Wg]
+                src = rows[pr & (ring - 1)] if i - pr < ring \
+                    else H[pr * Wg:(pr + 1) * Wg].astype(np.int64)
                 cur = np.where(live, src[jl], 0)
                 keyd = cur * 64 + GAP * 64 + 63 - 2 * p
-                prev = src[t0 - 1] * 64 + GAP * 64 + 63 - 2 * p if t0 \
+                prev = int(src[t0 - 1]) * 64 + GAP * 64 + 63 - 2 * p if t0 \
                     else INT32_MIN // 2     # column 0's diag never wins
                 keyg = np.concatenate([[prev], keyd[:-1]]) + subk
                 key = np.maximum(key, np.maximum(keyd, keyg))
-            assert np.abs(key).max() < 1 << 30
+            # The keys' range at G1's caps: |value| < 2^19, a key < 2^25.
+            assert np.abs(key).max() < 1 << 25
             best = key >> 6
             rank = 63 - (key & 63)
-            cd = np.array([prs[r >> 1] << 2 | (1 - (r & 1))
-                           for r in np.minimum(rank, 2 * P - 1)])
+            cd = (rank >> 1) << 2 | (1 - (rank & 1))   # slot * 4 + move
             # Each lane's strip maximum, the warp's inclusive scan (shifts
             # by 1, 2, 4, ...), the exclusive prefix with the carry, then the
             # in-strip pass.
@@ -215,9 +219,9 @@ def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
             use_ins = left > bc
             hv = np.where(use_ins, left, bc)
             cv = np.where(use_ins, 2, cd)
-            assert cv.max() < 1 << 16
             m = live
-            rows[i % ring, j[m]] = hv[m]
+            assert cv[m].max() < 1 << 8
+            rows[i & (ring - 1), j[m]] = hv[m]
             hm = m if need[i] else m & (j == n)
             H[i * Wg + j[hm]] = hv[hm]
             code[(i - 1) * Wg + j[m]] = cv[m]
@@ -235,8 +239,10 @@ def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
     def cell_code(i, j):  # row 0: a virtual ins move
         return 2 if i == 0 else int(code[(i - 1) * Wg + j])
 
-    def nxt(i, j, c):
-        return (i if c & 3 == 2 else c >> 2, j if c & 3 == 1 else j - 1)
+    def nxt(i, j, c):  # the second load: the slot's predecessor row
+        if c & 3 == 2 or i == 0:
+            return i, j - 1
+        return int(pred_rows[b, i - 1, c >> 2]), j if c & 3 == 1 else j - 1
 
     def move(i, c, k=1):
         if c & 3 == 0:
@@ -247,11 +253,11 @@ def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
     limit = V + n + 1
     i, j = br + 1, n
     c = cell_code(i, j)
+    i0, j0 = nxt(i, j, c)
     steps = rounds = 0
     while (i > 0 or j > 0) and steps < limit:
         move(i, c)
         steps += 1
-        i0, j0 = nxt(i, j, c)
         if (i0, j0) == (0, 0) or steps >= limit:
             break
         di, dj = int(c & 3 != 2), int(c & 3 != 1)
@@ -259,8 +265,10 @@ def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
         gi, gj = i0 - di * lane, j0 - dj * lane
         ok = (gi >= 0) & (gj >= 0)
         gc = [cell_code(a, e) if k else 2 for a, e, k in zip(gi, gj, ok)]
+        nx = [nxt(a, e, g) if k else (a, e - 1)
+              for a, e, g, k in zip(gi, gj, gc, ok)]
         link = [bool(ok[k]) and (gi[k], gj[k]) != (0, 0) and k < lanes - 1
-                and nxt(gi[k], gj[k], gc[k]) == (gi[k] - di, gj[k] - dj)
+                and nx[k] == (gi[k] - di, gj[k] - dj)
                 and gi[k] - di >= 0 and gj[k] - dj >= 0
                 for k in range(lanes)]
         L = link.index(False)
@@ -271,14 +279,16 @@ def _g1_pair(arrays, b, P, Vmax, lanes, strip, ring, H, code):
             move(i0, c, nap)
         steps += nap
         i, j, c = int(gi[nap]), int(gj[nap]), gc[nap]
+        i0, j0 = nx[nap]
     return bv, matched, ins_after, rounds
 
 
-def _g1_model(arrays, *, P, Vmax, Nmax, lanes=32, strip=32, ring=8,
+def _g1_model(arrays, *, P, Vmax, Nmax, lanes=32, strip=32, ring=None,
               budget=kernels.GRAPH_SCRATCH_BYTES):
     """G1's launches as `kernels.poa_graph_dp_cuda` makes them: the pairs
     in runs under ``budget``, each run's pairs at their offsets in one flat
-    H and one flat code buffer."""
+    H and one flat code buffer, its ring of ``ring`` rows or, by default,
+    of `kernels.graph_ring_rows` of the run's longest query."""
     Vs, ns = arrays[4], arrays[6]
     B = len(Vs)
     score = np.empty(B, np.int32)
@@ -289,20 +299,24 @@ def _g1_model(arrays, *, P, Vmax, Nmax, lanes=32, strip=32, ring=8,
         [(int(v) + 1) * kernels.graph_row_cells(int(n))
          for v, n in zip(Vs, ns)], budget)
     for b0, offsets in runs:
-        H = np.zeros(offsets[-1], np.int64)
-        code = np.zeros(offsets[-1], np.int64)
-        for k in range(len(offsets) - 1):
+        count = len(offsets) - 1
+        R = ring or kernels.graph_ring_rows(int(ns[b0:b0 + count].max()))
+        H = np.zeros(offsets[-1], np.int32)
+        code = np.zeros(offsets[-1], np.uint8)
+        for k in range(count):
             lo, hi = offsets[k], offsets[k + 1]
             score[b0 + k], matched[b0 + k], ins_after[b0 + k], r = _g1_pair(
-                arrays, b0 + k, P, Vmax, lanes, strip, ring, H[lo:hi],
+                arrays, b0 + k, P, Vmax, lanes, strip, R, H[lo:hi],
                 code[lo:hi])
             rounds.append(r)
     return [score, matched, ins_after], runs, rounds
 
 
-# (lanes, columns a lane, ring rows): the kernel's own, and small ones whose
-# tiles, ring eviction and walk runs all show on the test batches.
-G1_SIZES = [(32, 32, 8), (4, 2, 2), (8, 1, 4)]
+# (lanes, columns a lane, ring rows): the kernel's own at its deepest ring,
+# small ones whose tiles, ring eviction and walk runs all show on the test
+# batches, and the kernel's own with the ring of the launch's longest query
+# (None: `kernels.graph_ring_rows`).
+G1_SIZES = [(32, 32, 8), (4, 2, 2), (8, 1, 4), (32, 32, None)]
 
 
 @pytest.mark.parametrize("lanes,strip,ring", G1_SIZES)
@@ -373,6 +387,138 @@ def test_g1_model_past_routing_caps():
         np.testing.assert_array_equal(x, w)
 
 
+def _copy_with_path(rng, seq):
+    """A mutated copy of ``seq`` (base codes of a graph's first sequence,
+    nodes 0 .. len - 1) and its add_alignment path, without a DP: 3 %
+    substitutions (ring nodes), deletions of 1-12 bases at 1 % (skip
+    edges, predecessors up to 13 rows back) and insertions at 1 %."""
+    q, path = [], []
+    k = 0
+    while k < len(seq):
+        r = rng.random()
+        if r < 0.01:
+            k += int(rng.integers(1, 13))
+            continue
+        b = int(seq[k]) if r >= 0.04 else (int(seq[k]) +
+                                           int(rng.integers(1, 4))) % 4
+        path.append((k, len(q)))
+        q.append(b)
+        if rng.random() < 0.01:
+            path.append((None, len(q)))
+            q.append(int(rng.integers(0, 4)))
+        k += 1
+    return np.array(q, np.int8), path
+
+
+def _past_g1_n_cap_pair():
+    """A query of 4,150-4,300 bases (a mutated copy of a 4,200-base
+    insert), past G1's earlier cap of 4,096, against a graph of two
+    mutated copies of the insert."""
+    from ins_fixture import mutate
+
+    rng = np.random.default_rng(41)
+    truth = rng.integers(0, 4, 4200)
+    first = mutate(rng, truth).astype(np.int8)
+    g = PoaGraph()
+    g.add_first(first)
+    g.add_alignment(*_copy_with_path(rng, first))
+    q = mutate(rng, truth).astype(np.int8)
+    assert 4150 <= len(q) <= 4300 and g.max_indegree() >= 2
+    return g, q
+
+
+def _past_g1_v_cap_pair():
+    """A graph of more than 16,384 nodes, G1's earlier cap: two alleles of
+    8,300 bases (the second all insertions, its source 8,301 rows after
+    the virtual start), substitution bubbles and skip edges on the first;
+    and a query of 48 bases, a mutated copy of the second allele's end."""
+    from ins_fixture import mutate
+
+    rng = np.random.default_rng(43)
+    a, other = (rng.integers(0, 4, 8300).astype(np.int8) for _ in range(2))
+    g = PoaGraph()
+    g.add_first(a)
+    g.add_alignment(*_copy_with_path(rng, a))
+    g.add_alignment(other, [(None, j) for j in range(len(other))])
+    q = mutate(rng, other[-46:]).astype(np.int8)
+    assert len(g.base) > 16384 and 32 <= len(q) <= 64
+    return g, q
+
+
+@pytest.mark.parametrize("pair", ["n_past_4096", "v_past_16384"])
+def test_g1_past_its_earlier_caps(pair):
+    """A pair past G1's earlier caps (n 4,096, V 16,384), within its own:
+    the plain DP equals JAX's `_graph_dp_batch` (score, matched,
+    ins_after), its path JAX's `align_batch`'s, and G1's model at the
+    kernel's sizes, its ring from the query's length, equals the plain
+    DP."""
+    g, q = _past_g1_n_cap_pair() if pair == "n_past_4096" \
+        else _past_g1_v_cap_pair()
+    assert len(g.base) <= kernels.GRAPH_V_CAP and \
+        len(q) <= kernels.GRAPH_N_CAP
+    assert len(q) > 4096 if pair == "n_past_4096" else len(g.base) > 16384
+    arrays, shape = _pack([g], [q])
+    want = _plain(arrays, shape)
+    for x, y in zip(want, jgb._graph_dp_batch(*arrays, **shape)):
+        np.testing.assert_array_equal(x, np.asarray(y))
+    paths, scores = tgb.align_batch([g], [q])
+    jpaths, jscores = jgb.align_batch([g], [q])
+    assert paths == jpaths and int(scores[0]) == int(jscores[0]) == \
+        int(want[0][0])
+    got, runs, rounds = _g1_model(arrays, **shape)
+    assert len(runs) == 1 and rounds[0] < (len(g.base) + len(q)) // 4
+    for x, w in zip(got, want):
+        np.testing.assert_array_equal(x, w)
+
+
+def _long_cluster():
+    """Three mutated copies of a 4,200-base insert, past G1's earlier
+    cap of 4,096 bases."""
+    from tests.test_poa_graph import _mutate
+
+    rng = random.Random(47)
+    truth = _rand_seq(rng, 4200)
+    cluster = [_mutate(rng, truth, 0.03) for _ in range(3)]
+    assert all(4096 < len(s) <= tgb.N_CAP for s in cluster)
+    return cluster
+
+
+def _jax_at_port_caps(monkeypatch):
+    """The JAX package's graph caps raised to the port's (set on the
+    module, its source unchanged), so that it runs its own exact DP
+    where it would take its scalar route."""
+    monkeypatch.setattr(jgb, "N_CAP", tgb.N_CAP)
+    monkeypatch.setattr(jgb, "V_CAP", tgb.V_CAP)
+
+
+def test_consensus_past_g1_n_cap_batches(monkeypatch):
+    """A cluster of 3 members of about 4,200 bases: the port aligns it on
+    the batched DP (graph_scalar 0), to the consensus of the JAX package
+    running its own DP at the port's caps."""
+    cluster = _long_cluster()
+    counts = {}
+    got = tgb.consensus_sequence_poa_batch([cluster], counts=counts)
+    assert counts == {"dp_calls": 2, "graph_scalar": 0}
+    _jax_at_port_caps(monkeypatch)
+    assert got == jgb.consensus_sequence_poa_batch([cluster])
+
+
+def test_run_audit_graph_past_g1_n_cap_matches_jax(tmp_path, monkeypatch):
+    """`run_audit` with the graph engine on a BAM with one insert of 4,200
+    bases on 3 reads (mutated): the port's lines on the CPU, with no
+    cluster on the scalar route, equal the JAX package's at the port's
+    caps."""
+    insert = _rand_seq(random.Random(53), 4200)
+    bam, vcf = build_ins_site(str(tmp_path), insert, depth=3, noisy=True,
+                              seed=53)
+    _jax_at_port_caps(monkeypatch)
+    want, got, err = _audit_both(bam, vcf)
+    assert got == want and len(got) == 1 and "seq: NA" not in got[0]
+    assert "graph_scalar=0" in err
+    seq = got[0].split("seq: ")[1]
+    assert len(seq) > 4096
+
+
 def test_routing_caps_are_the_jax_packages():
     """The port routes at G1's own limits; the JAX package keeps its
     caps of 2,048 nodes, 1,024 bases and 32 predecessors (read here, not
@@ -383,9 +529,10 @@ def test_routing_caps_are_the_jax_packages():
     assert jgb.V_CAP <= tgb.V_CAP and jgb.N_CAP <= tgb.N_CAP and \
         jgb.P_CAP <= tgb.P_CAP
     assert (kernels.GRAPH_V_CAP, kernels.GRAPH_N_CAP,
-            kernels.GRAPH_P_CAP) == (16384, 4096, 32)
-    # A code holds the predecessor row in 14 bits.
-    assert (kernels.GRAPH_V_CAP - 1) << 2 | 3 < 1 << 16
+            kernels.GRAPH_P_CAP) == (65536, 16384, 32)
+    # A code holds the predecessor slot and the move in one byte, the
+    # plain DP's int8 code (slot * 4 + move); it does not bound V.
+    assert (kernels.GRAPH_P_CAP - 1) * 4 + 2 < 1 << 7
 
 
 @pytest.mark.parametrize("edit,count", [
@@ -419,9 +566,43 @@ def test_launch_chunks():
     assert runs == [(0, [0, 10, 30, 60]), (3, [0, 40, 45]), (5, [0, 1000]),
                     (6, [0, 1, 2])]
     assert kernels.poa_graph_chunks([], 100) == []
-    assert kernels.GRAPH_CELL_BYTES == 6
-    assert [kernels.graph_row_cells(n) for n in (1, 15, 16, 1020, 4096)] == \
-        [32, 32, 32, 1024, 4128]
+    assert kernels.GRAPH_CELL_BYTES == 5
+    assert [kernels.graph_row_cells(n) for n in
+            (1, 15, 16, 1020, 4096, 16384)] == \
+        [32, 32, 32, 1024, 4128, 16416]
+    # A pair alone past the budget: 5.4 GB at G1's caps, a launch of its
+    # own between two small ones.
+    cap = (kernels.GRAPH_V_CAP + 1) * kernels.graph_row_cells(
+        kernels.GRAPH_N_CAP)
+    assert cap * kernels.GRAPH_CELL_BYTES > 5.3e9
+    assert kernels.poa_graph_chunks([10, cap, 10]) == [
+        (0, [0, 10]), (1, [0, cap]), (2, [0, 10])]
+
+
+# (longest query of a launch, G1's ring rows there): 8 rows up to 6,751
+# bases, 4 up to 13,119, 2 up to the cap.
+SMEM_CASES = [(1, 8), (1020, 8), (4096, 8), (6900, 4), (13800, 2),
+              (16384, 2)]
+
+
+@pytest.mark.parametrize("n,ring", SMEM_CASES)
+def test_g1_shared_memory_fits_at_the_caps(n, ring):
+    """G1's launch at a longest query of n bases, over graphs of
+    GRAPH_V_CAP nodes: its shared memory (the ring, the code stage, the
+    shifted query, a flag bit a row) fits a Hopper block's 232,448 bytes,
+    and its ring is the deepest of 8, 4 and 2 rows that fits."""
+    assert kernels.GRAPH_SMEM_BYTES == 232_448
+    assert kernels.graph_ring_rows(n) == ring
+    cells = kernels.graph_row_cells(n)
+    flags = (kernels.GRAPH_V_CAP // 32 + 1) * 4
+    smem = kernels.graph_smem_bytes(n, kernels.GRAPH_V_CAP)
+    assert smem == ring * cells * 4 + 1024 + cells + flags
+    assert smem <= kernels.GRAPH_SMEM_BYTES
+    if ring < 8:   # twice the rows would not fit
+        assert 2 * ring * cells * 4 + 1024 + cells + flags > \
+            kernels.GRAPH_SMEM_BYTES
+    assert kernels.graph_smem_bytes(n, 16) < smem
+    assert kernels.graph_ring_rows(kernels.GRAPH_N_CAP + 1) == 0
 
 
 # ----------------------- align_batch and consensus ----------------------- #

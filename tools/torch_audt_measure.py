@@ -2,7 +2,7 @@
 """End-to-end split of the PyTorch port's `audt` and `disc` runs on one
 card.
 
-    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--graph [--long]] [--trace-dir DIR]
+    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--graph [--long | --xlong]] [--trace-dir DIR]
 
 On chip_smoke.py's 5,000-record fixture (built there, or reused from the
 temp dir), runs `python -m svtrek_tpu_torch.cli audt --verbose` in this
@@ -16,7 +16,8 @@ fixture instead, with `--ins-consensus --device cuda` twice (a
 `--graph` either of those runs the graph POA engine (`--poa-engine
 graph`), the ins-consensus runs on chip_smoke.py's graph sub-VCF (the
 first 400 sites whose insert is at most 700 bases; with `--long`, on the
-first 64 sites of its long-site run, inserts past 1,024 bases).  A last
+first 64 sites of its long-site run, inserts past 1,024 bases; with
+`--xlong`, on its xlong sites, longest alleles past 4,000 bases).  A last
 run under
 `--trace-dir` writes a torch.profiler trace and prints its summary:
 the traced window, the events and time per category, the device events by
@@ -127,6 +128,8 @@ def main() -> None:
                          "engine")
     ap.add_argument("--long", action="store_true",
                     help="with --ins-consensus --graph: the long sites")
+    ap.add_argument("--xlong", action="store_true",
+                    help="with --ins-consensus --graph: the xlong sites")
     args = ap.parse_args()
     engine = ["--poa-engine", "graph"] if args.graph else []
     print(subprocess.run(
@@ -143,6 +146,12 @@ def main() -> None:
                 vcf, [i for i, s in enumerate(sites)
                       if chip_smoke.long_site(s)][:chip_smoke.GRAPH_LONG_SITES],
                 "graph_long_measure.vcf")
+        elif args.graph and args.xlong:
+            vcf = chip_smoke.sub_vcf(
+                vcf, [i for i, s in enumerate(sites)
+                      if chip_smoke.longest_allele(s) >
+                      chip_smoke.GRAPH_LONG_ALLELE],
+                "graph_xlong_measure.vcf")
         elif args.graph:
             vcf = chip_smoke.graph_sub_vcf(vcf, sites,
                                            chip_smoke.GRAPH_SITES)[0]

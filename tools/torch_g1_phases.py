@@ -75,8 +75,8 @@ WALK = [
     ("  int steps = 0;\n", "  int steps = 0;\n  int rounds = 0;\n"),
     ("    const int nap = min(L, limit - steps);",
      "    const int nap = min(L, limit - steps);\n    ++rounds;"),
-    ("    c = __shfl_sync(kFull, gc, nap);\n  }\n",
-     "    c = __shfl_sync(kFull, gc, nap);\n  }\n"
+    ("    j0 = __shfl_sync(kFull, nj, nap);\n  }\n",
+     "    j0 = __shfl_sync(kFull, nj, nap);\n  }\n"
      "  const long long t_end = clock64();\n"
      "  if (lane == 0) {\n"
      "    irow[Vmax] = static_cast<int>(t_dp - t_start);\n"

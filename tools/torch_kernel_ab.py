@@ -11,28 +11,36 @@ DIR holds the earlier design's sources, any of:
   `svtrek_poa_traceback(ptr, offsets, qpad, N, ms, ns, bands, B, M, cols,
   ins, stream)`, whose caller fills cols with -1 and ins with 0 (at
   commit 13c3105);
-- `poa_graph.cu`, G1's block-per-pair design (at commit c6ff5e5):
-  `svtrek_poa_graph_dp(base_td, pred_rows, npred, is_sink, Vs, qpad, ns,
-  offsets, b0, count, P, Vmax, Nmax, H, codes, score, matched, ins_after,
-  stream)` over (V+1)(n+1) cells a pair, H int32 and an int8 code a cell.
+- `poa_graph.cu`, an earlier design of G1, either
+  - the block-per-pair design (at commit c6ff5e5): `svtrek_poa_graph_dp(
+    base_td, pred_rows, npred, is_sink, Vs, qpad, ns, offsets, b0, count,
+    P, Vmax, Nmax, H, codes, score, matched, ins_after, stream)` over
+    (V+1)(n+1) cells a pair, H int32 and an int8 code a cell; or
+  - the warp-per-pair design with uint16 row codes and a fixed 8-row
+    ring (at commit bab3b47; told apart by its `svtrek_poa_graph_cap`):
+    the same arguments with `max_n` after Nmax, over (V+1) x
+    `kernels.graph_row_cells(n)` cells a pair, H int32 and a uint16 code
+    a cell.
 For example, from a git checkout (into a gitignored directory, since the
 card's copy of the repo has no .git):
 
     mkdir -p scratch_checkout/before
-    git show c6ff5e5:svtrek_tpu_torch/csrc/poa_graph.cu \
+    git show bab3b47:svtrek_tpu_torch/csrc/poa_graph.cu \
         > scratch_checkout/before/poa_graph.cu
     python tools/torch_kernel_ab.py scratch_checkout/before
 
 The sources found are built with nvcc into a library of their own in a
 temporary directory.  Both designs run on chip_smoke.py's inputs: K1 at
 every `KERNEL_SHAPES` row, K3 on the `bench` and `flush` pair batches (the
-pointers from this checkout's K2), G1 on phase 13's `ins_mix` (256 pairs).
+pointers from this checkout's K2), G1 on phase 13's `ins_mix` (256 pairs)
+and, against the warp design, on `long` (V 4,283 and 8,351, n 4,096).
 For each it prints the kernel's time alone (torch.profiler) and per call
 (CUDA events of what each design's wrapper does: the new wrapper; for the
 earlier K1 the same checks and its launch, for the earlier K3 the output
-fills, the range checks' host read and its launch, for the earlier G1 PR
-7's wrapper: the range checks' host read, the offsets' copy, the scratch,
-the output fills and its launch), whether the two designs' outputs are
+fills, the range checks' host read and its launch, for the earlier G1 its
+wrapper: the range checks' host read, the launch split of the warp design
+at its 6 bytes a cell, the offsets' copy, the scratch, the output fills and
+its launches), whether the two designs' outputs are
 equal, and for K3 the longest walk's steps and ns a step.  The two designs
 are timed in turns (new, earlier, earlier, new), and each prints both of
 its readings.  It ends with the card's name and power limit.  It needs a
@@ -90,9 +98,11 @@ def build_before(src_dir: str, out_dir: str):
         lib.svtrek_poa_traceback.argtypes = [p, p, p, ct.c_int, p, p, p,
                                              ct.c_int, ct.c_int, p, p, p]
     if "poa_graph.cu" in found:
+        # The warp design's entry point takes max_n after Nmax.
+        warp = hasattr(lib, "svtrek_poa_graph_cap")
         lib.svtrek_poa_graph_dp.restype = ct.c_int
-        lib.svtrek_poa_graph_dp.argtypes = [p] * 8 + [ct.c_int] * 5 + \
-            [p] * 6
+        lib.svtrek_poa_graph_dp.argtypes = [p] * 8 + \
+            [ct.c_int] * (6 if warp else 5) + [p] * 6
     return lib, found
 
 
@@ -208,13 +218,23 @@ def k3(lib) -> None:
 
 
 def g1(lib) -> None:
+    # The warp design (bab3b47) takes `long` too; the block design ins_mix.
+    warp = hasattr(lib, "svtrek_poa_graph_cap")
+    names = ("ins_mix", "long") if warp else ("ins_mix",)
+    rng = np.random.default_rng(2029)  # chip_smoke.phase_graph_kernel's
+    for name, graphs, queries in smoke.graph_batches(rng):
+        if name in names:
+            g1_batch(lib, warp, name, graphs, queries)
+        if name == names[-1]:
+            break
+
+
+def g1_batch(lib, warp: bool, name: str, graphs, queries) -> None:
     import torch
 
-    from svtrek_tpu_torch.kernels import poa_graph_dp_cuda
+    from svtrek_tpu_torch import kernels
     from svtrek_tpu_torch.ops.poa_graph_batch import pack_pairs
 
-    rng = np.random.default_rng(2029)  # chip_smoke.phase_graph_kernel's
-    _, graphs, queries = next(iter(smoke.graph_batches(rng)))
     _, arrays, shape = pack_pairs(graphs, queries)
     args = [torch.from_numpy(a).cuda() for a in arrays]
     base_td, pred_rows, npred, is_sink, Vs, qpad, ns = args
@@ -222,38 +242,48 @@ def g1(lib) -> None:
     B = len(arrays[4])
 
     def new():
-        return poa_graph_dp_cuda(*args, **shape)
+        return kernels.poa_graph_dp_cuda(*args, **shape)
 
-    def before():  # its wrapper at c6ff5e5: one launch (565 MB scratch)
+    def before():  # its wrapper at c6ff5e5 (one launch) or bab3b47
         dev = base_td.device
         score = torch.empty(B, dtype=torch.int32, device=dev)
         matched = torch.zeros((B, Vmax), dtype=torch.int8, device=dev)
         ins_after = torch.zeros((B, Vmax + 1), dtype=torch.int32, device=dev)
-        row = torch.arange(Vmax, dtype=torch.int32, device=dev)
-        live = row[None, :] < Vs[:, None]
-        bad = ((pred_rows < 0) | (pred_rows > row[None, :, None])) & \
-            live[:, :, None]
-        host = torch.cat([Vs.long(), ns.long(),
-                          bad.sum().reshape(1)]).tolist()
-        cells = [(v + 1) * (n + 1) for v, n in zip(host[:B], host[B:2 * B])]
-        offsets = torch.tensor(np.concatenate([[0], np.cumsum(cells)]),
-                               dtype=torch.int64, device=dev)
-        H = torch.empty(sum(cells), dtype=torch.int32, device=dev)
-        codes = torch.empty(sum(cells), dtype=torch.int8, device=dev)
-        check(lib.svtrek_poa_graph_dp(
-            base_td.data_ptr(), pred_rows.data_ptr(), npred.data_ptr(),
-            is_sink.data_ptr(), Vs.data_ptr(), qpad.data_ptr(),
-            ns.data_ptr(), offsets.data_ptr(), 0, B, P, Vmax, Nmax,
-            H.data_ptr(), codes.data_ptr(), score.data_ptr(),
-            matched.data_ptr(), ins_after.data_ptr(),
-            torch.cuda.current_stream().cuda_stream))
+        host = torch.cat([Vs.long(), ns.long(), kernels.graph_bad_entries(
+            pred_rows, npred, Vs).reshape(1)]).tolist()
+        v_h, n_h = host[:B], host[B:2 * B]
+        stream = torch.cuda.current_stream().cuda_stream
+        if not warp:
+            cells = [(v + 1) * (n + 1) for v, n in zip(v_h, n_h)]
+            runs = [(0, np.concatenate([[0], np.cumsum(cells)]).tolist())]
+        else:  # 6 bytes a cell: the same launch split
+            runs = kernels.poa_graph_chunks(
+                [(v + 1) * kernels.graph_row_cells(n)
+                 for v, n in zip(v_h, n_h)],
+                kernels.GRAPH_SCRATCH_BYTES * kernels.GRAPH_CELL_BYTES // 6)
+        for b0, offsets in runs:
+            count = len(offsets) - 1
+            total = offsets[-1]
+            offsets = torch.tensor(offsets, dtype=torch.int64, device=dev)
+            H = torch.empty(total, dtype=torch.int32, device=dev)
+            codes = torch.empty(total, dtype=torch.int16 if warp
+                                else torch.int8, device=dev)
+            sizes = (P, Vmax, Nmax, max(n_h[b0:b0 + count])) if warp \
+                else (P, Vmax, Nmax)
+            check(lib.svtrek_poa_graph_dp(
+                base_td.data_ptr(), pred_rows.data_ptr(), npred.data_ptr(),
+                is_sink.data_ptr(), Vs.data_ptr(), qpad.data_ptr(),
+                ns.data_ptr(), offsets.data_ptr(), b0, count, *sizes,
+                H.data_ptr(), codes.data_ptr(), score.data_ptr(),
+                matched.data_ptr(), ins_after.data_ptr(), stream))
         return score, matched, ins_after
 
     a, b = new(), before()
     torch.cuda.synchronize()
     equal = all(torch.equal(x, y) for x, y in zip(a, b))
     t = in_turns(new, before, "poa_graph_dp", 3, 5)
-    print(f"[ab] G1 ins_mix: B={B}, V {int(arrays[4].max())} and n "
+    print(f"[ab] G1 {name} ({'bab3b47 warp' if warp else 'c6ff5e5 block'} "
+          f"design before): B={B}, V {int(arrays[4].max())} and n "
           f"{int(arrays[6].max())} at most; {readings(t, 'new')}; "
           f"{readings(t, 'before')}; equal={equal}", flush=True)
 
