@@ -19,21 +19,26 @@ last line:
    CUDA-event times of both, and at every shape the profiler's time of K1
    alone beside a launch floor (one int32 elementwise op on a [B] tensor,
    which the port never calls);
-4. POA kernels: K2 (banded DP pointers: its strip kernel and its chunked
-   kernel) and K3 (traceback) against their plain PyTorch versions on the
-   card, on seeded pair batches (the bench's 256-pair call, 4,096 short
-   pairs, a flush-like mix of insert lengths, bands of 256 and 512,
-   degenerate pairs, the query that overruns its target by 37 bases, bands
-   of 513-2,048 that take both K2 kernels, and `longrun`: K3's left runs
-   longer than its window and long up runs): pointers, cols and ins
-   exactly equal, K2 and K3 on one plan (`dp_cols`'s route) too;
-   CUDA-event times of both, of K2's launch plan alone, of K2's replaced
-   design (the chunked kernel over every pair, through its C entry point),
-   of K2 + K3 on one plan, and the bounds of K2 and K3, the profiler's
-   time of the kernels alone, without the wrappers' host work, and K3's
-   longest walk in steps and ns a step; on `wide2k` the profiler's time of
-   K2's chunked kernel alone on its pairs (bands above 527, which the
-   main path sends it) and its bound;
+4. POA kernels: K2 (banded DP pointers: its strip kernel, a warp a pair,
+   and its wide kernel, eight warps a pair for bands above 527) and K3
+   (traceback) against their plain PyTorch versions on the card, on seeded
+   pair batches (the bench's 256-pair call, 4,096 short pairs, a
+   flush-like mix of insert lengths, bands of 256 and 512, degenerate
+   pairs, the query that overruns its target by 37 bases, `wide2k`: bands
+   of 513-2,048 that take both K2 kernels, `longrun`: K3's left runs
+   longer than its window and long up runs, and `wide_main`: the wide
+   kernel's pairs as the spread sites of phase 16 make them, members
+   540-700 bases longer or shorter than a seed of 3,000-3,400, and a few
+   at bands 1,024-2,048 with n past 5,000): pointers (every byte of every
+   pair's band), cols and ins exactly equal, K2 and K3 on one plan
+   (`dp_cols`'s route) too; CUDA-event times of both, of K2's launch plan
+   alone, of K2 + K3 on one plan, and the bounds of K2 and K3, the
+   profiler's time of the kernels alone, without the wrappers' host work,
+   and K3's longest walk in steps and ns a step; on `wide2k`, `longrun`
+   and `wide_main` the profiler's time of K2's wide kernel alone on its
+   pairs, their bound and the cycles a row of the longest of them (at
+   1.98 GHz), and on `wide_main` the wrapper's and the plain version's
+   CUDA-event times;
 5. step probe: K4 against its plain version on the default input of
    tools/torch_step_overhead.py (1280 x 256 x 256) and on int8 over its
    whole range at 1000 x 100 x WP, with WP and base alignments that take
@@ -158,14 +163,28 @@ last line:
    (NCCL at world size 1), lines equal to phase 6's, and two gloo
    processes on cuda:0 (this script with `--dist-worker`), 2 shards
    each, whose assembled consensus and disc rows equal the dense steps'
-   and whose `init_distributed` returns 4.
+   and whose `init_distributed` returns 4;
+16. spread-length sites (run after phase 7): `audt --ins-consensus
+   --device cuda` on the 40 sites of tools/ins_fixture.py's
+   `build_spread_fixture` (a synthetic stress shape for K2's wide class:
+   tandem-repeat inserts whose 12-20 reads spread evenly over +-20 % of a
+   median of 3,000-3,400 bases, so that the median seed meets members
+   600-680 bases away): K2's wide kernel must have launched, `band_wide`
+   and `band_wide_k2` (the pairs past 527) be above 0, K1 once per batch,
+   K3 once per DP batch, the plain paths never, `band_scalar` degenerate
+   pairs only and the copy back pinned; K2's CUDA-event time a DP batch;
+   the lines before `, seq:` byte-identical to tools/audt_scalar.py; and
+   on the first 24 sites, `--device cuda` and `--device cpu` runs whose
+   lines equal each other and the 40-site run's, with the same band
+   counts.
 
 Every phase prints its wall time.  The line before the last two is
 {"kernels": [...]}: each kernel's launches on its path (K1 the
 ins-consensus audt, in `launches_extract_device` the device-extract
 audt, and in `launches_sharded` / `launches_sharded_extract` phase 15's
-4-shard host-extract and device-extract audt; K2 and K3 disc, K4 the probe, G1 the graph audt and in
-`launches_disc` the graph disc), its
+4-shard host-extract and device-extract audt; K2's strip kernel and K3
+disc, K2's wide kernel the spread-site audt, K4 the probe, G1 the graph
+audt and in `launches_disc` the graph disc), its
 largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
 over 3.35 TB/s and its int32 operations over 16.7 Tops/s), the one library
@@ -173,12 +192,12 @@ call's time where one computes the same function (`library_ms`, K4's
 torch.sum; none computes G1's; G1 also `ring_hit_share`,
 `long_device_ms`, `xlong_device_ms`, `n_cap_device_ms`, and on the long
 and xlong sites `launches_long_sites`, `long_sites_ms_per_round`,
-`launches_xlong_sites` and `xlong_sites_ms_per_round`; K2 also its
-chunked kernel's time alone on
-`wide2k` and its bound) and the time of the design this one
-replaced where it is still live code (`ms_before`, K2's chunked kernel; null for the others, whose
-replaced designs left the tree: tools/torch_kernel_ab.py times K1's,
-K3's and G1's beside the new ones).  Those are CUDA-event times of one wrapper
+`launches_xlong_sites` and `xlong_sites_ms_per_round`; K2's wide kernel
+its times on `wide_main`, `cycles_per_row` of its longest pair there, on
+`wide2k` and on `longrun`, and `spread_k2_ms_per_batch`, phase 16's K2
+time a DP batch) and `ms_before`, null: the replaced designs left the
+tree, and tools/torch_kernel_ab.py times K1's, K2's, K3's and G1's
+beside the new ones.  Those are CUDA-event times of one wrapper
 call, which also hold the host's work inside it (the K2/K3 plan, the
 ctypes call); `device_ms` and `device_ms_before` are torch.profiler's
 time of the kernels alone, and K1's `launch_floor_ms` the profiler's time
@@ -304,6 +323,16 @@ GRAPH_SITES, GRAPH_MAX_LEN, GRAPH_CPU_SITES = 400, 700, 40
 # xlong run's.
 JAX_V_CAP, JAX_N_CAP, JAX_P_CAP = 2048, 1024, 32
 GRAPH_LONG_SITES, GRAPH_LONG_ALLELE, GRAPH_LONG_CPU_SITES = 64, 4000, 1
+# K2's `wide_main` batch: pairs of the spread sites' bands (528-700) and
+# pairs at bands 1,024-2,048; the spread-site run: sites, seed of
+# tools/ins_fixture.py's build_spread_fixture (its default 40), and the
+# first SPREAD_CPU_SITES of them also run on --device cpu (the plain DP
+# takes about 4 s a site there).
+WIDE_MAIN_PAIRS = (96, 6)
+SPREAD_SITES, SPREAD_SEED, SPREAD_CPU_SITES = 40, 0, 24
+# The SM clock (GHz) at which K2's alone times become cycles a row: the
+# boost clock of the bound's int32 rate below.
+SM_GHZ = 1.98
 # Rows that lead each kernel batch: n = 0, n < min_count, values near
 # INT32_MAX and INT32_MIN (where pos +- 25 and pos - loc wrap in int32, as
 # in the JAX program, and the scalar consensus, which does not wrap, may
@@ -559,6 +588,26 @@ def poa_batches(rng):
         qs.append(mutate(rng, t[start:start + n])[:n] if n <= m else
                   np.insert(t, m // 2, rand(n - m)))
     yield "longrun", ts, qs, np.array([bd for _, _, bd in shapes])
+    # The wide kernel's main-path pairs, as the spread sites make them:
+    # WIDE_MAIN_PAIRS[0] members 528-700 bases longer or shorter than a
+    # median seed of 3,000-3,400 bases, and WIDE_MAIN_PAIRS[1] at bands
+    # 1,024-2,048 (a member up to 2,048 bases longer than a seed of up to
+    # 4,000: n up to about 6,000).
+    ts, qs = [], []
+    for near in (True,) * WIDE_MAIN_PAIRS[0] + (False,) * WIDE_MAIN_PAIRS[1]:
+        m = int(rng.integers(3000, 3401) if near else rng.integers(3000,
+                                                                   4001))
+        # (d clear of 527 and 2,048 by more than the mutations' length
+        # change)
+        d = int(rng.integers(540, 701) if near else rng.integers(1016, 2031))
+        t = rand(m)
+        q = mutate(rng, t)
+        at = int(rng.integers(0, m - d)) if near and rng.random() < 0.5 \
+            else -1
+        qs.append(np.delete(q, np.s_[at:at + d]) if at >= 0 else
+                  np.insert(q, len(q) // 2, rand(d)))
+        ts.append(t)
+    yield "wide_main", ts, qs, 64
 
 
 def poa_bounds(ms, ns, bands, M, N, cols=None):
@@ -585,37 +634,36 @@ def poa_bounds(ms, ns, bands, M, N, cols=None):
     return k2, k3
 
 
-def launch_failed(name: str, lib, rc: int) -> None:
-    if rc != 0:
-        fail(f"{name} launch failed: "
-             f"{lib.svtrek_cuda_error_string(rc).decode()} ({rc})")
+def wide_times(k2, name: str, ms, ns, bands, M: int, N: int) -> dict:
+    """K2's wide kernel on a batch's pairs past POA_STRIP_MAX_BAND: its
+    profiler time alone in k2() (one wrapper call), their bound, the
+    longest of them (n * (2*band+1), the first of its work list), and the
+    cycles a row of that pair's chain at SM_GHZ, if the kernel's time is
+    that chain's."""
+    from svtrek_tpu_torch.kernels import POA_STRIP_MAX_BAND
 
-
-def k2_before(tpad, ms, qpad, ns, bands, max_band: int):
-    """K2's replaced design: its chunked kernel over every pair in input
-    order, in one launch, through the library's C entry point (the port's
-    wrapper gives it only the pairs whose band is above
-    POA_STRIP_MAX_BAND).  Returns the pointers."""
-    import torch
-
-    from svtrek_tpu_torch.kernels import load_library, poa_ptr_offsets
-
-    (B, M), dev = tpad.shape, tpad.device
-    offsets = poa_ptr_offsets(ns, bands)
-    ptr = torch.empty(int(offsets[-1]), dtype=torch.int8, device=dev)
-    order = torch.arange(B, dtype=torch.int32, device=dev)
-    lib = load_library()
-    launch_failed("K2's chunked kernel", lib, lib.svtrek_poa_dp_ptr_chunked(
-        tpad.data_ptr(), M, ms.data_ptr(), qpad.data_ptr(), qpad.shape[1],
-        ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(), ptr.data_ptr(),
-        order.data_ptr(), B, max_band,
-        torch.cuda.current_stream(dev).cuda_stream))
-    return ptr
+    wide = bands > POA_STRIP_MAX_BAND
+    far = int(np.argmax(np.where(wide, ns.astype(np.int64)
+                                 * (2 * bands.astype(np.int64) + 1), -1)))
+    alone = device_ms(k2, "poa_dp_ptr_wide")
+    t = {"wide_device": alone, "wide_pairs": int(wide.sum()),
+         "wide_bound": poa_bounds(ms[wide], ns[wide], bands[wide], M, N)[0],
+         "far": (int(ms[far]), int(ns[far]), int(bands[far])),
+         "cycles_per_row": None if alone is None else
+         alone * SM_GHZ * 1e6 / max(int(ns[far]), 1)}
+    t["line"] = (
+        f"; K2's wide kernel alone (profiler) {fmt_ms(alone)} on its "
+        f"{t['wide_pairs']} pairs, bound {t['wide_bound'][0]:.6f} ms "
+        f"({t['wide_bound'][1]}); its longest pair (m, n, band) "
+        f"{t['far']}: " + ("not measured" if alone is None else
+                           f"{t['cycles_per_row']:.1f} cycles a row at "
+                           f"{SM_GHZ} GHz") + f" ({name})")
+    return t
 
 
 def phase_poa_kernels():
-    """K2 and K3 against their plain versions on the card, and K2's
-    replaced design (its chunked kernel over every pair) beside it."""
+    """K2 (its strip and wide kernels) and K3 against their plain versions
+    on the card, and their times."""
     import torch
 
     from svtrek_tpu_torch.kernels import (
@@ -628,7 +676,7 @@ def phase_poa_kernels():
     from torch_step_overhead import cuda_ms
 
     rng = np.random.default_rng(2027)
-    err = {"dp": 0, "tb": 0}
+    err = {"dp": 0, "tb": 0, "wide": 0}
     times = {}
     for name, ts, qs, band in poa_batches(rng):
         B = len(ts)
@@ -644,14 +692,16 @@ def phase_poa_kernels():
                 for a in (tpad, ms, qpad, ns, bands)]
         _, m_d, q_d, n_d, b_d = args
         W = int(bands.max())
-        M = tpad.shape[1]
+        M, N = tpad.shape[1], qpad.shape[1]
 
         def plain_dp():
             return pointers_by_pair(dp_ptr_reference(*args, W=W), n_d, b_d,
                                     W=W)
 
-        ptr, offsets = poa_dp_ptr_cuda(*args)
-        before = k2_before(*args, W)
+        def k2():
+            return poa_dp_ptr_cuda(*args)
+
+        ptr, offsets = k2()
         want_ptr = plain_dp()
         cols, ins = poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d,
                                        M=M)
@@ -672,20 +722,21 @@ def phase_poa_kernels():
         if not torch.equal(ptr, want_ptr):
             fail(f"K2 pointers differ from the plain version on {name}: "
                  f"max_abs_err={e_dp}")
-        if not torch.equal(before, want_ptr):
-            fail(f"K2's chunked kernel differs from the plain version on "
-                 f"{name}")
         if not (torch.equal(cols, want_cols) and torch.equal(ins, want_ins)):
             fail(f"K3 differs from the plain version on {name}: "
                  f"max_abs_err={e_tb}")
         n_wide = int((bands > POA_STRIP_MAX_BAND).sum())
+        if n_wide:
+            err["wide"] = max(err["wide"], e_dp)
         if name == "wide2k" and not 0 < n_wide < B:
             fail(f"wide2k takes one of K2's kernels only: {n_wide} of {B} "
                  f"pairs above band {POA_STRIP_MAX_BAND}")
+        if name == "wide_main" and n_wide != B:
+            fail(f"wide_main has {B - n_wide} pairs of the strip kernel")
         line = (f"[poa] {name}: B={B} m {int(ms.min())}-{int(ms.max())} "
                 f"n {int(ns.min())}-{int(ns.max())} band "
                 f"{int(bands.min())}-{W} ({B - n_wide} strip, {n_wide} "
-                f"chunked) pointer_bytes={ptr.numel()}: equal")
+                f"wide) pointer_bytes={ptr.numel()}: equal")
 
         def k3():
             return poa_traceback_cuda(ptr, offsets, q_d, m_d, n_d, b_d, M=M)
@@ -694,18 +745,11 @@ def phase_poa_kernels():
         steps = ns.astype(np.int64) + ms - (cols >= 0).sum(1).cpu().numpy()
         if name in ("bench", "flush"):
             reps, plain_reps = 20, 2
-            k2b, k3b = poa_bounds(ms, ns, bands, M, qpad.shape[1],
+            k2b, k3b = poa_bounds(ms, ns, bands, M, N,
                                   cols=cols.cpu().numpy())
-            def k2():
-                return poa_dp_ptr_cuda(*args)
-
-            def k2_chunked():
-                return k2_before(*args, W)
-
             t = {"k2": cuda_ms(k2, reps),
                  "k2_plan": cuda_ms(lambda: poa_dp_plan(
-                     M, qpad.shape[1], m_d, n_d, b_d), reps),
-                 "k2_before": cuda_ms(k2_chunked, reps),
+                     M, N, m_d, n_d, b_d), reps),
                  "k2_plain": cuda_ms(plain_dp, plain_reps),
                  "k3": cuda_ms(k3, reps),
                  "k23": cuda_ms(lambda: poa_dp_cols_cuda(*args), reps),
@@ -713,10 +757,8 @@ def phase_poa_kernels():
                      ptr, offsets, q_d, m_d, n_d, b_d, M=M), plain_reps),
                  "k2_bound": k2b, "k3_bound": k3b}
             dev = {"K2": device_ms(k2, "poa_dp_ptr"),
-                   "K2 before": device_ms(k2_chunked, "poa_dp_ptr"),
                    "K3": device_ms(k3, "poa_traceback")}
-            t["k2_device"], t["k2_before_device"], t["k3_device"] = \
-                dev.values()
+            t["k2_device"], t["k3_device"] = dev.values()
             far = int(np.argmax(steps))
             t["k3_steps"], t["k3_rows"] = int(steps[far]), int(ns[far])
             t["k3_ns_per_step"] = None if t["k3_device"] is None else \
@@ -727,35 +769,29 @@ def phase_poa_kernels():
                      + ("not measured" if t["k3_ns_per_step"] is None else
                         f"{t['k3_ns_per_step']:.1f} ns a step alone"))
             line += (f"; K2 {t['k2']:.4f} ms (its plan alone "
-                     f"{t['k2_plan']:.4f} ms; before: chunked "
-                     f"{t['k2_before']:.4f} ms), plain {t['k2_plain']:.4f} "
+                     f"{t['k2_plan']:.4f} ms), plain {t['k2_plain']:.4f} "
                      f"ms, bound {k2b[0]:.4f} ms ({k2b[1]}); K3 "
                      f"{t['k3']:.4f} ms, plain {t['k3_plain']:.4f} ms, "
                      f"bound {k3b[0]:.4f} ms ({k3b[1]}); K2 + K3 on one "
                      f"plan {t['k23']:.4f} ms; kernel time alone "
                      f"(profiler): " + ", ".join(
                          f"{k} {fmt_ms(v)}" for k, v in dev.items()))
-        elif name == "wide2k":
-            # K2's chunked kernel alone on the pairs it takes (bands above
-            # POA_STRIP_MAX_BAND), which the main path now sends it.
-            wide = bands > POA_STRIP_MAX_BAND
-            bound_w = poa_bounds(ms[wide], ns[wide], bands[wide], M,
-                                 qpad.shape[1])[0]
-            t = {"k2": cuda_ms(lambda: poa_dp_ptr_cuda(*args), 20),
-                 "chunked_device": device_ms(lambda: poa_dp_ptr_cuda(*args),
-                                             "poa_dp_ptr_chunked"),
-                 "chunked_bound": bound_w, "chunked_pairs": n_wide}
-            times[name] = t
-            line += (f"; K2 {t['k2']:.4f} ms, its chunked kernel alone "
-                     f"(profiler) {fmt_ms(t['chunked_device'])} on "
-                     f"{n_wide} pairs, bound {bound_w[0]:.6f} ms "
-                     f"({bound_w[1]})")
-        elif name == "longrun":
-            line += (f"; K3 alone (profiler) "
-                     f"{fmt_ms(device_ms(k3, 'poa_traceback'))}, longest walk "
-                     f"{int(steps.max())} steps, left runs to "
-                     f"{int((ms - ns).max())} and up runs to "
-                     f"{int((ns - ms).max())} cells")
+        elif name in ("wide2k", "longrun", "wide_main"):
+            t = times[name] = wide_times(k2, name, ms, ns, bands, M, N)
+            line += t["line"]
+            if name == "wide_main":
+                # the main path's wide batch: the wrapper and the plain
+                # version (all its pairs are the wide kernel's)
+                t["k2"], t["k2_plain"] = cuda_ms(k2, 10), cuda_ms(plain_dp,
+                                                                  1)
+                line += (f"; K2 {t['k2']:.4f} ms, plain "
+                         f"{t['k2_plain']:.4f} ms")
+            if name == "longrun":
+                line += (f"; K3 alone (profiler) "
+                         f"{fmt_ms(device_ms(k3, 'poa_traceback'))}, "
+                         f"longest walk {int(steps.max())} steps, left runs "
+                         f"to {int((ms - ns).max())} and up runs to "
+                         f"{int((ns - ms).max())} cells")
         print(line, flush=True)
     return err, times
 
@@ -1334,6 +1370,129 @@ def phase_ins_path():
           f"before ', seq:'; seq equal on {len(subset)} sites (classes "
           f"{classes}) in {time.perf_counter() - t0:.1f}s", flush=True)
     return launches, got
+
+
+def spread_fixture():
+    """tools/ins_fixture.py's spread-length sites (SPREAD_SITES, seed
+    SPREAD_SEED), built once and cached under the temp dir; returns (bam,
+    vcf, sites)."""
+    from ins_fixture import build_spread_fixture
+
+    d = os.path.join(tempfile.gettempdir(),
+                     f"svtrek_smoke_spread{SPREAD_SITES}_s{SPREAD_SEED}")
+    marker = os.path.join(d, "done")
+    if not os.path.exists(marker):
+        t0 = time.perf_counter()
+        build_spread_fixture(d, SPREAD_SITES, SPREAD_SEED)
+        open(marker, "w").close()
+        print(f"[fixture] {SPREAD_SITES} spread-length INS sites built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    with open(os.path.join(d, "sites.json")) as fh:
+        sites = json.load(fh)
+    return os.path.join(d, "ins.bam"), os.path.join(d, "ins.vcf"), sites
+
+
+@contextlib.contextmanager
+def k2_timer():
+    """While open, times each K2 launch step of the star engine
+    (`kernels._dp_ptr_launch`: the strip and wide kernels of one DP batch,
+    the current stream joined to the wide kernel's) with CUDA events on
+    the current stream; yields the list of (start, end) event pairs (read
+    them after a synchronize)."""
+    import torch
+
+    from svtrek_tpu_torch import kernels
+
+    launch, events = kernels._dp_ptr_launch, []
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = launch(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    kernels._dp_ptr_launch = timed
+    try:
+        yield events
+    finally:
+        kernels._dp_ptr_launch = launch
+
+
+def phase_spread_sites():
+    """`audt --ins-consensus` on the spread-length sites: K2's wide kernel
+    on the main path, its launches and the band counts, K2's time a DP
+    batch, the --device cpu run and tools/audt_scalar.py.  Returns the
+    wide kernel's launches and the K2 times (ms) of the DP batches."""
+    import torch
+
+    from audt_scalar import audt_lines
+    from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from svtrek_tpu_torch.ops import consensus, poa_dp
+
+    bam, vcf, sites = spread_fixture()
+    argv = ["audt", "-b", bam, "-v", vcf, "--ins-consensus"]
+    reset_launch_counts()
+    for calls in (consensus.plain_calls, poa_dp.plain_calls):
+        for k in calls:
+            calls[k] = 0
+    with star_host_spy() as spy, k2_timer() as events:
+        got, stats, wall = run_cli([*argv, "--device", "cuda"], "spread")
+    torch.cuda.synchronize()
+    k2_ms = [a.elapsed_time(b) for a, b in events]
+    launches = dict(launch_counts)
+    plain = sum(consensus.plain_calls.values()) + \
+        sum(poa_dp.plain_calls.values())
+    dp_calls = int(stats.get("dp_calls", 0))
+    wide, wide_k2 = int(stats["band_wide"]), int(stats["band_wide_k2"])
+    if not (launches["poa_dp_ptr_wide"] > 0 and wide_k2 > 0 and wide > 0):
+        fail(f"the spread sites did not take K2's wide kernel: "
+             f"{launches['poa_dp_ptr_wide']} launches, band_wide={wide}, "
+             f"band_wide_k2={wide_k2}")
+    if launches["poa_traceback"] < dp_calls or len(k2_ms) != dp_calls or \
+            launches["consensus_pos"] < int(stats["batches"]):
+        fail(f"spread sites: K1/K2/K3 launched {launches} for {dp_calls} DP "
+             f"batches ({len(k2_ms)} K2 steps)")
+    if plain != 0:
+        fail(f"a plain path ran {plain} times on --device cuda")
+    cons_sites, cons_s = int(stats["sites"]), float(stats["time"])
+    print(f"[spread] {len(got)} lines of {len(sites)} sites, wall "
+          f"{wall:.3f}s; consensus sites={cons_sites} cons_s={cons_s:.3f}s "
+          f"sites/s={cons_sites / cons_s:.3f}; launches K1="
+          f"{launches['consensus_pos']} K2 strip={launches['poa_dp_ptr']} "
+          f"K2 wide={launches['poa_dp_ptr_wide']} "
+          f"K3={launches['poa_traceback']}; band_wide={wide} "
+          f"band_wide_k2={wide_k2}; K2 a DP batch (CUDA events) "
+          + ", ".join(f"{x:.4f}" for x in k2_ms) + " ms", flush=True)
+    print(f"[spread] {check_star_host('spread', stats, spy, dp_calls)}",
+          flush=True)
+
+    want = audt_lines(bam, vcf, ins_consensus=True, seq_lines=set())
+    if [l.split(", seq:")[0] for l in got] != \
+            [l.split(", seq:")[0] for l in want]:
+        fail("spread sites: the lines before ', seq:' differ from "
+             "tools/audt_scalar.py")
+
+    argv[4] = sub_vcf(vcf, list(range(SPREAD_CPU_SITES)),
+                      f"spread_{SPREAD_CPU_SITES}.vcf")
+    sub, sub_stats, _ = run_cli([*argv, "--device", "cuda"], "spread sub")
+    cpu, cpu_stats, cpu_wall = run_cli([*argv, "--device", "cpu"],
+                                       "spread cpu")
+    if not cpu == sub == got[:SPREAD_CPU_SITES]:
+        bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
+        fail(f"spread sites: --device cuda and --device cpu lines differ on "
+             f"the first {SPREAD_CPU_SITES} sites: {bad}")
+    routes = ("band_wide", "band_scalar", "band_wide_k2")
+    if [cpu_stats[k] for k in routes] != [sub_stats[k] for k in routes]:
+        fail("spread sites: --device cuda and --device cpu count other band "
+             "routes")
+    print(f"[spread] tools/audt_scalar.py: {len(got)} lines byte-identical "
+          f"before ', seq:'; the first {len(cpu)} sites: --device cpu "
+          f"(wall {cpu_wall:.3f}s) and cuda lines equal to the run's, "
+          f"band_wide={cpu_stats['band_wide']} band_wide_k2="
+          f"{cpu_stats['band_wide_k2']} on both", flush=True)
+    return launches["poa_dp_ptr_wide"], k2_ms
 
 
 def disc_fixture() -> list[str]:
@@ -2535,6 +2694,7 @@ def main() -> int:
     graph_err, graph = timed("graph kernel", phase_graph_kernel)
     host_lines = timed("main path", phase_main_path)
     launches, ins_lines = timed("ins path", phase_ins_path)
+    spread_launches, spread_k2_ms = timed("spread sites", phase_spread_sites)
     disc_launches, disc_lines, disc_cl, disc_subset = timed("disc",
                                                             phase_disc)
     extract_launches = timed("extract device", phase_extract_device,
@@ -2551,7 +2711,7 @@ def main() -> int:
     phase_jax_check()
     print(f"[time] total: {time.perf_counter() - t_start:.1f}s", flush=True)
 
-    flush = poa_times["flush"]
+    flush, wide_main = poa_times["flush"], poa_times["wide_main"]
     print(json.dumps({"kernels": [{
         "name": "consensus_pos",
         "route": "cuda",
@@ -2583,11 +2743,30 @@ def main() -> int:
         "bound_ms": flush["k2_bound"][0],
         "bound_by": flush["k2_bound"][1],
         "library_ms": None,
-        "ms_before": flush["k2_before"],
+        "ms_before": None,
         "device_ms": flush["k2_device"],
-        "device_ms_before": flush["k2_before_device"],
-        "chunked_wide2k_device_ms": poa_times["wide2k"]["chunked_device"],
-        "chunked_wide2k_bound_ms": poa_times["wide2k"]["chunked_bound"][0],
+        "device_ms_before": None,
+    }, {
+        "name": "poa_dp_ptr_wide",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/poa.cu",
+        "replaces": "svtrek_tpu/ops/poa_pallas.py:165",
+        "launches": spread_launches,
+        "max_abs_err": poa_err["wide"],
+        "ms": wide_main["k2"],
+        "plain_ms": wide_main["k2_plain"],
+        "bound_ms": wide_main["wide_bound"][0],
+        "bound_by": wide_main["wide_bound"][1],
+        "library_ms": None,
+        "ms_before": None,
+        "device_ms": wide_main["wide_device"],
+        "device_ms_before": None,
+        "cycles_per_row": wide_main["cycles_per_row"],
+        "wide2k_device_ms": poa_times["wide2k"]["wide_device"],
+        "wide2k_cycles_per_row": poa_times["wide2k"]["cycles_per_row"],
+        "longrun_device_ms": poa_times["longrun"]["wide_device"],
+        "longrun_cycles_per_row": poa_times["longrun"]["cycles_per_row"],
+        "spread_k2_ms_per_batch": spread_k2_ms,
     }, {
         "name": "poa_traceback",
         "route": "cuda",

@@ -52,12 +52,33 @@
 // - The wrapper hands the kernel a work list: the pairs sorted by
 //   n*(2*band+1), longest first, so the longest chains start in the first
 //   wave; the offsets stay in input order.
-// Pairs with a band above kStripMaxBand (up to POA_MAX_BAND 2048, the main
-// path's band cap) take the chunked kernel, the design this
-// one replaced: the score rows in shared memory, the band striped over the
-// lanes in chunks of 32 with a warp scan carried from chunk to chunk, its
-// shared memory sized by the widest band of its own launch.  Its registers
-// do not grow with the band.
+// K2 design (the wide kernel, bands kStripMaxBand+1 .. POA_MAX_BAND 2048,
+// the main path's band cap).  A warp's strip runs out at 32*33 cells, and
+// the design it replaced (a chunked kernel: the score rows in shared
+// memory, one warp scan a chunk of 32 cells) spent about 400 cycles a
+// chunk, 51,600 a row at band 2048, on one warp.  Here a block of
+// kWideWarps warps holds the row in registers:
+// - Lane l of warp w holds the strip of S cells from k0 = (32*w + l)*S, S
+//   chosen per pair from kWideStrips (the smallest with 32*kWideWarps*S >=
+//   2*band+1); each warp runs the strip kernel's row (the same code,
+//   dp_pair<W, S>), with its own top cell for lane 31's target base.
+// - One row: pass 1 over each strip, one scan of the warp's 32 strip
+//   maxima, the warps' maxima through shared memory (a barrier), each warp
+//   taking the max of those before it as its carry, pass 2.  Lane 0 of
+//   each warp leaves its first cell's score in shared memory, where lane
+//   31 of the warp before reads it as the up of its last cell in the next
+//   row (a second barrier).  The row's codes are staged in shared memory
+//   across the block and written as whole words by all its threads.
+// - So a row costs two passes over S <= 17 cells, one warp scan and two
+//   barriers, not a scan for every 32 cells of the band.  What bounds it
+//   is the SM's integer issue rate: about two dozen int32 operations a
+//   cell over the whole row, on the one SM that holds the pair.  Eight
+//   warps put two on each of the SM's four sub-partitions, which hides
+//   each warp's chains of dependent operations; four (one each, S up to
+//   33) spilled registers and ran slower on the card, sixteen no faster.
+// - The wrapper launches it on a side stream that waits for the current
+//   one, beside the strip kernel's launch, and the current stream waits
+//   for it: a batch pays the longer of the two launches, not their sum.
 //
 // K3 design.  The walk from (n, m) to (0, 0) is a chain: each step reads
 // the pointer that the step before chose.  The design this one replaced
@@ -110,11 +131,15 @@ constexpr int kGap = -2;
 constexpr int kNeg = -(1 << 28);  // band-invalid cells (poa_batch.py:41)
 constexpr int kPad = 5;            // the padding base of the JAX program
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;  // pairs per block of K2's chunked kernel
 // The strip kernel runs one pair per block of one warp, so that a small
 // batch spreads over every SM, and at most 128 registers a thread, so that
 // 16 pairs share an SM.
 constexpr int kStripBlocksPerSm = 16;
+// The wide kernel runs one pair per block of kWideWarps warps, two on each
+// of the SM's four sub-partitions, at most 128 registers a thread, so that
+// 2 pairs share an SM.
+constexpr int kWideWarps = 8;
+constexpr int kWideBlocksPerSm = 2;
 constexpr int kTbWarps = 4;        // pairs per block of K3
 constexpr int kTbWin = 128;        // K3's window: 4 cells a lane
 constexpr int kTbRing = 64;        // rows in K3's ring (loaded or in flight)
@@ -123,14 +148,28 @@ constexpr int kTbRun = 32;         // rows one ballot checks for a run
 constexpr int kTbSlot = kTbWin / 4 + 4;
 static_assert((kTbRing & (kTbRing - 1)) == 0 && kTbRing == 2 * kTbRun,
               "a power-of-two ring: one run read, one run in flight");
-constexpr int kDefaultSmem = 48 * 1024;
 // The strip widths S of the strip kernel (kernels.POA_STRIPS), and the
-// widest band they hold: 32 * 33 cells >= 2 * 527 + 1.
-constexpr int kMaxStrip = 33;
+// widest band they hold: 32 * 33 cells >= 2 * 527 + 1.  Each list makes
+// its kernel's cases and the table svtrek_poa_strips exports.
+#define SVTREK_STRIPS(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(12) X(16) X(24) X(33)
+// The wide kernel's strip widths (kernels.POA_WIDE_STRIPS) end at 17:
+// 32 * 8 * 17 = 4,352 cells >= 2 * 2175 + 1, past POA_MAX_BAND 2048.
+#define SVTREK_WIDE_STRIPS(X) X(5) X(6) X(8) X(10) X(12) X(14) X(17)
+#define SVTREK_ENTRY(S) S,
+constexpr int kStrips[] = {SVTREK_STRIPS(SVTREK_ENTRY)};
+constexpr int kWideStrips[] = {SVTREK_WIDE_STRIPS(SVTREK_ENTRY)};
+#undef SVTREK_ENTRY
+constexpr int kNumStrips = sizeof(kStrips) / sizeof(int);
+constexpr int kNumWideStrips = sizeof(kWideStrips) / sizeof(int);
+constexpr int kMaxStrip = kStrips[kNumStrips - 1];
 constexpr int kStripMaxBand = (32 * kMaxStrip - 1) / 2;
-// A row's staged codes: its widest row plus up to 3 bytes of alignment,
-// in whole words.
-constexpr int kRowWords = (32 * kMaxStrip + 3 + 3) / 4;
+constexpr int kWideMaxStrip = kWideStrips[kNumWideStrips - 1];
+constexpr int kWideMaxBand = (32 * kWideWarps * kWideMaxStrip - 1) / 2;
+// A row of `Cells` staged codes plus up to 3 bytes of alignment, in whole
+// words.
+template <int Cells>
+constexpr int kRowWords = (Cells + 3 + 3) / 4;
 
 __device__ __forceinline__ int warp_inclusive_max(int v, int lane) {
 #pragma unroll
@@ -148,38 +187,47 @@ __device__ __forceinline__ int target_base(const int8_t* t, int m, int j) {
 
 // Row orow's width codes, staged in buf at orow's alignment a, to global
 // memory (if `on`; predicated, not branched, so that the compiler can
-// interleave it with other work): its whole aligned words, one a lane,
-// unrolled for rows of up to 32*S cells; the bytes before and after them
-// (at most 3 each, whose words a neighbouring row, maybe another pair's,
-// shares) byte by byte, by lanes 0-2 and 3-5.
-template <int S>
+// interleave it with other work) by the 32*W threads of the pair (tid):
+// its whole aligned words, one a thread, unrolled for rows of up to
+// 32*W*S cells; the bytes before and after them (at most 3 each, whose
+// words a neighbouring row, maybe another pair's, shares) byte by byte, by
+// threads 0-2 and 3-5.
+template <int W, int S>
 __device__ __forceinline__ void copy_row(int8_t* orow, int width,
-                                         const int* buf, int lane, bool on) {
+                                         const int* buf, int tid, bool on) {
   const int a = static_cast<int>(reinterpret_cast<uintptr_t>(orow) & 3);
   const int e = a + width;
   const int wf = (a + 3) >> 2, wl = e >> 2;
   int* gw = reinterpret_cast<int*>(orow - a);
 #pragma unroll
-  for (int u = 0; u < (32 * S + 6 + 127) / 128; ++u) {
-    const int w = wf + lane + 32 * u;
+  for (int u = 0; u < (32 * W * S + 6 + 128 * W - 1) / (128 * W); ++u) {
+    const int w = wf + tid + 32 * W * u;
     if (on && w < wl) gw[w] = buf[w];
   }
-  const int c = lane < 3 ? a + lane : max(4 * wl, 4 * wf) + lane - 3;
-  if (on && lane < 6 && c < (lane < 3 ? min(4 * wf, e) : e))
+  const int c = tid < 3 ? a + tid : max(4 * wl, 4 * wf) + tid - 3;
+  if (on && tid < 6 && c < (tid < 3 ? min(4 * wf, e) : e))
     orow[c - a] = reinterpret_cast<const int8_t*>(buf)[c];
 }
 
-// One pair's pointer rows 1..n at out, n rows of 2*band+1 codes; the warp's
-// score strip of S cells a lane in registers.  rows: the warp's two staging
-// buffers of kRowWords words.  The work of the next row that does not wait
-// for this row's scores (its bases, the copy-out of the row before) sits
-// between pass 1 and the scan, where it fills the scan's shuffle latency.
-template <int S>
-__device__ __forceinline__ void dp_pair_strip(
+// One pair's pointer rows 1..n at out, n rows of 2*band+1 codes, on W
+// warps (W == 1: the strip kernel's one warp; else the block of the wide
+// kernel, thread 32*warp + lane); the score row in registers, S cells a
+// lane, 32*W*S >= 2*band+1.  rows: two staging buffers of
+// kRowWords<32*W*S> words.  xch (W > 1): 2*W words of shared memory.  The
+// work of the next row that does not wait for this row's scores (its
+// bases, the copy-out of the row before) sits between pass 1 and the scan,
+// where it fills the scan's shuffle latency.
+template <int W, int S>
+__device__ __forceinline__ void dp_pair(
     const int8_t* __restrict__ t, int m, const int8_t* __restrict__ q, int n,
-    int band, int8_t* __restrict__ out, int* rows, int lane) {
+    int band, int8_t* __restrict__ out, int* rows, int* xch, int lane) {
+  constexpr int kWords = kRowWords<32 * W * S>;
+  const int warp = W == 1 ? 0 : static_cast<int>(threadIdx.x >> 5);
+  const int tid = 32 * warp + lane;
+  // xch[w]: warp w's lane 0's first score, the row before; xch[W + w]: its
+  // max of cand - GAP*k, this row.
   const int width = 2 * band + 1;
-  const int k0 = lane * S;  // this lane's first cell
+  const int k0 = tid * S;  // this lane's first cell
   int sc[S];  // the score row: prev on entry to a row, cur on exit
   int tb[S];  // the target base of each cell for the current row
   // Row 0: score[0, j] = GAP*j for 0 <= j <= min(m, band); cell k is column
@@ -192,19 +240,28 @@ __device__ __forceinline__ void dp_pair_strip(
     sc[s] = (k < width && j0 >= 0 && j0 <= j0_hi) ? kGap * j0 : kNeg;
     tb[s] = target_base(t, m, 1 + j0);
   }
-  // Lane 31's top cell k = 32*S - 1 lies at column i + 32*S - 1 - band.
-  // Rows come in blocks of 32: lane r holds the query base of row i0 + r
-  // and lane 31's top base for it (qv, tv), loaded a block ahead (qn, tn).
-  const int top = 32 * S - 1 - band;
+  if constexpr (W > 1) {
+    if (lane == 0) xch[warp] = sc[0];
+    __syncthreads();
+  }
+  // Lane 31's top cell k = 32*(warp+1)*S - 1 lies at column i + that -
+  // band.  Rows come in blocks of 32: lane r holds the query base of row
+  // i0 + r and lane 31's top base for it (qv, tv), loaded a block ahead
+  // (qn, tn).
+  const int top = 32 * (warp + 1) * S - 1 - band;
   int qv = (1 + lane <= n) ? q[lane] : kPad;
   int tv = target_base(t, m, 1 + lane + top);
   int qn = (33 + lane <= n) ? q[32 + lane] : kPad;
   int tn = target_base(t, m, 33 + lane + top);
   int qi = __shfl_sync(kFull, qv, 0);
   for (int i = 1; i <= n; ++i) {
-    // up of the strip's last cell: lane+1's first cell of the previous row
-    // (lane 31's last cell is past the band: 32*S > width).
-    const int up_next = __shfl_down_sync(kFull, sc[0], 1);
+    // up of the strip's last cell: lane+1's first cell of the previous row;
+    // lane 31's is the next warp's (the last lane's last cell is past the
+    // band: 32*W*S > width).
+    int up_next = __shfl_down_sync(kFull, sc[0], 1);
+    if constexpr (W > 1) {
+      if (lane == 31) up_next = warp + 1 < W ? xch[warp + 1] : kNeg;
+    }
     // Cell s of the strip lies at column j = jb + s.  It is valid for
     // s_lo <= s <= s_hi (1 <= j <= m and k < width), the j == 0 boundary
     // at s == s_b while i <= band.
@@ -245,15 +302,23 @@ __device__ __forceinline__ void dp_pair_strip(
     const int topb = __shfl_sync(kFull, tv, r);
     const int q_next = __shfl_sync(kFull, qv, r);
     // The row before, staged and synced a row ago.
-    copy_row<S>(out + static_cast<long long>(i - 2) * width, width,
-                rows + ((i - 1) & 1) * kRowWords, lane, i > 1);
-    // One warp scan: the max over the strips of the lanes before this one.
+    copy_row<W, S>(out + static_cast<long long>(i - 2) * width, width,
+                   rows + ((i - 1) & 1) * kWords, tid, i > 1);
+    // One warp scan: the max over the strips of the lanes before this one;
+    // on W warps, also over the warps before this one.
     const int incl = warp_inclusive_max(tot, lane);
     const int before = __shfl_up_sync(kFull, incl, 1);
     int run = lane == 0 ? kNeg : before;
+    if constexpr (W > 1) {
+      if (lane == 31) xch[W + warp] = incl;
+      __syncthreads();
+#pragma unroll
+      for (int v = 0; v + 1 < W; ++v)
+        if (v < warp) run = max(run, xch[W + v]);
+    }
     // Pass 2: the left gap, the final score and the pointer code, staged
     // at the row's global alignment.
-    int* buf = rows + (i & 1) * kRowWords;
+    int* buf = rows + (i & 1) * kWords;
     int8_t* orow = out + static_cast<size_t>(i - 1) * width;
     int8_t* stage = reinterpret_cast<int8_t*>(buf) +
                     (reinterpret_cast<uintptr_t>(orow) & 3) + k0;
@@ -269,20 +334,30 @@ __device__ __forceinline__ void dp_pair_strip(
       stage[s] = static_cast<int8_t>(use_left ? 2 : (v & 1));
       run = max(run, cand - gk0 - kGap * s);
     }
+    if constexpr (W > 1) {
+      if (lane == 0) xch[warp] = sc[0];
+    }
 #pragma unroll
     for (int s = 0; s + 1 < S; ++s) tb[s] = tb[s + 1];
     tb[S - 1] = lane == 31 ? topb : next;
     qi = q_next;
-    // One barrier a row: the next row copies this one out, and stages into
-    // the other buffer only after every lane has copied the row before.
-    __syncwarp();
+    // The row's barrier: the next row copies this one out, and stages into
+    // the other buffer only after every thread has copied the row before.
+    // On W warps it also publishes each warp's first score for the next
+    // row's pass 1 (the barrier after the scan keeps xch from being
+    // rewritten before every warp has read it).
+    if constexpr (W > 1) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
   }
-  copy_row<S>(out + static_cast<long long>(n - 1) * width, width,
-              rows + (n & 1) * kRowWords, lane, n > 0);
+  copy_row<W, S>(out + static_cast<long long>(n - 1) * width, width,
+                 rows + (n & 1) * kWords, tid, n > 0);
 }
 
-// The strip kernel: block w of the launch runs pair order[w] with the strip
-// width strips[pair].
+// The strip kernel: block w of the launch runs pair order[w] on one warp
+// with the strip width strips[pair].
 __global__ void __launch_bounds__(32, kStripBlocksPerSm)
 poa_dp_ptr_strip_kernel(const int8_t* __restrict__ tpad, int M,
                         const int* __restrict__ ms,
@@ -293,7 +368,7 @@ poa_dp_ptr_strip_kernel(const int8_t* __restrict__ tpad, int M,
                         int8_t* __restrict__ ptr,
                         const int* __restrict__ order,
                         const int* __restrict__ strips) {
-  __shared__ int rows[2 * kRowWords];
+  __shared__ int rows[2 * kRowWords<32 * kMaxStrip>];
   const int lane = threadIdx.x;
   const int b = order[blockIdx.x];
   const int8_t* t = tpad + static_cast<size_t>(b) * M;
@@ -304,95 +379,45 @@ poa_dp_ptr_strip_kernel(const int8_t* __restrict__ tpad, int M,
   switch (strips[b]) {
 #define SVTREK_STRIP(S) \
   case S:               \
-    dp_pair_strip<S>(t, m, q, n, band, out, rw, lane); \
+    dp_pair<1, S>(t, m, q, n, band, out, rw, nullptr, lane); \
     break;
-    SVTREK_STRIP(1) SVTREK_STRIP(2) SVTREK_STRIP(3) SVTREK_STRIP(4)
-    SVTREK_STRIP(5) SVTREK_STRIP(6) SVTREK_STRIP(8) SVTREK_STRIP(12)
-    SVTREK_STRIP(16) SVTREK_STRIP(24) SVTREK_STRIP(33)
+    SVTREK_STRIPS(SVTREK_STRIP)
 #undef SVTREK_STRIP
     default:
-      break;  // the wrapper sends only the widths above
+      __trap();  // the wrapper sends only the widths above
   }
 }
 
-// The chunked kernel: warp w of the launch runs pair order[w], its two
-// score rows in shared memory (row_cap >= the launch's widest band + 1; the
-// extra cell holds NEG, the "up" of the band's last cell), the band's cells
-// striped over the lanes in chunks of 32.
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-poa_dp_ptr_chunked_kernel(const int8_t* __restrict__ tpad, int M,
-                          const int* __restrict__ ms,
-                          const int8_t* __restrict__ qpad, int N,
-                          const int* __restrict__ ns,
-                          const int* __restrict__ bands,
-                          const long long* __restrict__ offsets,
-                          int8_t* __restrict__ ptr,
-                          const int* __restrict__ order, int count,
-                          int row_cap) {
-  extern __shared__ int smem[];
-  const int warp = threadIdx.x >> 5;
+// The wide kernel: block w of the launch runs pair order[w] on kWideWarps
+// warps with the strip width strips[pair].
+__global__ void __launch_bounds__(32 * kWideWarps, kWideBlocksPerSm)
+poa_dp_ptr_wide_kernel(const int8_t* __restrict__ tpad, int M,
+                       const int* __restrict__ ms,
+                       const int8_t* __restrict__ qpad, int N,
+                       const int* __restrict__ ns,
+                       const int* __restrict__ bands,
+                       const long long* __restrict__ offsets,
+                       int8_t* __restrict__ ptr,
+                       const int* __restrict__ order,
+                       const int* __restrict__ strips) {
+  __shared__ int rows[2 * kRowWords<32 * kWideWarps * kWideMaxStrip>];
+  __shared__ int xch[2 * kWideWarps];
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kWarpsPerBlock + warp;
-  if (w >= count) return;  // the whole warp leaves together; no block barrier
-  const int b = order[w];
-  int* prev = smem + warp * 2 * row_cap;
-  int* cur = prev + row_cap;
-  const int m = ms[b];
-  const int n = ns[b];
-  const int band = bands[b];
-  const int width = 2 * band + 1;
+  const int b = order[blockIdx.x];
   const int8_t* t = tpad + static_cast<size_t>(b) * M;
   const int8_t* q = qpad + static_cast<size_t>(b) * N;
+  const int m = ms[b], n = ns[b], band = bands[b];
   int8_t* out = ptr + offsets[b];
-
-  const int j0_hi = min(m, band);
-  for (int k = lane; k <= width; k += 32) {
-    const int j0 = k - band;
-    prev[k] = (k < width && j0 >= 0 && j0 <= j0_hi) ? kGap * j0 : kNeg;
-    cur[k] = kNeg;
-  }
-  __syncwarp();
-
-  for (int i = 1; i <= n; ++i) {
-    const int qi = q[i - 1];
-    int8_t* orow = out + static_cast<size_t>(i - 1) * width;
-    int carry = kNeg;  // max of (cand - GAP*k) over the chunks done
-    for (int k0 = 0; k0 < width; k0 += 32) {
-      const int k = k0 + lane;
-      const bool in = k < width;
-      const int j = i + k - band;
-      int cand = kNeg;
-      int pc = 0;
-      bool valid = false;
-      bool bmask = false;
-      if (in) {
-        const int tb = target_base(t, m, j);
-        const int diag = prev[k] + (tb == qi ? kMatch : kMismatch);
-        const int up = prev[k + 1] + kGap;
-        pc = up > diag ? 1 : 0;  // a tie goes to diag
-        valid = j >= 1 && j <= m;
-        cand = valid ? max(diag, up) : kNeg;
-        bmask = j == 0 && i <= band;
-        if (bmask) {
-          cand = kGap * i;
-          pc = 1;
-        }
-      }
-      const int incl = warp_inclusive_max(in ? cand - kGap * k : kNeg, lane);
-      const int before = __shfl_up_sync(kFull, incl, 1);
-      const int excl = lane == 0 ? carry : max(carry, before);
-      carry = max(carry, __shfl_sync(kFull, incl, 31));
-      if (in) {
-        const int left = excl + kGap * k;
-        const bool use_left = valid && left > cand;  // strict
-        cur[k] = (valid || bmask) ? (use_left ? left : cand) : kNeg;
-        orow[k] = static_cast<int8_t>(use_left ? 2 : pc);
-      }
-    }
-    __syncwarp();
-    int* tmp = prev;
-    prev = cur;
-    cur = tmp;
+  int* rw = rows;
+  switch (strips[b]) {
+#define SVTREK_WIDE(S) \
+  case S:              \
+    dp_pair<kWideWarps, S>(t, m, q, n, band, out, rw, xch, lane); \
+    break;
+    SVTREK_WIDE_STRIPS(SVTREK_WIDE)
+#undef SVTREK_WIDE
+    default:
+      __trap();  // the wrapper sends only the widths above
   }
 }
 
@@ -622,8 +647,21 @@ poa_traceback_kernel(const int8_t* __restrict__ ptr, long long total,
 
 extern "C" {
 
-// The band widest the strip kernel takes (kernels.POA_STRIP_MAX_BAND).
+// The band widest the strip kernel takes (kernels.POA_STRIP_MAX_BAND) and
+// the wide kernel's (from kernels.POA_WIDE_WARPS and POA_WIDE_STRIPS).
 int svtrek_poa_strip_max_band() { return kStripMaxBand; }
+int svtrek_poa_wide_max_band() { return kWideMaxBand; }
+
+// The strip widths the kernels are built for: the strip kernel's
+// (kernels.POA_STRIPS) if wide is 0, else the wide kernel's
+// (POA_WIDE_STRIPS).  Writes up to cap of them to out and returns their
+// count.
+int svtrek_poa_strips(int wide, int* out, int cap) {
+  const int* table = wide ? kWideStrips : kStrips;
+  const int count = wide ? kNumWideStrips : kNumStrips;
+  for (int i = 0; i < count && i < cap; ++i) out[i] = table[i];
+  return count;
+}
 
 // tpad [B, M] and qpad [B, N] int8 row-major (pad base 5); ms, ns, bands
 // [B] int32 with m <= M, n <= N; offsets [B+1] int64 prefix sums of
@@ -648,31 +686,22 @@ int svtrek_poa_dp_ptr_strip(const void* tpad, int M, const void* ms,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As svtrek_poa_dp_ptr_strip, through the chunked kernel, for the pairs of
-// order, whose bands are at most max_band (any band up to 2048).
-int svtrek_poa_dp_ptr_chunked(const void* tpad, int M, const void* ms,
-                              const void* qpad, int N, const void* ns,
-                              const void* bands, const void* offsets,
-                              void* ptr, const void* order, int count,
-                              int max_band, void* stream) {
+// As svtrek_poa_dp_ptr_strip, through the wide kernel, for the pairs of
+// order, each with its strip width S (one of 5, 6, 8, 10, 12, 14, 17 with
+// 32*8*S >= 2*band+1).
+int svtrek_poa_dp_ptr_wide(const void* tpad, int M, const void* ms,
+                           const void* qpad, int N, const void* ns,
+                           const void* bands, const void* offsets,
+                           void* ptr, const void* order, const void* strips,
+                           int count, void* stream) {
   if (count <= 0) return 0;
-  const int row_cap = 2 * max_band + 2;
-  const size_t smem =
-      static_cast<size_t>(kWarpsPerBlock) * 2 * row_cap * sizeof(int);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        poa_dp_ptr_chunked_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (count + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  poa_dp_ptr_chunked_kernel<<<blocks, 32 * kWarpsPerBlock, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  poa_dp_ptr_wide_kernel<<<count, 32 * kWideWarps, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(tpad), M, static_cast<const int*>(ms),
       static_cast<const int8_t*>(qpad), N, static_cast<const int*>(ns),
       static_cast<const int*>(bands),
       static_cast<const long long*>(offsets), static_cast<int8_t*>(ptr),
-      static_cast<const int*>(order), count, row_cap);
+      static_cast<const int*>(order), static_cast<const int*>(strips));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,21 +14,29 @@ import ctypes as ct
 import torch
 
 # Kernel launches per wrapper since the last reset_launch_counts().
+# "poa_dp_ptr" counts K2's strip-kernel launches, "poa_dp_ptr_wide" its
+# wide kernel's.
 launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
-                                 "poa_traceback": 0, "step_probe": 0,
-                                 "poa_graph_dp": 0}
+                                 "poa_dp_ptr_wide": 0, "poa_traceback": 0,
+                                 "step_probe": 0, "poa_graph_dp": 0}
 # The widest row K1 takes: one warp's row and its int64 prefix sums in the
 # shared memory of a block (csrc/consensus.cu); the packer ships K <= 8192.
 CONSENSUS_MAX_K = 16384
-# The widest per-pair band K2 takes: its chunked kernel's two score rows
-# per warp must fit in the shared memory of one block (csrc/poa.cu).
+# The widest per-pair band K2 takes (the main path's band cap; the wide
+# kernel's strips hold up to POA_WIDE_MAX_BAND).
 POA_MAX_BAND = 2048
 # K2's strip kernel: the strip widths S it is built for (one warp per pair,
 # S score cells a lane), and the widest band they hold (32 * 33 cells >=
-# 2 * 527 + 1).  Wider bands take the chunked kernel.  csrc/poa.cu holds
-# the same table.
+# 2 * 527 + 1).  Wider bands take the wide kernel: POA_WIDE_WARPS warps a
+# pair, S cells a lane from POA_WIDE_STRIPS (32 * 8 * 17 cells >= 2 * 2175
+# + 1).  A pair's class (W, S) is (1, S) or (POA_WIDE_WARPS, S), the
+# smallest S of its table with 32*W*S >= 2*band+1.  csrc/poa.cu holds the
+# same tables.
 POA_STRIPS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 33)
 POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
+POA_WIDE_WARPS = 8
+POA_WIDE_STRIPS = (5, 6, 8, 10, 12, 14, 17)
+POA_WIDE_MAX_BAND = (32 * POA_WIDE_WARPS * POA_WIDE_STRIPS[-1] - 1) // 2
 # G1 (csrc/poa_graph.cu): the largest graph (nodes), query and predecessor
 # count it takes (ops/poa_graph_batch.py routes at these: its V_CAP, N_CAP
 # and P_CAP); a row's cells, n+1 rounded up to GRAPH_ROW_ALIGN (whole lane
@@ -46,6 +54,8 @@ GRAPH_SCRATCH_BYTES = 1 << 31
 _LIB = None
 # poa_strip_widths' lookup table on each device it has run on.
 _STRIP_BY_NEED: dict[torch.device, torch.Tensor] = {}
+# The stream of K2's wide kernel on each card (`_dp_ptr_launch`).
+_SIDE_STREAM: dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def reset_launch_counts() -> None:
@@ -70,19 +80,20 @@ def load_library():
         if lib.svtrek_consensus_max_k() != CONSENSUS_MAX_K:
             raise RuntimeError("csrc/consensus.cu and "
                                "kernels.CONSENSUS_MAX_K differ")
-        lib.svtrek_poa_dp_ptr_strip.restype = ct.c_int
-        lib.svtrek_poa_dp_ptr_strip.argtypes = [
-            ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
-            ptr, ptr, ct.c_int, ptr,
-        ]
-        lib.svtrek_poa_dp_ptr_chunked.restype = ct.c_int
-        lib.svtrek_poa_dp_ptr_chunked.argtypes = [
-            ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
-            ptr, ct.c_int, ct.c_int, ptr,
-        ]
+        for fn in (lib.svtrek_poa_dp_ptr_strip, lib.svtrek_poa_dp_ptr_wide):
+            fn.restype = ct.c_int
+            fn.argtypes = [ptr, ct.c_int, ptr, ptr, ct.c_int, ptr, ptr, ptr,
+                           ptr, ptr, ptr, ct.c_int, ptr]
         lib.svtrek_poa_strip_max_band.restype = ct.c_int
-        if lib.svtrek_poa_strip_max_band() != POA_STRIP_MAX_BAND:
-            raise RuntimeError("csrc/poa.cu and kernels.POA_STRIPS differ")
+        lib.svtrek_poa_wide_max_band.restype = ct.c_int
+        lib.svtrek_poa_strips.restype = ct.c_int
+        lib.svtrek_poa_strips.argtypes = [ct.c_int, ptr, ct.c_int]
+        if (lib.svtrek_poa_strip_max_band(), lib.svtrek_poa_wide_max_band(),
+                _strip_table(lib, 0), _strip_table(lib, 1)) != (
+                POA_STRIP_MAX_BAND, POA_WIDE_MAX_BAND, POA_STRIPS,
+                POA_WIDE_STRIPS):
+            raise RuntimeError("csrc/poa.cu and kernels.POA_STRIPS, "
+                               "POA_WIDE_WARPS, POA_WIDE_STRIPS differ")
         lib.svtrek_poa_traceback.restype = ct.c_int
         lib.svtrek_poa_traceback.argtypes = [
             ptr, ct.c_longlong, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
@@ -96,6 +107,13 @@ def load_library():
         lib.svtrek_cuda_error_string.argtypes = [ct.c_int]
         _LIB = lib
     return _LIB
+
+
+def _strip_table(lib, wide: int) -> tuple[int, ...]:
+    """The strip widths csrc/poa.cu's strip (wide 0) or wide (1) kernel is
+    built for (`svtrek_poa_strips`)."""
+    out = (ct.c_int * 64)()
+    return tuple(out[:lib.svtrek_poa_strips(wide, out, len(out))])
 
 
 def bind_graph(lib) -> None:
@@ -212,26 +230,42 @@ def _pair_args(tpad, ms, qpad, ns, bands) -> tuple[int, int, int]:
     return B, M, N
 
 
+def poa_warps(band: int) -> int:
+    """The warps of a band's K2 class: 1 (the strip kernel) up to
+    POA_STRIP_MAX_BAND, POA_WIDE_WARPS (the wide kernel) above."""
+    return 1 if band <= POA_STRIP_MAX_BAND else POA_WIDE_WARPS
+
+
+def _strip_for(c: int) -> int:
+    """The strip width S of the class of a row of c lane-widths (32 cells
+    each): the smallest of POA_STRIPS >= c, or past them the smallest of
+    POA_WIDE_STRIPS with POA_WIDE_WARPS*S >= c (0 past those too)."""
+    if c <= POA_STRIPS[-1]:
+        return min(w for w in POA_STRIPS if w >= c)
+    return min((w for w in POA_WIDE_STRIPS if POA_WIDE_WARPS * w >= c),
+               default=0)
+
+
 def poa_strip_widths(bands: torch.Tensor) -> torch.Tensor:
-    """Each pair's strip width S for K2's strip kernel: the smallest of
-    POA_STRIPS with 32*S >= 2*band+1, or 0 for a band above
-    POA_STRIP_MAX_BAND (the chunked kernel's).  int32 [B], on bands'
+    """Each pair's strip width S in its K2 class (W, S): W = `poa_warps`,
+    S the smallest of its table with 32*W*S >= 2*band+1 (`_strip_for`),
+    for every band up to POA_WIDE_MAX_BAND.  int32 [B], on bands'
     device."""
     need = (2 * bands.long() + 32) // 32  # ceil((2*band+1) / 32)
     by_need = _STRIP_BY_NEED.get(bands.device)
     if by_need is None:
-        # by_need[c]: the smallest strip width >= c cells a lane, 0 past
-        # them; copied to each device once.
+        # by_need[c]: the strip width of c cells a lane; copied to each
+        # device once.
         by_need = _STRIP_BY_NEED[bands.device] = torch.tensor(
-            [min((w for w in POA_STRIPS if w >= c), default=0)
-             for c in range(POA_STRIPS[-1] + 2)], dtype=torch.int32,
-            device=bands.device)
-    return by_need[need.clamp(max=POA_STRIPS[-1] + 1)]
+            [_strip_for(c) for c in range(
+                POA_WIDE_WARPS * POA_WIDE_STRIPS[-1] + 2)],
+            dtype=torch.int32, device=bands.device)
+    return by_need[need.clamp(max=len(by_need) - 1)]
 
 
 def poa_work_order(ns: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
     """K2's work list, int32 [B]: the pairs of the strip kernel, then those
-    of the chunked kernel, each by n*(2*band+1) descending (ties in input
+    of the wide kernel, each by n*(2*band+1) descending (ties in input
     order), so that the longest chains of rows start first."""
     work = ns.long() * (2 * bands.long() + 1)
     wide = (bands > POA_STRIP_MAX_BAND).long()
@@ -263,25 +297,30 @@ def poa_dp_plan(M: int, N: int, ms: torch.Tensor, ns: torch.Tensor,
                 bands: torch.Tensor):
     """K2's launch plan, made on the pairs' device: (offsets [B+1] int64 of
     `poa_ptr_offsets`, the work list [B] int32 of `poa_work_order`, the
-    strip widths [B] int32 of `poa_strip_widths`, the widest band, the
-    pointer bytes, the number of strip pairs).  The last three come to the
-    host with the range checks of `_check_pairs`, in one read, which raises
-    for a pair the kernels do not take.  Its cost is host dispatch, one
-    launch per op, so the lengths are cast to int64 once: the helpers'
-    own casts are then no-ops."""
+    strip widths [B] int32 of `poa_strip_widths`, the pointer bytes, the
+    number of strip pairs, which lead the work list).  The last two come
+    to the host with the range checks of `_check_pairs`, in one read,
+    which raises for a pair the kernels do not take.  Its cost is host
+    dispatch, one launch per op, so the lengths are cast to int64 once:
+    the helpers' own casts are then no-ops."""
     m, n, band = ms.long(), ns.long(), bands.long()
     offsets = poa_ptr_offsets(n, band)
     strips = poa_strip_widths(band)
     order = poa_work_order(n, band)
-    max_band, (total, n_strip) = _check_pairs(
-        M, N, m, n, band, offsets[-1], (strips > 0).sum())
-    return offsets, order, strips, max_band, total, n_strip
+    _, (total, n_strip) = _check_pairs(
+        M, N, m, n, band, offsets[-1], (band <= POA_STRIP_MAX_BAND).sum())
+    return offsets, order, strips, total, n_strip
 
 
 def _dp_ptr_launch(tpad, ms, qpad, ns, bands, plan) -> torch.Tensor:
     """K2's launches over a batch checked by `_pair_args` with its plan
-    (`poa_dp_plan`); returns the pointers."""
-    offsets, order, strips, max_band, total, n_strip = plan
+    (`poa_dp_plan`); returns the pointers.  The wide pairs' launch runs on
+    a side stream, after the current stream's work so far, beside the
+    strip pairs' launch on the current stream, which then waits for it:
+    the batch takes the longer of the two, not their sum.  (Every tensor
+    the side stream touches is the current stream's, which waits for it
+    before anything else runs.)"""
+    offsets, order, strips, total, n_strip = plan
     (B, M), N, dev = tpad.shape, qpad.shape[1], tpad.device
     ptr = torch.empty(total, dtype=torch.int8, device=dev)
     lib = load_library()
@@ -289,16 +328,23 @@ def _dp_ptr_launch(tpad, ms, qpad, ns, bands, plan) -> torch.Tensor:
             ns.data_ptr(), bands.data_ptr(), offsets.data_ptr(),
             ptr.data_ptr())
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        if n_strip < B:
+            side = _SIDE_STREAM.get(dev)
+            if side is None:
+                side = _SIDE_STREAM[dev] = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            rc = lib.svtrek_poa_dp_ptr_wide(
+                *args, order[n_strip:].data_ptr(), strips.data_ptr(),
+                B - n_strip, side.cuda_stream)
+            _launched("poa_dp_ptr_wide", lib, rc)
         if n_strip:
             rc = lib.svtrek_poa_dp_ptr_strip(
-                *args, order.data_ptr(), strips.data_ptr(), n_strip, stream)
+                *args, order.data_ptr(), strips.data_ptr(), n_strip,
+                cur.cuda_stream)
             _launched("poa_dp_ptr", lib, rc)
         if n_strip < B:
-            rc = lib.svtrek_poa_dp_ptr_chunked(
-                *args, order[n_strip:].data_ptr(), B - n_strip, max_band,
-                stream)
-            _launched("poa_dp_ptr", lib, rc)
+            cur.wait_stream(side)
     return ptr
 
 
@@ -334,7 +380,8 @@ def poa_dp_ptr_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
 
     The plan (`poa_dp_plan`) is made on the device, with one host read.
     The pairs with a band up to POA_STRIP_MAX_BAND run in one launch of
-    the strip kernel, the wider ones in one launch of the chunked kernel."""
+    the strip kernel, the wider ones in one launch of the wide kernel
+    beside it (`_dp_ptr_launch`)."""
     _require_cuda("poa_dp_ptr_cuda", tpad)
     B, M, N = _pair_args(tpad, ms, qpad, ns, bands)
     dev = tpad.device

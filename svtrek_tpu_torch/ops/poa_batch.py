@@ -21,7 +21,7 @@ from .poa import (
     accumulate_votes, assemble_consensus, banded_align_ins, decode,
     decode_ins, encode, majority_length_mode, new_vote_state,
 )
-from ..kernels import POA_MAX_BAND
+from ..kernels import POA_MAX_BAND, POA_STRIP_MAX_BAND
 from .poa_dp import PAD, dp_cols
 
 # svtrek_tpu's band cap: wider pairs take its scalar host DP, and here
@@ -93,13 +93,15 @@ def banded_cols_batch(targets, queries, band: int = 64,
     others through one `dp_cols` call on ``device``.  With ``counts``:
     counts["dp_calls"] counts that call, counts["band_wide"] the pairs it
     takes with a band above JAX_BAND_CAP (those the JAX package sends to
-    the host), counts["band_scalar"] the pairs on the host path."""
+    the host), counts["band_wide_k2"] those with a band above
+    kernels.POA_STRIP_MAX_BAND (K2's wide kernel's on CUDA),
+    counts["band_scalar"] the pairs on the host path."""
     assert len(targets) == len(queries)
     nn = len(targets)
     cols_out = [None] * nn
     segs_out = [None] * nn
     dev_idx = []
-    wide = 0
+    wide = wide_k2 = 0
     for i, (t, q) in enumerate(zip(targets, queries)):
         eb = max(band, abs(len(q) - len(t)) + 1)
         if eb > band_cap or eb >= max(len(t), 1) + len(q):
@@ -108,8 +110,10 @@ def banded_cols_batch(targets, queries, band: int = 64,
         else:
             dev_idx.append(i)
             wide += eb > JAX_BAND_CAP
+            wide_k2 += eb > POA_STRIP_MAX_BAND
     if counts is not None:
         counts["band_wide"] = counts.get("band_wide", 0) + wide
+        counts["band_wide_k2"] = counts.get("band_wide_k2", 0) + wide_k2
         counts["band_scalar"] = counts.get("band_scalar", 0) + \
             nn - len(dev_idx)
     if not dev_idx:

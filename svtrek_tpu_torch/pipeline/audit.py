@@ -172,6 +172,9 @@ class AuditStats:
     cons_band_wide: int = 0  # star engine: pairs on the DP with a band
                              # above the JAX package's cap of 512
     cons_band_scalar: int = 0  # star engine: pairs on the host DP
+    cons_band_wide_k2: int = 0  # star engine: pairs with a band above
+                                # kernels.POA_STRIP_MAX_BAND (K2's wide
+                                # kernel on cuda)
     total_s: float = 0.0
     records: int = 0
     windows: int = 0
@@ -210,7 +213,8 @@ class AuditStats:
                 f"dp_calls={self.cons_dp_calls} "
                 f"graph_scalar={self.cons_graph_scalar} "
                 f"band_wide={self.cons_band_wide} "
-                f"band_scalar={self.cons_band_scalar}",
+                f"band_scalar={self.cons_band_scalar} "
+                f"band_wide_k2={self.cons_band_wide_k2}",
                 file=err,
             )
 
@@ -440,7 +444,7 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
         seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
                                   C.SV_MIN_LENGTH, lo, hi))
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
-              "band_scalar": 0}
+              "band_scalar": 0, "band_wide_k2": 0}
     for res, s in zip(records, consensus_batch(
             seq_lists, device=device, counts=counts)):
         res.seq = s or ""
@@ -451,6 +455,7 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     stats.cons_graph_scalar += counts["graph_scalar"]
     stats.cons_band_wide += counts["band_wide"]
     stats.cons_band_scalar += counts["band_scalar"]
+    stats.cons_band_wide_k2 += counts["band_wide_k2"]
     stats.cons_s += time.perf_counter() - t0
 
 

@@ -389,7 +389,8 @@ def consensus_insert_sequences(clusters: list[SvCluster], fq_path: str,
     theirs: "dp_calls" counts the DP batches, "graph_scalar" the graph
     engine's clusters on the scalar route, "band_wide" and "band_scalar"
     the star engine's pairs with a band above the JAX package's 512 on
-    the DP and its pairs on the host DP)."""
+    the DP and its pairs on the host DP, "band_wide_k2" its pairs with a
+    band above kernels.POA_STRIP_MAX_BAND, K2's wide kernel's on cuda)."""
     wanted: dict[str, list[tuple[SvCluster, Breakpoint]]] = {}
     for c in clusters:
         if c.type != "INS":
@@ -488,7 +489,7 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     (detect_s, cluster_s, consensus_s, emit_s, total_s, scan_wait_s) and
     counts (reads, scan_batches, rescans, host_reads, breakpoints,
     clusters, ins_clusters, dp_calls, graph_scalar, band_wide,
-    band_scalar) and, when the detection runs, its shard count
+    band_scalar, band_wide_k2) and, when the detection runs, its shard count
     (data_shards); nothing is printed for
     them.
 
@@ -540,7 +541,7 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
                                    cfg.cluster_window)
     t_cluster = time.perf_counter()
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
-              "band_scalar": 0}
+              "band_scalar": 0, "band_wide_k2": 0}
     consensus_insert_sequences(clusters, cfg.fq_file, cfg.poa_engine,
                                device=device, counts=counts)
     t_cons = time.perf_counter()

@@ -71,9 +71,32 @@ PALLAS_CASES = [(1, 8, 200, 16), (2, 5, 60, 8), (3, 16, 300, 32),
                 (4, 4, 500, 64), (10, 2, 900, 64)]
 
 
+def _bands_wide():
+    """Bands 528-2,048 (K2's wide kernel's) at a few dozen rows: mutated
+    and unrelated queries, n above and below m, an empty target and
+    query, |n - m| up to the band."""
+    rng = np.random.default_rng(13)
+    shapes = [(30, 40, 528), (60, 45, 1024), (10, 50, 2048), (48, 20, 700),
+              (0, 12, 600), (25, 0, 530), (64, 64, 1500), (5, 60, 575),
+              (40, 40, 767), (33, 30, 768)]
+    B = len(shapes)
+    tpad = np.full((B, 64), 5, np.int8)
+    qpad = np.full((B, 64), 5, np.int8)
+    for b, (m, n, _) in enumerate(shapes):
+        t = rng.integers(0, 4, m).astype(np.int8)
+        q = np.resize(t, n) if b % 2 and m else rng.integers(0, 4, n)
+        q = np.where(rng.random(n) < 0.1, rng.integers(0, 4, n), q)
+        tpad[b, :m], qpad[b, :n] = t, q
+    return (tpad, np.array([m for m, _, _ in shapes], np.int32), qpad,
+            np.array([n for _, n, _ in shapes], np.int32),
+            np.array([bd for _, _, bd in shapes], np.int32), 2048)
+
+
 def _case(name):
     if name == "degenerate":
         return _degenerate()
+    if name == "bands_wide":
+        return _bands_wide()
     if name == "overrun":
         return _overrun()
     if name == "b300":  # not a multiple of the TPU's 256-pair tile
@@ -83,7 +106,7 @@ def _case(name):
 
 
 CASES = [str(i) for i in range(len(PALLAS_CASES))] + [
-    "degenerate", "overrun", "b300"]
+    "degenerate", "overrun", "b300", "bands_wide"]
 
 
 def _pallas_ptr(tpad, ms, qpad, ns, bands, W):
@@ -104,7 +127,7 @@ def _pallas_ptr(tpad, ms, qpad, ns, bands, W):
                                     Bt=B, interpret=True))
 
 
-@pytest.mark.parametrize("name", ["0", "1", "3", "degenerate"])
+@pytest.mark.parametrize("name", ["0", "1", "3", "degenerate", "bands_wide"])
 def test_dp_ptr_matches_pallas_and_traceback_matches_tb_pallas(name):
     tpad, ms, qpad, ns, bands, W = _case(name)
     got = poa_dp.dp_ptr_reference(*_t(tpad, ms, qpad, ns, bands), W=W)
@@ -225,18 +248,21 @@ def test_banded_cols_band_cap_fallback():
     for a, b in zip(got[0], want[0]):
         np.testing.assert_array_equal(a, b)
     assert got[1] == want[1]
-    assert counts == {"dp_calls": 1, "band_wide": 0, "band_scalar": 1}
+    assert counts == {"dp_calls": 1, "band_wide": 0, "band_scalar": 1,
+                      "band_wide_k2": 0}
 
 
 def test_banded_cols_bands_past_jax_cap_take_the_device_path():
     """Pairs with |n - m| + 1 in 513-2,048 (past the JAX package's
     band_cap 512, which sends them to its scalar DP) go through the
-    default call's DP, counted in band_wide, and give JAX's default cols
-    and segs; a degenerate pair (band >= m + n) and a pair past K2's
-    widest band stay on the scalar DP, counted in band_scalar."""
+    default call's DP, counted in band_wide (and in band_wide_k2 those
+    past POA_STRIP_MAX_BAND 527, K2's wide kernel's on CUDA), and give
+    JAX's default cols and segs; a degenerate pair (band >= m + n) and a
+    pair past K2's widest band stay on the scalar DP, counted in
+    band_scalar."""
     rng = np.random.default_rng(17)
     shapes = [(200, 800), (150, 700), (900, 300), (60, 40), (0, 600),
-              (30, 2100)]
+              (30, 2100), (400, 930)]
     targets, queries = [], []
     for m, n in shapes:
         t = _rand_seq(rng, m)
@@ -246,6 +272,9 @@ def test_banded_cols_bands_past_jax_cap_take_the_device_path():
     bands = [max(16, abs(len(q) - len(t)) + 1)
              for t, q in zip(targets, queries)]
     assert sum(512 < b <= kernels.POA_MAX_BAND and b < len(t) + len(q)
+               for b, t, q in zip(bands, targets, queries)) == 4
+    assert sum(kernels.POA_STRIP_MAX_BAND < b <= kernels.POA_MAX_BAND
+               and b < len(t) + len(q)
                for b, t, q in zip(bands, targets, queries)) == 3
     assert bands[4] >= len(targets[4]) + len(queries[4])
     assert bands[5] > kernels.POA_MAX_BAND
@@ -257,7 +286,8 @@ def test_banded_cols_bands_past_jax_cap_take_the_device_path():
         np.testing.assert_array_equal(got_cols[i], jax_cols[i],
                                       err_msg=str(i))
         assert got_segs[i] == jax_segs[i], i
-    assert counts == {"dp_calls": 1, "band_wide": 3, "band_scalar": 2}
+    assert counts == {"dp_calls": 1, "band_wide": 4, "band_scalar": 2,
+                      "band_wide_k2": 3}
 
 
 @pytest.mark.parametrize("B,M,noncontig", [(7, 40, False), (5, 1, True),
@@ -346,22 +376,60 @@ def test_host_helpers_match_jax():
 
 
 def test_strip_widths_give_every_pair_one_class():
-    """K2's dispatch: every band up to POA_MAX_BAND gets the smallest strip
-    width S with 32*S >= 2*band+1, or 0 (the chunked kernel) above
-    POA_STRIP_MAX_BAND, never both."""
+    """K2's dispatch: every band up to POA_MAX_BAND gets exactly one class
+    (W, S), whose 32*W*S cells cover its 2*band+1: one warp (the strip
+    kernel) and the smallest strip width of POA_STRIPS up to
+    POA_STRIP_MAX_BAND, POA_WIDE_WARPS warps (the wide kernel) and the
+    smallest of POA_WIDE_STRIPS above it.  The tables are the kernels'
+    (csrc/poa.cu checks them at load)."""
     bands = torch.arange(0, kernels.POA_MAX_BAND + 1, dtype=torch.int32)
     strips = kernels.poa_strip_widths(bands)
-    width = 2 * bands + 1
-    strip_cls = strips > 0
-    assert torch.equal(strip_cls, bands <= kernels.POA_STRIP_MAX_BAND)
-    assert (32 * strips[strip_cls] >= width[strip_cls]).all()
-    table = torch.tensor(kernels.POA_STRIPS)
-    smaller = torch.cat([torch.zeros(1, dtype=table.dtype), table[:-1]])
-    pos = torch.bucketize(strips[strip_cls], table)
-    assert torch.equal(table[pos], strips[strip_cls].long())
-    assert (32 * smaller[pos] < width[strip_cls]).all()  # the smallest fit
-    assert set(strips.tolist()) == set(kernels.POA_STRIPS) | {0}
     assert strips.dtype == torch.int32
+    width = 2 * bands + 1
+    warps = torch.tensor([kernels.poa_warps(b) for b in bands.tolist()])
+    strip_cls = warps == 1
+    assert torch.equal(strip_cls, bands <= kernels.POA_STRIP_MAX_BAND)
+    assert set(warps.tolist()) == {1, kernels.POA_WIDE_WARPS}
+    assert (32 * warps * strips >= width).all()
+    for cls, table in ((strip_cls, kernels.POA_STRIPS),
+                       (~strip_cls, kernels.POA_WIDE_STRIPS)):
+        table = torch.tensor(table)
+        smaller = torch.cat([torch.zeros(1, dtype=table.dtype), table[:-1]])
+        pos = torch.bucketize(strips[cls], table)
+        assert torch.equal(table[pos], strips[cls].long())  # in its table
+        # the smallest fit
+        assert (32 * warps[cls] * smaller[pos] < width[cls]).all()
+        assert set(strips[cls].tolist()) == set(table.tolist())
+    assert kernels.POA_MAX_BAND <= kernels.POA_WIDE_MAX_BAND
+    assert 32 * kernels.POA_WIDE_WARPS * kernels.POA_WIDE_STRIPS[-1] >= \
+        2 * kernels.POA_WIDE_MAX_BAND + 1
+
+
+def test_poa_source_builds_the_plans_tables():
+    """csrc/poa.cu's strip-width lists (each a kernel's switch cases and
+    the table svtrek_poa_strips exports for the load check) and its warps
+    a wide pair are kernels.POA_STRIPS, POA_WIDE_STRIPS and
+    POA_WIDE_WARPS, and an unlisted width traps instead of writing
+    nothing."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(kernels.__file__).parent.parent / "csrc" /
+           "poa.cu").read_text()
+
+    def table(name):
+        body = re.search(rf"#define {name}\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                         src).group(1)
+        return tuple(int(x) for x in re.findall(r"X\((\d+)\)", body))
+
+    assert table("SVTREK_STRIPS") == kernels.POA_STRIPS
+    assert table("SVTREK_WIDE_STRIPS") == kernels.POA_WIDE_STRIPS
+    warps = re.search(r"constexpr int kWideWarps = (\d+);", src).group(1)
+    assert int(warps) == kernels.POA_WIDE_WARPS
+    for kernel in ("poa_dp_ptr_strip_kernel", "poa_dp_ptr_wide_kernel"):
+        body = src[src.index(f"\n{kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "default:\n      __trap();" in body
 
 
 @pytest.mark.parametrize("case", [
@@ -371,15 +439,17 @@ def test_check_pairs_reads_the_plan_and_refuses_bad_pairs(case):
     """K2's and K3's range check reduces on the tensors' device and reads
     the widest band, the pointer bytes and the number of strip pairs back
     at once; a pair outside the range the kernels take raises.  K2's plan
-    is made of the helpers the other tests hold to the plain DP."""
-    ms = torch.tensor([40, 0, 10, 60, 300], dtype=torch.int32)
-    ns = torch.tensor([0, 40, 50, 55, 290], dtype=torch.int32)
-    bands = torch.tensor([41, 41, 41, 8, 600], dtype=torch.int32)
-    M, N = 300, 290
+    is made of the helpers the other tests hold to the plain DP: its work
+    list leads with the strip pairs, and each wide pair (band above
+    POA_STRIP_MAX_BAND) has its wide strip width."""
+    ms = torch.tensor([40, 0, 10, 60, 300, 20, 0], dtype=torch.int32)
+    ns = torch.tensor([0, 40, 50, 55, 290, 900, 5], dtype=torch.int32)
+    bands = torch.tensor([41, 41, 41, 8, 600, 2048, 528], dtype=torch.int32)
+    M, N = 300, 900
     if case == "m_over_M":
         M = 299
     elif case == "n_over_N":
-        N = 289
+        N = 899
     elif case == "m_negative":
         ms[1] = -1
     elif case == "outside_band":
@@ -388,7 +458,8 @@ def test_check_pairs_reads_the_plan_and_refuses_bad_pairs(case):
         bands[4] = kernels.POA_MAX_BAND + 1
     offsets = kernels.poa_ptr_offsets(ns, bands)
     strips = kernels.poa_strip_widths(bands)
-    args = (M, N, ms, ns, bands, offsets[-1], (strips > 0).sum())
+    args = (M, N, ms, ns, bands, offsets[-1],
+            (bands <= kernels.POA_STRIP_MAX_BAND).sum())
     if case != "ok":
         with pytest.raises(ValueError, match="out of range"):
             kernels._check_pairs(*args)
@@ -396,14 +467,17 @@ def test_check_pairs_reads_the_plan_and_refuses_bad_pairs(case):
             kernels.poa_dp_plan(M, N, ms, ns, bands)
         return
     max_band, (total, n_strip) = kernels._check_pairs(*args)
-    assert (max_band, n_strip) == (600, 4)
+    assert (max_band, n_strip) == (2048, 4)
     assert total == int((ns.long() * (2 * bands.long() + 1)).sum())
     assert all(isinstance(v, int) for v in (max_band, total, n_strip))
     p_off, p_order, p_strips, *p_rest = kernels.poa_dp_plan(M, N, ms, ns,
                                                             bands)
     assert torch.equal(p_off, offsets) and torch.equal(p_strips, strips)
     assert torch.equal(p_order, kernels.poa_work_order(ns, bands))
-    assert p_rest == [max_band, total, n_strip]
+    assert p_rest == [total, n_strip]
+    # the wide pairs, longest chain first, after the strip pairs
+    assert p_order.tolist()[n_strip:] == [5, 4, 6]
+    assert p_strips.tolist()[4:] == [5, 17, 5]
 
 
 @pytest.mark.parametrize("name", ["1", "3", "degenerate", "overrun", "wide"])
@@ -702,6 +776,91 @@ def test_k3_model_reads_any_code_as_the_walk_does():
         got = _k3_model(ptr, offsets, q_t, m_t, n_t, b_t, order, M,
                         base=1, win=win, run_len=run_len)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _k2_model(t, q, m, n, band, W, S, lanes=32):
+    """A numpy model of K2's row on W warps of `lanes` lanes, S cells a
+    lane (csrc/poa.cu dp_pair<W, S>; the strip kernel is W = 1): the
+    score row in per-lane strips, the target bases shifted a cell a row
+    with each warp's last lane loading its top cell's base, pass 1 with
+    the up bit in the score's low bit, each warp's scan of its lanes'
+    maxima and the carry of the warps before it, pass 2, the row's codes
+    at its width.  Returns the pair's n rows of 2*band+1 codes."""
+    T, width = lanes * W, 2 * band + 1
+    assert T * S > width
+    t = np.asarray(t, np.int64)
+
+    def base(j):  # target base of column j, the pad outside [1, m]
+        return np.where((j >= 1) & (j <= m), t[np.clip(j - 1, 0, max(m - 1,
+                                                                     0))]
+                        if m else poa_dp.PAD, poa_dp.PAD)
+
+    k = np.arange(T * S).reshape(T, S)
+    j0 = k - band
+    sc = np.where((k < width) & (j0 >= 0) & (j0 <= min(m, band)),
+                  poa.GAP * j0, poa_dp.NEG)
+    tb = base(1 + j0)
+    # each warp's last lane's top cell, as a column offset from the row
+    top = lanes * (np.arange(W) + 1) * S - 1 - band
+    last = np.arange(T) % lanes == lanes - 1
+    s_idx = np.arange(S)
+    out = np.empty((n, width), np.int8)
+    for i in range(1, n + 1):
+        up_next = np.append(sc[1:, 0], poa_dp.NEG)  # the next lane's first
+        up = np.concatenate([sc[:, 1:], up_next[:, None]], 1) + poa.GAP
+        diag = sc + np.where(tb == q[i - 1], poa.MATCH, poa.MISMATCH)
+        jb = (i - band + k[:, :1])
+        valid = (s_idx >= 1 - jb) & (s_idx <= np.minimum(m - jb,
+                                                         width - 1 - k[:, :1]))
+        bmask = s_idx == (-jb if i <= band else -1)
+        cand = np.where(valid, np.maximum(diag, up),
+                        np.where(bmask, poa.GAP * i, poa_dp.NEG))
+        v = cand | (bmask | (up > diag))
+        tot = (cand - poa.GAP * k).max(1).reshape(W, lanes)
+        incl = np.maximum.accumulate(tot, 1)
+        excl = np.concatenate([np.full((W, 1), poa_dp.NEG), incl[:, :-1]], 1)
+        carry = np.concatenate([[poa_dp.NEG],
+                                np.maximum.accumulate(incl[:, -1])[:-1]])
+        run = np.maximum(excl, carry[:, None]).reshape(T, 1)
+        c = v & ~1
+        pre = np.maximum.accumulate(c - poa.GAP * k, 1)
+        run = np.maximum(run, np.concatenate(
+            [np.full((T, 1), poa_dp.NEG), pre[:, :-1]], 1))
+        left = run + poa.GAP * k
+        use = valid & (left > c)
+        sc = np.where(use, left, c)
+        out[i - 1] = np.where(use, 2, v & 1).reshape(-1)[:width]
+        # the next row's bases: a cell down; each warp's last lane's top
+        nxt = np.append(tb[1:, 0], poa_dp.PAD)
+        nxt[last] = base(i + 1 + top)
+        tb = np.concatenate([tb[:, 1:], nxt[:, None]], 1)
+    return out
+
+
+@pytest.mark.parametrize("lanes", [32, 4])
+@pytest.mark.parametrize("name", ["1", "degenerate", "overrun",
+                                  "bands_wide", "runs_left", "runs_up"])
+def test_k2_model_matches_plain_dp(name, lanes):
+    """K2's rows on W warps (the model of csrc/poa.cu's dp_pair) equal the
+    plain DP's pointers, every cell of every pair's band: at each pair's
+    own class (kernels.poa_warps and poa_strip_widths: the strip kernel's
+    one warp, the wide kernel's eight) and, with 4-lane warps, on 1 to 5
+    warps of a few cells a lane, so that small bands cross many warps."""
+    tpad, ms, qpad, ns, bands, _, _, ptr, offsets = _k3_inputs(name)
+    strips = kernels.poa_strip_widths(torch.from_numpy(bands)).tolist()
+    for b in range(len(ms)):
+        m, n, band = int(ms[b]), int(ns[b]), int(bands[b])
+        width = 2 * band + 1
+        if lanes == 32:
+            warps, S = kernels.poa_warps(band), strips[b]
+        else:
+            warps = 1 + b % 5
+            S = width // (lanes * warps) + 1
+        got = _k2_model(tpad[b, :m], qpad[b, :n], m, n, band, warps, S,
+                        lanes)
+        want = ptr[int(offsets[b]):int(offsets[b + 1])].numpy()
+        np.testing.assert_array_equal(got.reshape(-1), want,
+                                      err_msg=f"pair {b} W={warps} S={S}")
 
 
 def test_dp_cols_cuda_path_refuses_cpu_tensors():

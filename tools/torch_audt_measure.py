@@ -2,7 +2,7 @@
 """End-to-end split of the PyTorch port's `audt` and `disc` runs on one
 card.
 
-    python tools/torch_audt_measure.py [--ins-consensus | --disc] [--graph [--long | --xlong]] [--trace-dir DIR]
+    python tools/torch_audt_measure.py [--ins-consensus [--spread] | --disc] [--graph [--long | --xlong]] [--trace-dir DIR]
 
 On chip_smoke.py's 5,000-record fixture (built there, or reused from the
 temp dir), runs `python -m svtrek_tpu_torch.cli audt --verbose` in this
@@ -17,8 +17,11 @@ fixture instead, with `--ins-consensus --device cuda` twice (a
 graph`), the ins-consensus runs on chip_smoke.py's graph sub-VCF (the
 first 400 sites whose insert is at most 700 bases; with `--long`, on the
 first 64 sites of its long-site run, inserts past 1,024 bases; with
-`--xlong`, on its xlong sites, longest alleles past 4,000 bases).  A last
-run under
+`--xlong`, on its xlong sites, longest alleles past 4,000 bases); with
+`--spread`, on chip_smoke.py's spread-length sites (phase 16), whose
+star-engine pairs take K2's wide kernel.  Each star-engine run on the card
+also prints K2's CUDA-event time of each DP batch (`chip_smoke.k2_timer`).
+A last run under
 `--trace-dir` writes a torch.profiler trace and prints its summary:
 the traced window, the events and time per category, the device events by
 name, and the card's busy and idle share of the window.  A trace slows the
@@ -55,12 +58,16 @@ def run_cli(bam: str, vcf: str, flags: list[str]) -> None:
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
-            contextlib.redirect_stderr(err):
+            contextlib.redirect_stderr(err), chip_smoke.k2_timer() as k2:
         rc = cli.main(["audt", "-b", bam, "-v", vcf, "-o", os.devnull,
                        "--verbose", *flags])
     wall = time.perf_counter() - t0
     verbose = " ".join(l for l in err.getvalue().splitlines()
                        if l.startswith("[VERBOSE]"))
+    if k2:
+        k2[-1][1].synchronize()
+        verbose += " K2 a DP batch (CUDA events) " + ", ".join(
+            f"{a.elapsed_time(b):.4f}" for a, b in k2) + " ms"
     print(f"{' '.join(flags)}: rc {rc} wall {wall:.4f}s {verbose}",
           flush=True)
     if rc != 0:
@@ -115,6 +122,26 @@ def summarize_trace(path: str) -> None:
           f"{100 * (1 - busy / window):.4f} %", flush=True)
 
 
+def graph_vcf(args, vcf: str, sites) -> str:
+    """The ins fixture's VCF, or with --graph the sub-VCF of its graph
+    cell (--long, --xlong: of those sites)."""
+    if args.graph and args.long:
+        return chip_smoke.sub_vcf(
+            vcf, [i for i, s in enumerate(sites)
+                  if chip_smoke.long_site(s)][:chip_smoke.GRAPH_LONG_SITES],
+            "graph_long_measure.vcf")
+    if args.graph and args.xlong:
+        return chip_smoke.sub_vcf(
+            vcf, [i for i, s in enumerate(sites)
+                  if chip_smoke.longest_allele(s) >
+                  chip_smoke.GRAPH_LONG_ALLELE],
+            "graph_xlong_measure.vcf")
+    if args.graph:
+        return chip_smoke.graph_sub_vcf(vcf, sites,
+                                        chip_smoke.GRAPH_SITES)[0]
+    return vcf
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace-dir", default=os.path.join(ROOT, "chiprun_out",
@@ -130,6 +157,8 @@ def main() -> None:
                     help="with --ins-consensus --graph: the long sites")
     ap.add_argument("--xlong", action="store_true",
                     help="with --ins-consensus --graph: the xlong sites")
+    ap.add_argument("--spread", action="store_true",
+                    help="with --ins-consensus: the spread-length sites")
     args = ap.parse_args()
     engine = ["--poa-engine", "graph"] if args.graph else []
     print(subprocess.run(
@@ -140,21 +169,11 @@ def main() -> None:
         measure_disc(args.trace_dir, engine)
         return
     if args.ins_consensus:
-        bam, vcf, sites = chip_smoke.ins_fixture()
-        if args.graph and args.long:
-            vcf = chip_smoke.sub_vcf(
-                vcf, [i for i, s in enumerate(sites)
-                      if chip_smoke.long_site(s)][:chip_smoke.GRAPH_LONG_SITES],
-                "graph_long_measure.vcf")
-        elif args.graph and args.xlong:
-            vcf = chip_smoke.sub_vcf(
-                vcf, [i for i, s in enumerate(sites)
-                      if chip_smoke.longest_allele(s) >
-                      chip_smoke.GRAPH_LONG_ALLELE],
-                "graph_xlong_measure.vcf")
-        elif args.graph:
-            vcf = chip_smoke.graph_sub_vcf(vcf, sites,
-                                           chip_smoke.GRAPH_SITES)[0]
+        if args.spread:
+            bam, vcf, _ = chip_smoke.spread_fixture()
+        else:
+            bam, vcf, sites = chip_smoke.ins_fixture()
+            vcf = graph_vcf(args, vcf, sites)
         runs = [[*flags, *engine] for flags in INS_RUNS]
         traced = runs[0]
     else:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Time kernels K1, K3 and G1 of this checkout beside an earlier design of
-them, on the card, in one process and on the same inputs.
+"""Time kernels K1, K2, K3 and G1 of this checkout beside an earlier design
+of them, on the card, in one process and on the same inputs.
 
     python tools/torch_kernel_ab.py DIR
 
@@ -10,7 +10,13 @@ DIR holds the earlier design's sources, any of:
   `svtrek_consensus_pos` (the same arguments as now) and
   `svtrek_poa_traceback(ptr, offsets, qpad, N, ms, ns, bands, B, M, cols,
   ins, stream)`, whose caller fills cols with -1 and ins with 0 (at
-  commit 13c3105);
+  commit 13c3105); K3 is timed against such a `poa.cu` only;
+- a `poa.cu` with K2's strip kernel and its chunked kernel for bands past
+  527 (commits 13c3105 to 4823a6b): `svtrek_poa_dp_ptr_strip` (the same
+  arguments as now) and `svtrek_poa_dp_ptr_chunked(tpad, M, ms, qpad, N,
+  ns, bands, offsets, ptr, order, count, max_band, stream)`, launched one
+  after the other on one stream over the work list of this checkout's
+  plan;
 - `poa_graph.cu`, an earlier design of G1, either
   - the block-per-pair design (at commit c6ff5e5): `svtrek_poa_graph_dp(
     base_td, pred_rows, npred, is_sink, Vs, qpad, ns, offsets, b0, count,
@@ -27,21 +33,28 @@ card's copy of the repo has no .git):
     mkdir -p scratch_checkout/before
     git show bab3b47:svtrek_tpu_torch/csrc/poa_graph.cu \
         > scratch_checkout/before/poa_graph.cu
+    git show 4823a6b:svtrek_tpu_torch/csrc/poa.cu \
+        > scratch_checkout/before/poa.cu
     python tools/torch_kernel_ab.py scratch_checkout/before
 
 The sources found are built with nvcc into a library of their own in a
 temporary directory.  Both designs run on chip_smoke.py's inputs: K1 at
-every `KERNEL_SHAPES` row, K3 on the `bench` and `flush` pair batches (the
-pointers from this checkout's K2), G1 on phase 13's `ins_mix` (256 pairs)
-and, against the warp design, on `long` (V 4,283 and 8,351, n 4,096).
+every `KERNEL_SHAPES` row, K2 on the `bench`, `flush`, `wide2k` and
+`wide_main` pair batches, K3 on `bench` and `flush` (the pointers from
+this checkout's K2), G1 on phase 13's `ins_mix` (256 pairs) and, against
+the warp design, on `long` (V 4,283 and 8,351, n 4,096).
 For each it prints the kernel's time alone (torch.profiler) and per call
 (CUDA events of what each design's wrapper does: the new wrapper; for the
-earlier K1 the same checks and its launch, for the earlier K3 the output
+earlier K1 the same checks and its launch, for the earlier K2 this
+checkout's plan and its two launches, for the earlier K3 the output
 fills, the range checks' host read and its launch, for the earlier G1 its
 wrapper: the range checks' host read, the launch split of the warp design
 at its 6 bytes a cell, the offsets' copy, the scratch, the output fills and
 its launches), whether the two designs' outputs are
-equal, and for K3 the longest walk's steps and ns a step.  The two designs
+equal, for K2 on the batches with bands past 527 also its wide kernel's
+and the chunked kernel's times alone and the cycles a row of their
+longest pair (at chip_smoke.SM_GHZ), and for K3 the longest walk's steps
+and ns a step.  The two designs
 are timed in turns (new, earlier, earlier, new), and each prints both of
 its readings.  It ends with the card's name and power limit.  It needs a
 CUDA card and nvcc.
@@ -50,6 +63,7 @@ from __future__ import annotations
 
 import ctypes as ct
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -88,12 +102,27 @@ def build_before(src_dir: str, out_dir: str):
         raise SystemExit(f"{src_dir} holds none of {SOURCES}")
     lib = nvcc_library([os.path.join(src_dir, f) for f in found], out_dir,
                        "svtrek_before")
+    if "poa.cu" in found:
+        # K3's one-thread-per-pair design takes no pointer-buffer size.
+        with open(os.path.join(src_dir, "poa.cu")) as fh:
+            if re.search(r"svtrek_poa_traceback\(const void\* ptr,\s*"
+                         r"const void\* offsets", fh.read()):
+                found.append("k3")
     p = ct.c_void_p
     if "consensus.cu" in found:
         lib.svtrek_consensus_pos.restype = ct.c_int
         lib.svtrek_consensus_pos.argtypes = [p, p, p] + [ct.c_int] * 6 + \
             [p] * 3
     if "poa.cu" in found:
+        if hasattr(lib, "svtrek_poa_dp_ptr_chunked"):
+            lib.svtrek_poa_dp_ptr_strip.restype = ct.c_int
+            lib.svtrek_poa_dp_ptr_strip.argtypes = [
+                p, ct.c_int, p, p, ct.c_int, p, p, p, p, p, p, ct.c_int, p]
+            lib.svtrek_poa_dp_ptr_chunked.restype = ct.c_int
+            lib.svtrek_poa_dp_ptr_chunked.argtypes = [
+                p, ct.c_int, p, p, ct.c_int, p, p, p, p, p, ct.c_int,
+                ct.c_int, p]
+    if "k3" in found:
         lib.svtrek_poa_traceback.restype = ct.c_int
         lib.svtrek_poa_traceback.argtypes = [p, p, p, ct.c_int, p, p, p,
                                              ct.c_int, ct.c_int, p, p, p]
@@ -166,6 +195,91 @@ def k1(lib) -> None:
               f"{readings(t, 'before')}; equal={equal}", flush=True)
 
 
+def pair_batch(ts, qs, band):
+    """chip_smoke.phase_poa_kernels' arrays of a pair batch, on the card:
+    (tpad, ms, qpad, ns, bands) as numpy, then as CUDA tensors."""
+    import torch
+
+    B = len(ts)
+    ms = np.array([len(t) for t in ts], np.int32)
+    ns = np.array([len(q) for q in qs], np.int32)
+    bands = np.maximum(band, np.abs(ns - ms) + 1).astype(np.int32)
+    tpad = np.full((B, max(int(ms.max()), 1)), 5, np.int8)
+    qpad = np.full((B, max(int(ns.max()), 1)), 5, np.int8)
+    for b in range(B):
+        tpad[b, :ms[b]] = ts[b]
+        qpad[b, :ns[b]] = qs[b]
+    host = (tpad, ms, qpad, ns, bands)
+    return host, [torch.from_numpy(a).cuda() for a in host]
+
+
+def k2(lib) -> None:
+    import torch
+
+    from svtrek_tpu_torch.kernels import (
+        POA_STRIP_MAX_BAND, poa_dp_plan, poa_dp_ptr_cuda,
+    )
+
+    rng = np.random.default_rng(2027)  # chip_smoke.phase_poa_kernels' pairs
+    for name, ts, qs, band in smoke.poa_batches(rng):
+        if name not in ("bench", "flush", "wide2k", "wide_main"):
+            continue
+        (tpad, ms, qpad, ns, bands), args = pair_batch(ts, qs, band)
+        B, M, N = len(ms), tpad.shape[1], qpad.shape[1]
+        max_band = int(bands.max())
+
+        def new():
+            return poa_dp_ptr_cuda(*args)[0]
+
+        def before():  # 4823a6b's wrapper: the plan, strip then chunked
+            offsets, order, strips, total, n_strip = poa_dp_plan(
+                M, N, args[1], args[3], args[4])
+            ptr = torch.empty(total, dtype=torch.int8, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+            common = (args[0].data_ptr(), M, args[1].data_ptr(),
+                      args[2].data_ptr(), N, args[3].data_ptr(),
+                      args[4].data_ptr(), offsets.data_ptr(), ptr.data_ptr())
+            if n_strip:
+                check(lib.svtrek_poa_dp_ptr_strip(
+                    *common, order.data_ptr(), strips.data_ptr(), n_strip,
+                    stream))
+            if n_strip < B:
+                check(lib.svtrek_poa_dp_ptr_chunked(
+                    *common, order[n_strip:].data_ptr(), B - n_strip,
+                    max_band, stream))
+            return ptr
+
+        a, b = new(), before()
+        torch.cuda.synchronize()
+        equal = torch.equal(a, b)
+        slow = name == "wide_main"  # the chunked kernel takes 100+ ms
+        t = in_turns(new, before, "poa_dp_ptr", 2 if slow else 10,
+                     3 if slow else 20)
+        line = (f"[ab] K2 {name}: B={B}, bands {int(bands.min())}-"
+                f"{max_band}; {readings(t, 'new')}; {readings(t, 'before')}; "
+                f"equal={equal}")
+        wide = bands > POA_STRIP_MAX_BAND
+        if wide.any():
+            far = int(np.argmax(np.where(wide, ns.astype(np.int64) * (
+                2 * bands.astype(np.int64) + 1), -1)))
+            parts = []
+            for tag, fn, kernel in (
+                    ("wide kernel", new, "poa_dp_ptr_wide"),
+                    ("chunked kernel", before, "poa_dp_ptr_chunked"),
+                    ("chunked kernel", before, "poa_dp_ptr_chunked"),
+                    ("wide kernel", new, "poa_dp_ptr_wide")):
+                ms_alone = smoke.device_ms(fn, kernel, 2 if slow else 5)
+                parts.append(f"{tag} alone {smoke.fmt_ms(ms_alone)}" + (
+                    "" if ms_alone is None else
+                    f" ({ms_alone * smoke.SM_GHZ * 1e6 / ns[far]:.1f} "
+                    f"cycles a row)"))
+            line += (f"; on its {int(wide.sum())} pairs past band "
+                     f"{POA_STRIP_MAX_BAND}, the longest (m, n, band) "
+                     f"({int(ms[far])}, {int(ns[far])}, {int(bands[far])}): "
+                     + ", ".join(parts))
+        print(line, flush=True)
+
+
 def k3(lib) -> None:
     import torch
 
@@ -177,17 +291,8 @@ def k3(lib) -> None:
     for name, ts, qs, band in smoke.poa_batches(rng):
         if name not in ("bench", "flush"):
             continue
-        B = len(ts)
-        ms = np.array([len(t) for t in ts], np.int32)
-        ns = np.array([len(q) for q in qs], np.int32)
-        bands = np.maximum(band, np.abs(ns - ms) + 1).astype(np.int32)
-        tpad = np.full((B, int(ms.max())), 5, np.int8)
-        qpad = np.full((B, int(ns.max())), 5, np.int8)
-        for b in range(B):
-            tpad[b, :ms[b]] = ts[b]
-            qpad[b, :ns[b]] = qs[b]
-        args = [torch.from_numpy(a).cuda()
-                for a in (tpad, ms, qpad, ns, bands)]
+        (tpad, ms, qpad, ns, bands), args = pair_batch(ts, qs, band)
+        B = len(ms)
         _, m_d, q_d, n_d, b_d = args
         M, N = tpad.shape[1], qpad.shape[1]
         ptr, offsets = poa_dp_ptr_cuda(*args)
@@ -306,7 +411,9 @@ def main() -> int:
         lib, found = build_before(sys.argv[1], tmp)
         if "consensus.cu" in found:
             k1(lib)
-        if "poa.cu" in found:
+        if "poa.cu" in found and hasattr(lib, "svtrek_poa_dp_ptr_chunked"):
+            k2(lib)
+        if "k3" in found:
             k3(lib)
         if "poa_graph.cu" in found:
             g1(lib)
