@@ -176,14 +176,30 @@ last line:
    the lines before `, seq:` byte-identical to tools/audt_scalar.py; and
    on the first 24 sites, `--device cuda` and `--device cpu` runs whose
    lines equal each other and the 40-site run's, with the same band
-   counts.
+   counts;
+17. routes (run after phase 9): the routes that the JAX package's static
+   shapes send to the host, on two synthetic route fixtures of
+   tools/torch_fixtures.py (shapes that reach a route, not user traffic).
+   `disc --device cuda` on the dense disc fixture (24,576 reads of 1 kb,
+   30 % with one deletion or clip of 60 bases or more, about 2,450 hits a
+   batch of 8,192): `rescans` 0 and a second page a batch or more (the
+   hits past the first page's 2,048, compacted on the card), the scan on
+   the card once per page, K2 and K3 once per DP batch, the lines equal
+   to a `--device cpu` run and, before `, seq:`, to tools/disc_scalar.py;
+   the first batch's two pages held to one page of its total and timed
+   (CUDA events).  `audt --extract device` and `audt --no-native-io` on
+   the route BAM (64 records; windows with a read of 20,000-40,000 CIGAR
+   ops, or one of 10-16 candidates): `long_ops` 0 and `dev_ovf` 0, the
+   walk and K1 on the card every batch, the lines equal to
+   tools/audt_scalar.py and to a `--device cpu` run.
 
 Every phase prints its wall time.  The line before the last two is
 {"kernels": [...]}: each kernel's launches on its path (K1 the
 ins-consensus audt, in `launches_extract_device` the device-extract
-audt, and in `launches_sharded` / `launches_sharded_extract` phase 15's
-4-shard host-extract and device-extract audt; K2's strip kernel and K3
-disc, K2's wide kernel the spread-site audt, K4 the probe, G1 the graph
+audt, in `launches_sharded` / `launches_sharded_extract` phase 15's
+4-shard host-extract and device-extract audt, and in `launches_routes`
+phase 17's two route-BAM audt runs; K2's strip kernel and K3 disc, and in
+`launches_routes` phase 17's dense disc, K2's wide kernel the spread-site audt, K4 the probe, G1 the graph
 audt and in `launches_disc` the graph disc), its
 largest difference from the plain version, its CUDA-event time beside the
 plain version's, its bound (`bound_ms`, `bound_by`: the larger of its bytes
@@ -208,7 +224,6 @@ power limit, then
 from __future__ import annotations
 
 import contextlib
-import functools
 import io
 import json
 import os
@@ -280,6 +295,14 @@ PROBE_CHECKS = [
     (1000, 100, 256, "full", 1), (16, 5, 2049, "full", 0),
     (16, 5, 4100, "full", 0), (16, 3, 16400, "full", 0),
 ]
+# The routes phase's fixtures (tools/torch_fixtures.py, synthetic shapes
+# that reach a route of the JAX package's static shapes, not user
+# traffic): the dense disc fixture's reads (3 batches of 8,192, about
+# 2,450 hits a batch against the scan's first page of 2,048) and the
+# device-walk route BAM's records (windows with a read of 20,000-40,000
+# ops, or one of 10-16 candidates), and the disc batch and first page.
+ROUTE_DISC_READS, ROUTE_RECORDS, ROUTE_SEED = 24_576, 64, 0
+DISC_BATCH, DISC_PAGE = 8192, 2048
 # The disc fixture (tools/bench_disc.py): reads, seed; and how many
 # insertion clusters tools/disc_scalar.py recomputes the consensus of.
 DISC_READS, DISC_SEED = 500_000, 0
@@ -1081,10 +1104,10 @@ def phase_extract_device(host_lines: list[str]) -> int:
             to_device(b.lens_flat, dev)] + [to_device(a, dev) for a in (
                 b.pos, b.n_ops, b.window_id, b.kind, b.inter_start,
                 b.inter_end, b.imprecise_pos)]
-    kw = dict(num_windows=b.num_windows, K=1024, O=b.ops_width)
+    kw = dict(num_windows=b.num_windows, K=1024)
     ms = cuda_ms(lambda: audit_refine_step_csr(*args, **kw), 10)
-    print(f"[extract] one batch's device step (CSR scatter, walk, grouping, "
-          f"K1): N={b.num_reads} O={b.ops_width} T={len(b.ops_flat)} "
+    print(f"[extract] one batch's device step (flat walk, grouping, K1): "
+          f"N={b.num_reads} O={int(b.n_ops.max())} T={len(b.ops_flat)} "
           f"B={b.num_windows} K=1024: {ms:.4f} ms (CUDA events, median of "
           f"10)", flush=True)
     return launches
@@ -2379,8 +2402,7 @@ def check_sharded_steps() -> dict:
                 fail(f"the demo batch at K={K} overflowed or refined to NA")
             for name, make, args in (
                     ("audit", sharded_audit_step, demo),
-                    ("audit_csr", functools.partial(
-                        sharded_audit_step_csr, O=16), csr)):
+                    ("audit_csr", sharded_audit_step_csr, csr)):
                 tag = f"{name} n={n} K={K}"
                 got = k1_run(tag, n, lambda: make(
                     gpu, num_windows=STEP_B, K=K)(*args))
@@ -2394,8 +2416,7 @@ def check_sharded_steps() -> dict:
             cpu, num_windows=STEP_B)(*cons).gather())
         same(f"{tag} against the dense step", got, want_cons)
         times["consensus"][n] = host_ms(lambda: step(*cons).gather())
-        csr_step = sharded_audit_step_csr(gpu, num_windows=STEP_B, K=1024,
-                                          O=16)
+        csr_step = sharded_audit_step_csr(gpu, num_windows=STEP_B, K=1024)
         times["walk_csr"][n] = host_ms(lambda: csr_step(*csr).gather())
 
         cap = max(256, 2048 // n)
@@ -2451,7 +2472,7 @@ def check_sharded_steps() -> dict:
                                                    csr_dt)]
     times["walk_csr"][1] = host_ms(lambda: tuple(
         o.cpu() for o in audit_refine_step_csr(
-            *csr, num_windows=STEP_B, K=1024, O=16)))
+            *csr, num_windows=STEP_B, K=1024)))
     for name, by_n in times.items():
         print(f"[multi] one batch's {name} step, dispatch and gather "
               f"(host clock, median of 20): " + ", ".join(
@@ -2661,6 +2682,153 @@ def phase_multi_device(fx, host_lines: list[str], disc_inputs: list[str],
     return launches["sharded"], launches["sharded extract"], times
 
 
+def route_fixtures():
+    """The routes phase's two fixtures, built once and cached under the
+    temp dir; returns (the disc CLI's input flags, route BAM, route VCF)."""
+    from torch_fixtures import build_dense_disc_fixture, build_route_bam
+
+    d = os.path.join(tempfile.gettempdir(),
+                     f"svtrek_smoke_routes_d{ROUTE_DISC_READS}_"
+                     f"r{ROUTE_RECORDS}_s{ROUTE_SEED}")
+    marker = os.path.join(d, "done")
+    if not os.path.exists(marker):
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        build_dense_disc_fixture(d, ROUTE_DISC_READS, seed=ROUTE_SEED)
+        build_route_bam(d, ROUTE_RECORDS, seed=ROUTE_SEED)
+        open(marker, "w").close()
+        print(f"[fixture] routes: {ROUTE_DISC_READS} dense disc reads and "
+              f"{ROUTE_RECORDS} route records built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return (["-r", os.path.join(d, "bench.gfa"), "-a",
+             os.path.join(d, "bench.gaf"), "-q", os.path.join(d, "bench.fq")],
+            os.path.join(d, "route.bam"), os.path.join(d, "route.vcf"))
+
+
+def page2_times(inputs: list[str]) -> dict:
+    """The dense fixture's first batch on the card: its hit total, and the
+    CUDA-event times of its first page and of its second page (the hits
+    past DISC_PAGE, `first`), the two pages laid end to end held to one
+    page of the batch's total."""
+    import torch
+
+    from svtrek_tpu_torch.io.gaf_native import NativeGafReader
+    from svtrek_tpu_torch.io.gfa import parse_gfa
+    from svtrek_tpu_torch.ops.discover import scan_projected_runs_compact_csr
+    from torch_step_overhead import cuda_ms
+
+    gfa, gaf = inputs[1], inputs[3]
+    reader = NativeGafReader(gaf, parse_gfa(gfa))
+    try:
+        b = reader.next_batch(DISC_BATCH)
+        dev = torch.device("cuda")
+        args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+                for a, dt in ((b.flat_ops, np.int8), (b.flat_lens, np.int32),
+                              (b.n_runs, np.int32),
+                              (b.ref_start, np.int32))]
+        O = int(b.n_runs.max())
+    finally:
+        reader.close()
+
+    def page(cap, first=0):
+        return scan_projected_runs_compact_csr(*args, O=O, min_len=50,
+                                               cap=cap, first=first)
+
+    total = int(page(DISC_PAGE)[0])
+    if total <= DISC_PAGE:
+        fail(f"routes: the dense disc batch has {total} hits, not past the "
+             f"first page's {DISC_PAGE}")
+    p1, p2, whole = page(DISC_PAGE), page(total - DISC_PAGE, DISC_PAGE), \
+        page(total)
+    for a, b_, w in zip(p1[1:], p2[1:], whole[1:]):
+        if not torch.equal(torch.cat([a, b_]), w):
+            fail("routes: the two disc pages differ from one page of the "
+                 "batch's total")
+    return {"total": total,
+            "page1_ms": cuda_ms(lambda: page(DISC_PAGE), 20),
+            "page2_ms": cuda_ms(lambda: page(total - DISC_PAGE, DISC_PAGE),
+                                20)}
+
+
+def phase_routes() -> dict:
+    """Phase 17: the routes the JAX package's static shapes send to the
+    host, on the card.  The dense disc fixture: no rescan and a second
+    page a batch or more, the scan on the card for every page, K2/K3
+    launched, the lines equal to --device cpu and, before `, seq:`, to
+    tools/disc_scalar.py; the second page timed.  The route BAM on
+    `--extract device` and `--no-native-io`: long_ops 0 and dev_ovf 0,
+    the walk and K1 on the card every batch, the lines equal to
+    tools/audt_scalar.py and to --device cpu.  Returns the launches and
+    rates."""
+    import disc_scalar
+    from audt_scalar import audt_lines
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops import discover, poa_dp
+
+    inputs, bam, vcf = route_fixtures()
+    reset_path_counts()
+    got, st, wall = run_disc(inputs, "cuda")
+    k2, k3 = launch_counts["poa_dp_ptr"], launch_counts["poa_traceback"]
+    scans = dict(discover.scan_calls)
+    batches, pages2, dp_calls = (st["scan_batches"], st["scan_pages2"],
+                                 st["dp_calls"])
+    if st["rescans"] != 0 or pages2 < batches or batches < 3:
+        fail(f"routes: disc rescans={st['rescans']} scan_pages2={pages2} "
+             f"for {batches} batches")
+    if scans.get("cuda", 0) != batches + pages2 or \
+            sum(scans.values()) != batches + pages2:
+        fail(f"routes: the disc scan ran {scans} for {batches} batches and "
+             f"{pages2} second pages")
+    if dp_calls < 1 or min(k2, k3) < dp_calls or \
+            sum(poa_dp.plain_calls.values()) != 0:
+        fail(f"routes: K2/K3 launched {k2}/{k3} times for {dp_calls} DP "
+             f"batches, plain POA {dict(poa_dp.plain_calls)}")
+    cpu, _, cpu_wall = run_disc(inputs, "cpu")
+    gfa, gaf, fq = inputs[1::2]
+    cl = disc_scalar.clusters(disc_scalar.signals(gfa, gaf))
+    want = disc_scalar.disc_lines(fq, cl, seq_clusters=set())
+    if cpu != got or [l.split(", seq:")[0] for l in got] != \
+            [l.split(", seq:")[0] for l in want]:
+        fail(f"routes: disc lines: cuda == cpu {cpu == got}; before ', "
+             f"seq:' equal to tools/disc_scalar.py: False or not checked")
+    pages = page2_times(inputs)
+    print(f"[routes] disc dense fixture: {len(got)} lines ({st['clusters']} "
+          f"clusters, {st['ins_clusters']} INS) equal on cuda, on cpu "
+          f"({cpu_wall:.3f}s) and before ', seq:' to tools/disc_scalar.py; "
+          f"reads={st['reads']} reads/s={st['reads'] / wall:.1f} "
+          f"wall={wall:.3f}s scan_batches={batches} scan_pages2={pages2} "
+          f"rescans={st['rescans']} breakpoints={st['breakpoints']} "
+          f"(scan on cuda {scans.get('cuda', 0)} times); K2={k2} K3={k3} "
+          f"for dp_calls={dp_calls}; first batch {pages['total']} hits: "
+          f"page 1 {pages['page1_ms']:.4f} ms, page 2 "
+          f"{pages['page2_ms']:.4f} ms (CUDA events, median of 20)",
+          flush=True)
+
+    want = audt_lines(bam, vcf)
+    k1 = {}
+    for tag, flags in (("extract", ["--extract", "device"]),
+                       ("python", ["--no-native-io"])):
+        argv = ["audt", "-b", bam, "-v", vcf, *flags]
+        reset_path_counts()
+        got, stats, wall = run_cli([*argv, "--device", "cuda"],
+                                   f"routes {tag}")
+        k1[tag] = check_walk_path(f"routes {tag}", stats)
+        cpu, _, cpu_wall = run_cli([*argv, "--device", "cpu"],
+                                   f"routes {tag} cpu")
+        if stats["long_ops"] != "0" or stats["dev_ovf"] != "0" or \
+                got != cpu or got != want:
+            fail(f"routes {tag}: long_ops={stats['long_ops']} dev_ovf="
+                 f"{stats['dev_ovf']}, cuda == cpu {got == cpu}, cuda == "
+                 f"tools/audt_scalar.py {got == want}")
+        print(f"[routes] audt {' '.join(flags)}: {len(got)} lines equal on "
+              f"cuda, on cpu ({cpu_wall:.3f}s) and tools/audt_scalar.py; "
+              f"records/s={len(got) / wall:.1f} wall={wall:.3f}s "
+              f"batches={stats['batches']} K1={k1[tag]} long_ops=0 "
+              f"dev_ovf=0", flush=True)
+    return {"k1": k1["extract"] + k1["python"], "k2": k2, "k3": k3,
+            "page2_ms": pages["page2_ms"]}
+
+
 def phase_jax_check() -> None:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print(f"[jax] {len(loaded)} modules of jax, jaxlib or svtrek_tpu loaded",
@@ -2699,6 +2867,7 @@ def main() -> int:
                                                             phase_disc)
     extract_launches = timed("extract device", phase_extract_device,
                              host_lines)
+    routes = timed("routes", phase_routes)
     timed("python bam path", phase_python_bam)
     timed("scan", phase_scan_full)
     sharded_launches, sharded_extract_launches, _ = timed(
@@ -2721,6 +2890,7 @@ def main() -> int:
         "launches_extract_device": extract_launches,
         "launches_sharded": sharded_launches,
         "launches_sharded_extract": sharded_extract_launches,
+        "launches_routes": routes["k1"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2737,6 +2907,7 @@ def main() -> int:
         "source": "svtrek_tpu_torch/csrc/poa.cu",
         "replaces": "svtrek_tpu/ops/poa_pallas.py:165",
         "launches": disc_launches["poa_dp_ptr"],
+        "launches_routes": routes["k2"],
         "max_abs_err": poa_err["dp"],
         "ms": flush["k2"],
         "plain_ms": flush["k2_plain"],
@@ -2773,6 +2944,7 @@ def main() -> int:
         "source": "svtrek_tpu_torch/csrc/poa.cu",
         "replaces": "svtrek_tpu/ops/poa_pallas.py:319",
         "launches": disc_launches["poa_traceback"],
+        "launches_routes": routes["k3"],
         "max_abs_err": poa_err["tb"],
         "ms": flush["k3"],
         "plain_ms": flush["k3_plain"],

@@ -8,6 +8,11 @@ Port of svtrek_tpu/ops/audit_step.py (`AuditBatch`, `AuditBatchCSR`,
 packages share: the host packer's numpy batches become tensors on the
 run's device here (`to_device`).  The consensus of every step is
 `ops.consensus.consensus_pos_batch`, so on the card it launches kernel K1.
+
+Both refine steps walk the runs where they lie (`ops.cigar.walk_runs`):
+the CSR step builds no padded matrix, so a read of any op count stays on
+the device, and the grouping keeps every candidate of a read, so a window
+overflows only past K candidates or in the consensus sweep.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 
 from .. import constants as C
 
-from .cigar import extract_read_candidates, group_candidates_by_window
+from .cigar import group_walk, walk_runs
 from .consensus import consensus_pos_batch
 
 
@@ -60,6 +65,9 @@ class AuditBatchCSR:
     reads axis N: pos/n_ops/window_id [N] (padding rows: n_ops == 0,
     window_id == B)
     window axis B: kind/inter_start/inter_end/imprecise_pos [B]
+
+    The JAX package's batch also carries the O bucket of its device-side
+    padded layout; the port's walk reads the flat streams as they are.
     """
 
     ops_flat: np.ndarray
@@ -71,7 +79,6 @@ class AuditBatchCSR:
     inter_start: np.ndarray
     inter_end: np.ndarray
     imprecise_pos: np.ndarray
-    ops_width: int              # O bucket for the device-side layout
 
     @property
     def num_reads(self) -> int:
@@ -141,6 +148,26 @@ def csr_to_padded(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
     return ops[:-1].view(N, O), lens[:-1].view(N, O)
 
 
+def _refine(walk, window_id: torch.Tensor, imprecise_pos: torch.Tensor, *,
+            num_windows: int, K: int, min_count: int, interval: int,
+            range_: int, sweep_width: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Group a walk's candidates by window and run the consensus."""
+    op_cand, _, clip, _, row = walk
+    locs, counts = group_walk(op_cand, row, clip, window_id, num_windows, K)
+    refined, sweep_ovf = consensus_pos_batch(
+        locs, counts.clamp(max=K), imprecise_pos.to(torch.int32),
+        min_count=min_count, interval=interval, range_=range_,
+        sweep_width=sweep_width)
+    return refined, counts, sweep_ovf | (counts > K)
+
+
+def _read_attrs(window_id, num_windows: int, *attrs):
+    """Per-read window attributes (windows beyond B are padding reads)."""
+    wid_c = window_id.to(torch.int64).clamp(0, num_windows - 1)
+    return [a[wid_c] for a in attrs]
+
+
 def audit_refine_step(ops: torch.Tensor, lens: torch.Tensor,
                       pos: torch.Tensor, n_ops: torch.Tensor,
                       window_id: torch.Tensor, kind: torch.Tensor,
@@ -155,22 +182,14 @@ def audit_refine_step(ops: torch.Tensor, lens: torch.Tensor,
     `AuditBatch`).
 
     Returns (refined [B] int32 with -1 = NA, counts [B] int32 candidate
-    counts, overflow [B] bool).  A window whose count exceeds K, one of
-    whose reads has more candidates than the grouping keeps, or whose
+    counts, overflow [B] bool).  A window whose count exceeds K or whose
     consensus sweep overflowed must be recomputed by the host oracle."""
-    # Per-read window attributes (windows beyond B are padding reads).
-    wid_c = window_id.to(torch.int64).clamp(0, num_windows - 1)
-    cand, _ = extract_read_candidates(
-        ops, lens, pos, n_ops, kind[wid_c], inter_start[wid_c],
-        inter_end[wid_c])
-    locs, counts, read_ovf = group_candidates_by_window(
-        cand, window_id, num_windows, K)
-    refined, sweep_ovf = consensus_pos_batch(
-        locs, counts.clamp(max=K), imprecise_pos.to(torch.int32),
-        min_count=min_count, interval=interval, range_=range_,
-        sweep_width=sweep_width)
-    overflow = sweep_ovf | read_ovf | (counts > K)
-    return refined, counts, overflow
+    walk = walk_runs(ops.reshape(-1), lens.reshape(-1), pos, n_ops,
+                     *_read_attrs(window_id, num_windows, kind, inter_start,
+                                  inter_end), width=ops.shape[1])
+    return _refine(walk, window_id, imprecise_pos, num_windows=num_windows,
+                   K=K, min_count=min_count, interval=interval,
+                   range_=range_, sweep_width=sweep_width)
 
 
 def audit_refine_step_csr(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
@@ -178,12 +197,17 @@ def audit_refine_step_csr(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
                           window_id: torch.Tensor, kind: torch.Tensor,
                           inter_start: torch.Tensor, inter_end: torch.Tensor,
                           imprecise_pos: torch.Tensor, *, num_windows: int,
-                          K: int, O: int, **kw
+                          K: int, min_count: int = C.CONSENSUS_MIN_COUNT,
+                          interval: int = C.CONSENSUS_INTERVAL,
+                          range_: int = C.CONSENSUS_INTERVAL_RANGE,
+                          sweep_width: int = 128
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """audit_refine_step fed the flat CSR layout of `AuditBatchCSR`: the
-    padded [N, O] matrices are built on the device (`csr_to_padded`)."""
-    ops, lens = csr_to_padded(ops_flat, lens_flat, n_ops, O=O)
-    return audit_refine_step(ops, lens, pos, n_ops, window_id, kind,
-                             inter_start, inter_end, imprecise_pos,
-                             num_windows=num_windows, K=K, **kw)
+    walk reads the flat streams where they lie, with no padded matrix."""
+    walk = walk_runs(ops_flat, lens_flat, pos, n_ops,
+                     *_read_attrs(window_id, num_windows, kind, inter_start,
+                                  inter_end))
+    return _refine(walk, window_id, imprecise_pos, num_windows=num_windows,
+                   K=K, min_count=min_count, interval=interval,
+                   range_=range_, sweep_width=sweep_width)

@@ -7,7 +7,8 @@ Pallas kernels, so these are plain PyTorch ops that run on the tensors'
 device (the card on `--device cuda`).  Every returned array equals the JAX
 one bit for bit, the filler past `total` included: the coordinates wrap
 in int32 as JAX's int32 cumsum does, and the compaction keeps the first
-`cap` hits in row-major order as JAX's `top_k` does.  Nothing here reads a
+`cap` hits in row-major order as JAX's `top_k` does, and a later page
+(`first`) the hits that follow in the same order.  Nothing here reads a
 value back to the host, so a caller can keep several batches in flight.
 """
 from __future__ import annotations
@@ -71,20 +72,24 @@ def scan_projected_runs(ops: torch.Tensor, lens: torch.Tensor,
 
 def scan_projected_runs_compact(ops: torch.Tensor, lens: torch.Tensor,
                                 n_runs: torch.Tensor, ref_start: torch.Tensor,
-                                *, min_len: int = 50, cap: int = 2048
-                                ) -> tuple[torch.Tensor, ...]:
+                                *, min_len: int = 50, cap: int = 2048,
+                                first: int = 0) -> tuple[torch.Tensor, ...]:
     """scan_projected_runs and on-device compaction of its sparse hits.
 
     Returns (total [] int32, row, bp_type, ref_pos, read_pos, length), each
-    selection array [cap] int32 in row-major (read, run) order.  Slots past
-    min(total, cap) hold row -1, type 0 and the coordinates and length of
-    the last cell, N*O-1, as the JAX program's clamped gather gives them.
-    total > cap means the caller must rescan the batch on the host.
+    selection array [cap] int32 in row-major (read, run) order: the hits
+    of rank ``first`` to ``first + cap - 1`` of the batch's row-major
+    ranking, so pages laid end to end equal one page of their total size.
+    Slots past the last hit hold row -1, type 0 and the coordinates and
+    length of the last cell, N*O-1, as the JAX program's clamped gather
+    gives them.  total > first + cap means the caller needs a further page
+    (the JAX package rescans the batch on the host).
 
-    The first `cap` hits are selected by rank: an exclusive cumsum of the
-    hit mask, then a scatter of the hits whose rank is below cap into a
-    buffer prefilled with N*O.  Slots past min(cap, N*O) keep N*O, as the
-    JAX program pads its top_k of cap_eff = min(cap, N*O)."""
+    The page's hits are selected by rank: an exclusive cumsum of the hit
+    mask, then a scatter of the hits whose rank falls in the page into a
+    buffer prefilled with N*O.  With ``first`` 0, slots past min(cap, N*O)
+    keep N*O, as the JAX program pads its top_k of cap_eff = min(cap,
+    N*O)."""
     scan_calls[ops.device.type] = scan_calls.get(ops.device.type, 0) + 1
     bp_type, ref_pos, read_pos = scan_projected_runs(
         ops, lens, n_runs, ref_start, min_len=min_len)
@@ -97,7 +102,8 @@ def scan_projected_runs_compact(ops: torch.Tensor, lens: torch.Tensor,
     total = hit64.sum().to(torch.int32)
     rank = torch.cumsum(hit64, 0) - hit64
     idx = torch.arange(NO, dtype=torch.int64, device=dev)
-    dest = torch.where(hit & (rank < cap), rank, cap)
+    page = rank - first
+    dest = torch.where(hit & (page >= 0) & (page < cap), page, cap)
     sel = torch.full((cap + 1,), NO, dtype=torch.int64, device=dev)
     sel.scatter_(0, dest, idx)
     sel = sel[:cap]
@@ -118,7 +124,8 @@ def scan_projected_runs_compact_csr(ops_flat: torch.Tensor,
                                     lens_flat: torch.Tensor,
                                     n_runs: torch.Tensor,
                                     ref_start: torch.Tensor, *, O: int,
-                                    min_len: int = 50, cap: int = 2048
+                                    min_len: int = 50, cap: int = 2048,
+                                    first: int = 0
                                     ) -> tuple[torch.Tensor, ...]:
     """scan_projected_runs_compact fed the flat CSR layout of the C GAF
     projector: ops_flat [T] int8, lens_flat [T] int32, n_runs [N] int32
@@ -128,4 +135,4 @@ def scan_projected_runs_compact_csr(ops_flat: torch.Tensor,
     padded path's."""
     ops, lens = csr_to_padded(ops_flat, lens_flat, n_runs, O=O)
     return scan_projected_runs_compact(ops, lens, n_runs, ref_start,
-                                       min_len=min_len, cap=cap)
+                                       min_len=min_len, cap=cap, first=first)

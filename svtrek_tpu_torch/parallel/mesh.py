@@ -280,15 +280,14 @@ def sharded_audit_step(mesh: Mesh, *, num_windows: int, K: int,
     return lambda *args: _launch(mesh, args, _WALK_DTYPES, local)
 
 
-def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int, O: int,
+def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int,
                            min_count: int = C.CONSENSUS_MIN_COUNT,
                            interval: int = C.CONSENSUS_INTERVAL,
                            range_: int = C.CONSENSUS_INTERVAL_RANGE,
                            sweep_width: int = 128):
     """The multi-device step for the flat (CSR) device-extract layout
     (ops.audit_step.AuditBatchCSR): each shard receives its own block of
-    the flat op stream and scatters it into the padded [N_loc, O] matrices
-    on its own device.
+    the flat op stream and walks it on its own device.
 
     Layout contract (pack.pack_chunk_native with n_shards > 1): every
     axis shard-blockwise, flat T, reads N, windows B all divisible by the
@@ -298,7 +297,7 @@ def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int, O: int,
 
     def local(*a):
         return audit_refine_step_csr(
-            *a, num_windows=b_loc, K=K, O=O, min_count=min_count,
+            *a, num_windows=b_loc, K=K, min_count=min_count,
             interval=interval, range_=range_, sweep_width=sweep_width)
 
     return lambda *args: _launch(mesh, args, (np.uint8,) + _WALK_DTYPES[1:],

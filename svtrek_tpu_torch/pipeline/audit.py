@@ -15,14 +15,17 @@ complete.  The producers take one of the JAX pipeline's three branches:
   the consensus (`pack_chunk_native` → `audit_refine_step_csr`);
 - `--no-native-io`: the Python reader `io.bam.BamReader` fetches each
   window and the host packs padded [N, O] CIGAR matrices for the same
-  device walk (`pack_chunk` → `audit_refine_step`).
+  device walk (`pack_chunk` → `audit_refine_step`), or the flat layout
+  where a read passes the top ops bucket.
 
 Windows the device cannot finish exactly are refined on the host: a
 window with more than K candidates on the host-extract path arrives
 already refined by the C scalar consensus, one whose sweep outran
 `sweep_width` goes through `oracle.consensus_pos`, and on the device walk
-a window that overflowed (`fallback_device`) or holds a read past the top
-ops bucket (`fallback_long`) goes through `oracle.refine_task`.
+a window past K candidates or whose sweep overflowed (`fallback_device`)
+goes through `oracle.refine_task`.  The walk takes reads of any op count
+and every candidate of a read, so `fallback_long`, the JAX package's
+windows with a read past its top ops bucket, stays 0.
 
 With `--ins-consensus`, each refined INS record also gets the consensus of
 the inserted bases its supporting reads carry: the native reader decodes
@@ -183,8 +186,8 @@ class AuditStats:
     oracle_windows: int = 0  # host-fallback windows, all causes (total)
     fallback_kovf: int = 0   # candidate count exceeded K (cand_width)
     fallback_sweep: int = 0  # consensus sweep exceeded sweep_width
-    fallback_long: int = 0   # a read exceeded the top ops bucket
-    fallback_device: int = 0  # device-walk overflow (lumped causes)
+    fallback_long: int = 0   # the JAX package's long-read windows: 0 here
+    fallback_device: int = 0  # device-walk overflow: K or sweep
     device: str = ""
     data_shards: int = 1
 
@@ -238,10 +241,10 @@ def _get_sharded_step(device_type: str, n: int, num_windows: int, K: int,
 
 @functools.lru_cache(maxsize=None)
 def _get_sharded_csr(device_type: str, n: int, num_windows: int, K: int,
-                     O: int, min_count: int, interval: int, range_: int,
+                     min_count: int, interval: int, range_: int,
                      sweep_width: int):
     return sharded_audit_step_csr(
-        run_mesh(device_type, n), num_windows=num_windows, K=K, O=O,
+        run_mesh(device_type, n), num_windows=num_windows, K=K,
         min_count=min_count, interval=interval, range_=range_,
         sweep_width=sweep_width)
 
@@ -299,7 +302,7 @@ def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
                 b.inter_end, b.imprecise_pos)
         if isinstance(b, AuditBatchCSR):
             return _get_sharded_csr(device.type, n, b.num_windows, K,
-                                    b.ops_width, *kw.values())(
+                                    *kw.values())(
                 b.ops_flat, b.lens_flat, *walk)
         return _get_sharded_step(device.type, n, b.num_windows, K,
                                  *kw.values())(b.ops, b.lens, *walk)
@@ -310,7 +313,7 @@ def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
         return audit_refine_step_csr(
             to_device(b.ops_flat, device, np.uint8),
             to_device(b.lens_flat, device), *common,
-            num_windows=b.num_windows, K=K, O=b.ops_width, **kw)
+            num_windows=b.num_windows, K=K, **kw)
     return audit_refine_step(
         to_device(b.ops, device, np.int8), to_device(b.lens, device),
         *common, num_windows=b.num_windows, K=K, **kw)
@@ -370,28 +373,24 @@ def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
 def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
                   stats: AuditStats | None) -> list:
     """collect_refinement of a device-walk batch: windows that overflowed
-    on the device, and windows held back for a read past the top ops
-    bucket, are refined by the scalar oracle over their reads."""
+    on the device (K or the sweep) are refined by the scalar oracle over
+    their reads."""
+    if dev is None:
+        return []
     out = []
-    if dev is not None:
-        refined, _, overflow = _to_host(dev)
-        slots = (packed.window_slots if packed.window_slots is not None
-                 else range(len(packed.windows)))
-        for i, (w, slot) in enumerate(zip(packed.windows, slots)):
-            if overflow[slot]:
-                if stats:
-                    stats.oracle_windows += 1
-                    stats.fallback_device += 1
-                r = _refine_on_host(
-                    w, as_read_list(packed.reads_per_window[i]), cfg)
-            else:
-                r = int(refined[slot])
-            out.append((w, r))
-    for w, reads in packed.oracle_windows:
-        if stats:
-            stats.oracle_windows += 1
-            stats.fallback_long += 1
-        out.append((w, _refine_on_host(w, reads, cfg)))
+    refined, _, overflow = _to_host(dev)
+    slots = (packed.window_slots if packed.window_slots is not None
+             else range(len(packed.windows)))
+    for i, (w, slot) in enumerate(zip(packed.windows, slots)):
+        if overflow[slot]:
+            if stats:
+                stats.oracle_windows += 1
+                stats.fallback_device += 1
+            r = _refine_on_host(
+                w, as_read_list(packed.reads_per_window[i]), cfg)
+        else:
+            r = int(refined[slot])
+        out.append((w, r))
     return out
 
 

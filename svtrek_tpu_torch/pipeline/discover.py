@@ -41,11 +41,14 @@ from ..io.gfa import parse_gfa
 
 from ..device import resolve_device
 from ..ops.discover import (
-    BP_CLIP, BP_DEL, BP_INS, scan_projected_runs_compact_csr,
+    BP_CLIP, BP_DEL, BP_INS, scan_projected_runs_compact,
+    scan_projected_runs_compact_csr,
 )
 from ..ops.poa_batch import consensus_sequence_batch
 from ..ops.poa_graph_batch import consensus_sequence_poa_batch
-from ..parallel.mesh import ShardedOutput, run_mesh, sharded_disc_step
+from ..parallel.mesh import (
+    ShardedOutput, make_global_array, run_mesh, sharded_disc_step,
+)
 from ..refusals import Unsupported, raise_refused
 from .audit import resolve_data_shards
 
@@ -54,7 +57,7 @@ _TYPE_NAME = {BP_INS: "INS", BP_DEL: "DEL", BP_CLIP: "CLIP"}
 # (the JAX package's largest run bucket); the order of the breakpoints
 # depends on it.
 _MAX_DEVICE_RUNS = 8192
-_BP_CAP = 2048  # compact-scan capacity (overflow -> exact host rescan)
+_BP_CAP = 2048  # hits in a batch's first page (more take a second page)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,10 +115,15 @@ class _DeviceScanner:
 
     Batch k is scanned on the device while the host parses batches k+1 ..
     k+DEPTH; dispatch reads nothing back, and each collect makes one
-    device-to-host copy of a batch's packed results (one a shard when
-    sharded).  `meta` per dispatch maps row indices back to read identity
-    and carries the exact host rescan for a batch with more hits than the
-    scan's capacity (of any shard, when sharded)."""
+    device-to-host copy of a batch's first page of hits (one a shard when
+    sharded).  The batch's device inputs stay in `in_flight` until its
+    collect: a batch (or shard) with more hits than the page's capacity
+    gets a second page of the hits that follow in the same row-major
+    ranking, compacted on the same device in one more launch sized from
+    the first page's total, and read back after it (`scan_pages2` counts
+    them; the JAX package rescans such a batch on the host, and `rescans`
+    stays 0 here).  `meta` per dispatch maps row indices back to read
+    identity."""
 
     DEPTH = 3
 
@@ -126,10 +134,12 @@ class _DeviceScanner:
         self.device = device
         self.stats = stats
         self.n_shards = n_shards
+        self.mesh = run_mesh(device.type, n_shards) if n_shards > 1 else None
         self.step = (_get_sharded_disc(device.type, n_shards, min_len)
                      if n_shards > 1 else None)
         self.in_flight = deque()
-        for key in ("reads", "scan_batches", "rescans", "host_reads"):
+        for key in ("reads", "scan_batches", "rescans", "scan_pages2",
+                    "host_reads"):
             _count(stats, key, 0)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -148,18 +158,20 @@ class _DeviceScanner:
         if self.step is not None:
             n = self.n_shards
             N = -(-max(len(n_runs), batch_reads) // n) * n
-            dev = self.step(*_padded_runs(N, O, n_runs, ref_start,
-                                          ops_flat, lens_flat))
-            self.in_flight.append((meta, N // n, dev))
+            inputs = [make_global_array(a, self.mesh) for a in _padded_runs(
+                N, O, n_runs, ref_start, ops_flat, lens_flat)]
+            self.in_flight.append((meta, N // n, self.step(*inputs),
+                                   inputs))
         else:
+            inputs = [self._to_dev(a) for a in (ops_flat, lens_flat, n_runs,
+                                                ref_start)]
             dev = scan_projected_runs_compact_csr(
-                *(self._to_dev(a) for a in (ops_flat, lens_flat, n_runs,
-                                            ref_start)),
-                O=O, min_len=self.min_len, cap=_BP_CAP)
+                *inputs, O=O, min_len=self.min_len, cap=_BP_CAP)
             # One buffer per batch: [total, rows, types, refs, read_pos,
             # lens].
             self.in_flight.append(
-                (meta, 0, torch.cat([dev[0].view(1), *dev[1:]])))
+                (meta, 0, torch.cat([dev[0].view(1), *dev[1:]]),
+                 (inputs, O)))
         _count(self.stats, "scan_batches")
         if len(self.in_flight) > self.DEPTH:
             self._collect(self.in_flight.popleft())
@@ -168,34 +180,51 @@ class _DeviceScanner:
         while self.in_flight:
             self._collect(self.in_flight.popleft())
 
-    def _emit(self, meta, row_off, rows, types, refs, reads_pos, lns, n):
-        name_of, rc_of, _ = meta
-        for i in range(n):
+    def _emit(self, meta, row_off, rows, types, refs, reads_pos, lns):
+        name_of, rc_of = meta
+        for i in range(len(rows)):
             r = row_off + int(rows[i])
             self.out.append(Breakpoint(
                 name_of(r), _TYPE_NAME[int(types[i])],
                 int(refs[i]), int(reads_pos[i]), int(lns[i]), rc_of(r),
             ))
 
+    def _page2(self, s: int, inputs, total: int, cap: int) -> np.ndarray:
+        """Shard s's (or the batch's) hits of rank cap .. total - 1: [5,
+        total - cap] rows, types, refs, read_pos, lens."""
+        _count(self.stats, "scan_pages2")
+        if self.mesh is None:
+            flat, O = inputs
+            page = scan_projected_runs_compact_csr(
+                *flat, O=O, min_len=self.min_len, cap=total - cap, first=cap)
+            return torch.stack(page[1:]).cpu().numpy()
+        with self.mesh.on(s):
+            page = scan_projected_runs_compact(
+                *(a.shards[s] for a in inputs), min_len=self.min_len,
+                cap=total - cap, first=cap)
+            return torch.stack(page[1:]).cpu().numpy()
+
     def _collect(self, item):
-        meta, n_loc, dev = item
+        meta, n_loc, dev, inputs = item
         t0 = time.perf_counter()
         if isinstance(dev, ShardedOutput):
             totals, *res = dev.gather()
         else:
             flat = dev.cpu().numpy()
             totals, res = flat[:1], flat[1:].reshape(5, _BP_CAP)
-        _count(self.stats, "scan_wait_s", time.perf_counter() - t0)
         cap = len(res[0]) // len(totals)
-        if (totals > cap).any():
-            # Rare overflow: exact host rescan of the whole batch.
-            _count(self.stats, "rescans")
-            self.out.extend(meta[2]())
-            return
         # Shard by shard, rows shifted by the shard's first row.
+        pages = []
         for s, total in enumerate(totals.tolist()):
-            self._emit(meta, s * n_loc,
-                       *(a[s * cap:s * cap + total] for a in res), total)
+            page = np.stack([a[s * cap:s * cap + min(total, cap)]
+                             for a in res])
+            if total > cap:
+                page = np.concatenate(
+                    [page, self._page2(s, inputs, total, cap)], 1)
+            pages.append(page)
+        _count(self.stats, "scan_wait_s", time.perf_counter() - t0)
+        for s, page in enumerate(pages):
+            self._emit(meta, s * n_loc, *page)
 
 
 def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
@@ -243,16 +272,8 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
             (o for p in reads for o, _ in p.runs), np.int8, total)
         flat_lens = np.fromiter(
             (l for p in reads for _, l in p.runs), np.int32, total)
-
-        def rescan(reads=reads):
-            bps = []
-            for p in reads:
-                bps.extend(scan_breakpoints(p, min_len))
-            return bps
-
         meta = (lambda r, reads=reads: reads[r].read_name,
-                lambda r, reads=reads: reads[r].rc,
-                rescan)
+                lambda r, reads=reads: reads[r].rc)
         scanner.dispatch(flat_ops, flat_lens, cnt, ref_start, batch_reads,
                          meta)
         batch = []
@@ -272,7 +293,8 @@ def detect_breakpoints(projected, min_len: int, batch_reads: int = 512, *,
 
 
 def _scan_csr_rows(b, rows, min_len: int) -> list[Breakpoint]:
-    """Exact host scalar scan of native-batch rows (the fallback paths)."""
+    """Exact host scalar scan of native-batch rows (reads past
+    _MAX_DEVICE_RUNS runs)."""
     from ..io.gaf import ProjectedRead, scan_breakpoints
 
     out: list[Breakpoint] = []
@@ -333,13 +355,8 @@ def detect_breakpoints_native(reader, min_len: int, batch_reads: int = 8192,
         def _map(r, keep=keep):
             return r if keep is None else int(keep[r])
 
-        def rescan(b=b, keep=keep):
-            return _scan_csr_rows(
-                b, range(b.n) if keep is None else keep, min_len)
-
         meta = (lambda r, b=b, m=_map: b.name(m(r)),
-                lambda r, b=b, m=_map: bool(b.rc[m(r)]),
-                rescan)
+                lambda r, b=b, m=_map: bool(b.rc[m(r)]))
         scanner.dispatch(of, lf, np.ascontiguousarray(counts),
                          rs.astype(np.int32), batch_reads, meta)
     scanner.drain()
@@ -487,7 +504,8 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     Returns the result lines (also written to ``out`` and
     cfg.output_file).  ``stats``, when given, receives phase seconds
     (detect_s, cluster_s, consensus_s, emit_s, total_s, scan_wait_s) and
-    counts (reads, scan_batches, rescans, host_reads, breakpoints,
+    counts (reads, scan_batches, rescans (always 0: the JAX package's host
+    rescans), scan_pages2, host_reads, breakpoints,
     clusters, ins_clusters, dp_calls, graph_scalar, band_wide,
     band_scalar, band_wide_k2) and, when the detection runs, its shard count
     (data_shards); nothing is printed for

@@ -23,12 +23,13 @@ degenerate wrapped intervals yield empty BAM queries.  Three layouts:
   (refinement.c:103-325), so a batch carries only each window's sorted
   candidates;
 - `pack_chunk_native` (`--extract device`): one C fetch and the flat CSR
-  op/len streams of the chunk (`AuditBatchCSR`), which the device scatters
-  into the padded layout and walks itself;
-- `pack_chunk` (`--no-native-io`, or a read past the top ops bucket): a
-  per-window fetch, normalised to `PackedReads`, scattered into the padded
-  [N, O] matrices of `AuditBatch` on the host.  Windows whose reads exceed
-  the top ops bucket go to the scalar oracle.
+  op/len streams of the chunk (`AuditBatchCSR`), which the device walks
+  where they lie;
+- `pack_chunk` (`--no-native-io`): a per-window fetch, normalised to
+  `PackedReads`, scattered into the padded [N, O] matrices of `AuditBatch`
+  on the host, or, where a read passes the top ops bucket, laid out flat
+  as `pack_chunk_native`'s batch (the JAX package sends such a window to
+  the scalar oracle; the port's walk takes a read of any op count).
 
 With ``n_shards > 1`` each packer lays its batch out shard-blockwise for
 the sharded steps of `parallel.mesh`: every axis divisible by the shard
@@ -39,7 +40,7 @@ to its global result slot.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
@@ -52,7 +53,8 @@ from ..constants import (
 from ..io.vcf import VcfTask
 from ..ops.audit_step import AuditBatch, AuditBatchCSR
 
-# Reads with more CIGAR ops than this are handled by the host oracle.
+# The top width of the padded layout: a batch with a longer read is laid
+# out flat (the JAX package sends its window to the host oracle).
 MAX_OPS_BUCKET = 16384
 OPS_BUCKETS = (64, 256, 1024, 2048, 4096, 8192, MAX_OPS_BUCKET)
 
@@ -160,9 +162,9 @@ class LazyWindowReads:
     """Evidence for one window, re-fetched from the BAM on demand.
 
     `pack_chunk_native` leaves the fetched reads in the native reader's
-    reusable buffers; the rare window that overflows the device capacities
-    re-queries its region instead, through one cached native reader per
-    BAM path (the path had one: it packed the batch)."""
+    reusable buffers; the rare window that overflows K or the consensus
+    sweep re-queries its region instead, through one cached native reader
+    per BAM path (the path had one: it packed the batch)."""
 
     __slots__ = ("bam_path", "tid", "beg", "end")
 
@@ -216,7 +218,6 @@ class PackedBatch:
     batch: object
     windows: list[WindowSpec]
     reads_per_window: list  # PackedReads (or list / lazy form) per window
-    oracle_windows: list[tuple[WindowSpec, list]] = field(default_factory=list)
     # The shard count the batch was packed for (1 = the dense layout) and,
     # when > 1, the global result slot of each entry of `windows` (the
     # batch is padded shard by shard, so slots are not the identity).
@@ -317,8 +318,9 @@ def pack_chunk(window_chunk: Sequence[WindowSpec],
                fetch: Callable[[int, int, int], object],
                cfg: AudtConfig, n_shards: int = 1) -> PackedBatch:
     """Fetch + pack one batch worth of windows in the dense layout, or
-    shard-blockwise for ``n_shards > 1``.  ``fetch(tid, beg, end)``
-    returns PackedReads or ``[(pos, [(op, len), ...]), ...]``."""
+    shard-blockwise for ``n_shards > 1``; flat (`_csr_of_items`) where a
+    read passes the top ops bucket.  ``fetch(tid, beg, end)`` returns
+    PackedReads or ``[(pos, [(op, len), ...]), ...]``."""
     items: list[tuple[WindowSpec, PackedReads]] = []
     for w in window_chunk:
         if w.kind == KIND_POINT:
@@ -326,6 +328,8 @@ def pack_chunk(window_chunk: Sequence[WindowSpec],
         else:
             reads = as_packed(query_region(fetch, w))
         items.append((w, reads))
+    if max((pr.max_ops for _, pr in items), default=0) > MAX_OPS_BUCKET:
+        return _csr_of_items(items, cfg, n_shards)
     if n_shards > 1:
         return _pack_one_sharded(items, cfg, n_shards)
     return _pack_one(items, cfg)
@@ -355,9 +359,8 @@ def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
 
     One `svbam_fetch_batch` call pulls every window's reads (GIL released
     for the whole chunk) and the flat op/len streams are shipped as they
-    are; the Python layer builds only the per-window attribute vectors.
-    Takes the generic path when a read exceeds the top ops bucket
-    (host-oracle windows)."""
+    are, reads of any op count; the Python layer builds only the
+    per-window attribute vectors."""
     n_win = len(window_chunk)
     tids = np.empty(n_win, np.int32)
     begs = np.empty(n_win, np.int64)
@@ -372,71 +375,34 @@ def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
             ends[i] = int(C.u32(w.inter_end - 1))
 
     total, counts = reader.fetch_batch(tids, begs, ends)
-    max_ops = reader.max_nops(total)
-    if max_ops > MAX_OPS_BUCKET:
-        # Rare: some window needs the host oracle.  Take the generic path
-        # (re-fetch per window) so the split logic stays in one place.
-        def fetch(tid, beg, end):
-            return PackedReads(*reader.fetch_packed(tid, int(beg), int(end)))
-
-        return pack_chunk(window_chunk, fetch, cfg, n_shards)
-
-    if n_shards > 1:
-        return _pack_native_sharded(window_chunk, reader, cfg, n_shards,
-                                    total, counts, max_ops,
-                                    tids, begs, ends)
-
-    O = _bucket(max(max_ops, 1), OPS_BUCKETS)
-    B = max(cfg.batch_windows, n_win, 1)
-    N = _pow2(max(total, 1), lo=64)
-
-    rpos, rnops, fops, flens = reader.batch_flat_n(total)
-    T = _pow2(max(len(fops), 1), lo=256)
-    ops_flat = np.empty(T, np.uint8)
-    lens_flat = np.empty(T, np.int32)
-    ops_flat[: len(fops)] = fops
-    lens_flat[: len(flens)] = flens
-    pos = np.zeros(N, np.int32)
-    n_ops = np.zeros(N, np.int32)          # padding rows MUST be 0
-    wid = np.full(N, B, np.int32)
-    pos[:total] = rpos.astype(np.int32)
-    n_ops[:total] = rnops
-    wid[:total] = np.repeat(np.arange(n_win, dtype=np.int32), counts)
-    kind, istart, iend, ipos = _window_attrs(window_chunk, B)
-
     # Overflow-fallback evidence is re-fetched lazily (rare).
     reads_per_window = [
         LazyWindowReads(reader.path, int(tids[i]), int(begs[i]), int(ends[i]))
         for i in range(n_win)
     ]
-    batch = AuditBatchCSR(
-        ops_flat=ops_flat, lens_flat=lens_flat, pos=pos, n_ops=n_ops,
-        window_id=wid, kind=kind, inter_start=istart, inter_end=iend,
-        imprecise_pos=ipos, ops_width=O,
-    )
-    return PackedBatch(batch=batch, windows=list(window_chunk),
-                       reads_per_window=reads_per_window)
+    return _csr_batch(window_chunk, reader.batch_flat_n(total), counts, cfg,
+                      n_shards, reads_per_window)
 
 
-def _pack_native_sharded(window_chunk, reader, cfg: AudtConfig,
-                         n_shards: int, total: int, counts: np.ndarray,
-                         max_ops: int, tids: np.ndarray, begs: np.ndarray,
-                         ends: np.ndarray) -> PackedBatch:
-    """Shard-blockwise CSR packing for `sharded_audit_step_csr`.
+def _csr_batch(window_chunk, flat, counts: np.ndarray, cfg: AudtConfig,
+               n_shards: int, reads_per_window: list) -> PackedBatch:
+    """The flat (CSR) batch of a chunk whose reads lie in window order:
+    ``flat`` = (pos [R], n_ops [R], ops [T], lens [T]) of every read,
+    ``counts`` [n_win] the reads of each window.
 
-    The native fetch already laid reads out in window order, so a
-    contiguous window->shard split keeps every per-shard read/flat-op
-    range a contiguous slice: the blocks are plain copies.  Layout
-    contract: T/N/B all divisible by n_shards, window_id shard-local
-    (padding sentinel b_loc), flat tails zero."""
+    With ``n_shards`` > 1 the layout is shard-blockwise for
+    `sharded_audit_step_csr`: a contiguous window->shard split keeps every
+    per-shard read/flat-op range a contiguous slice, so the blocks are
+    plain copies.  Layout contract: T/N/B all divisible by n_shards,
+    window_id shard-local (padding sentinel b_loc), flat tails zero."""
     n_win = len(window_chunk)
-    O = _bucket(max(max_ops, 1), OPS_BUCKETS)
-    rpos, rnops, fops, flens = reader.batch_flat_n(total)
+    rpos, rnops, fops, flens = flat
+    counts = np.asarray(counts, np.int64)
 
     b_loc = max(-(-cfg.batch_windows // n_shards), -(-n_win // n_shards), 1)
     B = n_shards * b_loc
 
-    roff = np.concatenate([[0], np.cumsum(counts.astype(np.int64))])
+    roff = np.concatenate([[0], np.cumsum(counts)])
     ooff = np.concatenate([[0], np.cumsum(rnops.astype(np.int64))])
 
     # Per-shard window ranges (contiguous) and their read/flat slices.
@@ -476,18 +442,28 @@ def _pack_native_sharded(window_chunk, reader, cfg: AudtConfig,
             arr[s * b_loc:s * b_loc + (b - a)] = vals
         window_slots += range(s * b_loc, s * b_loc + (b - a))
 
-    reads_per_window = [
-        LazyWindowReads(reader.path, int(tids[i]), int(begs[i]), int(ends[i]))
-        for i in range(n_win)
-    ]
     batch = AuditBatchCSR(
         ops_flat=ops_flat, lens_flat=lens_flat, pos=pos, n_ops=n_ops,
         window_id=wid, kind=kind, inter_start=istart, inter_end=iend,
-        imprecise_pos=ipos, ops_width=O,
+        imprecise_pos=ipos,
     )
     return PackedBatch(batch=batch, windows=list(window_chunk),
-                       reads_per_window=reads_per_window,
-                       n_shards=n_shards, window_slots=window_slots)
+                       reads_per_window=reads_per_window, n_shards=n_shards,
+                       window_slots=window_slots if n_shards > 1 else None)
+
+
+def _csr_of_items(items: list[tuple[WindowSpec, PackedReads]],
+                  cfg: AudtConfig, n_shards: int) -> PackedBatch:
+    """The flat (CSR) batch of fetched windows (`_csr_batch`), for a
+    chunk that holds a read past the top ops bucket."""
+    prs = [pr for _, pr in items]
+    flats = [pr.flat() for pr in prs]
+    flat = (np.concatenate([pr.pos for pr in prs]),
+            np.concatenate([pr.n_ops for pr in prs]),
+            np.concatenate([f[0] for f in flats]),
+            np.concatenate([f[1] for f in flats]))
+    return _csr_batch([w for w, _ in items], flat,
+                      [pr.num_reads for pr in prs], cfg, n_shards, prs)
 
 
 INT64_MIN = np.iinfo(np.int64).min
@@ -600,19 +576,6 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
     )
 
 
-def _split_oracle(items):
-    """Separate windows whose reads exceed the top ops bucket (the host
-    oracle handles those with exact reference semantics)."""
-    device_items = []
-    oracle_items = []
-    for w, pr in items:
-        if pr.max_ops > MAX_OPS_BUCKET:
-            oracle_items.append((w, pr.to_list()))
-        else:
-            device_items.append((w, pr))
-    return device_items, oracle_items
-
-
 def _fill_reads(ops, lens, pos, n_ops, wid, prs: list[PackedReads],
                 row_start: np.ndarray, wid_value: np.ndarray,
                 O: int) -> None:
@@ -658,14 +621,12 @@ def _pow2(n: int, lo: int = 256) -> int:
 
 def _pack_one(items: list[tuple[WindowSpec, PackedReads]],
               cfg: AudtConfig) -> PackedBatch:
-    device_items, oracle_items = _split_oracle(items)
-
-    n_win = len(device_items)
+    n_win = len(items)
     counts = np.fromiter(
-        (pr.num_reads for _, pr in device_items), np.int64, n_win
+        (pr.num_reads for _, pr in items), np.int64, n_win
     ) if n_win else np.empty(0, np.int64)
     n_reads = int(counts.sum())
-    max_ops = max((pr.max_ops for _, pr in device_items), default=1)
+    max_ops = max((pr.max_ops for _, pr in items), default=1)
     O = _bucket(max(max_ops, 1), OPS_BUCKETS)
     # Constant window axis + pow2-bucketed reads axis.
     B = max(cfg.batch_windows, n_win, 1)
@@ -676,13 +637,13 @@ def _pack_one(items: list[tuple[WindowSpec, PackedReads]],
     pos = np.zeros(N, np.int32)
     n_ops = np.zeros(N, np.int32)
     wid = np.full(N, B, np.int32)
-    kind, istart, iend, ipos = _window_attrs([w for w, _ in device_items], B)
+    kind, istart, iend, ipos = _window_attrs([w for w, _ in items], B)
 
     row_start = (np.cumsum(counts) - counts) if n_win else \
         np.empty(0, np.int64)
     _fill_reads(
         ops, lens, pos, n_ops, wid,
-        [pr for _, pr in device_items],
+        [pr for _, pr in items],
         row_start, np.arange(n_win, dtype=np.int64), O,
     )
 
@@ -692,9 +653,8 @@ def _pack_one(items: list[tuple[WindowSpec, PackedReads]],
     )
     return PackedBatch(
         batch=batch,
-        windows=[w for w, _ in device_items],
-        reads_per_window=[pr for _, pr in device_items],
-        oracle_windows=oracle_items,
+        windows=[w for w, _ in items],
+        reads_per_window=[pr for _, pr in items],
     )
 
 
@@ -706,17 +666,15 @@ def _pack_one_sharded(items: list[tuple[WindowSpec, PackedReads]],
     shard gets near-equal evidence.  Layout contract of
     `sharded_audit_step`: both axes divisible by n_shards, window_id
     shard-local, padding reads use the local sentinel B_local."""
-    device_items, oracle_items = _split_oracle(items)
-
     bins: list[list[int]] = [[] for _ in range(n_shards)]
     bin_reads = [0] * n_shards
     order = sorted(
-        range(len(device_items)), key=lambda i: -device_items[i][1].num_reads
+        range(len(items)), key=lambda i: -items[i][1].num_reads
     )
     for i in order:
         s = min(range(n_shards), key=lambda j: (bin_reads[j], len(bins[j])))
         bins[s].append(i)
-        bin_reads[s] += device_items[i][1].num_reads
+        bin_reads[s] += items[i][1].num_reads
 
     # Window axis padded to the ceil(batch_windows / n_shards) capacity,
     # reads axis to pow2.
@@ -726,7 +684,7 @@ def _pack_one_sharded(items: list[tuple[WindowSpec, PackedReads]],
     B = n_shards * b_loc
     N = n_shards * n_loc
 
-    max_ops = max((pr.max_ops for _, pr in device_items), default=1)
+    max_ops = max((pr.max_ops for _, pr in items), default=1)
     O = _bucket(max(max_ops, 1), OPS_BUCKETS)
 
     ops = np.full((N, O), PAD_OP, np.int8)
@@ -747,7 +705,7 @@ def _pack_one_sharded(items: list[tuple[WindowSpec, PackedReads]],
     for s, bin_idx in enumerate(bins):
         r = s * n_loc
         for k, i in enumerate(bin_idx):
-            w, pr = device_items[i]
+            w, pr = items[i]
             prs.append(pr)
             row_starts.append(r)
             wid_values.append(k)
@@ -771,7 +729,6 @@ def _pack_one_sharded(items: list[tuple[WindowSpec, PackedReads]],
         batch=batch,
         windows=windows_out,
         reads_per_window=prs,
-        oracle_windows=oracle_items,
         n_shards=n_shards,
         window_slots=window_slots,
     )

@@ -13,11 +13,11 @@ bounds, sliding_window.c:27).  Two paths, as in the JAX package:
   (`ops.window_scan.window_scan_batch`) runs on the device with up to 3
   chunks in flight;
 - `--no-native-io`: the Python reader fetches each tile, and the device
-  runs the evidence walk (`ops.cigar.extract_read_candidates`, the
-  refine_ins rule), the grouping and the scan.
+  runs the evidence walk over the tiles' runs laid end to end
+  (`ops.cigar.walk_runs`, the refine_ins rule), the grouping and the scan.
 
-Tiles whose evidence overflows the device capacity are scanned by the
-scalar oracle, so no tile is approximate.  Output mirrors the reference's
+Tiles whose evidence overflows the device capacity (more than K
+candidates) are scanned by the scalar oracle, so no tile is approximate.  Output mirrors the reference's
 per-window print (sliding_window.c:87) plus the JAX package's overall-best
 summary line.
 """
@@ -38,11 +38,11 @@ from ..config import ScanConfig
 from ..constants import KIND_INS
 from ..device import resolve_device
 from ..ops.audit_step import to_device
-from ..ops.cigar import extract_read_candidates, group_candidates_by_window
+from ..ops.cigar import group_walk, walk_runs
 from ..ops.window_scan import window_scan_batch
 from ..oracle import extract_candidates, window_scan
 from .audit import open_native_reader, open_reader, python_fetch, reader_tid
-from .pack import PAD_OP, PackedReads, _fill_reads, as_packed
+from .pack import PackedReads, as_packed
 
 
 def _next_pow2(n: int, lo: int = 16) -> int:
@@ -104,36 +104,36 @@ def run_scan_tiles(tiles: list[tuple[int, int]], fetch, cfg: ScanConfig,
                          fetch(tid, C.u32(s - 1), C.u32(e - 1)))
                for s, e in chunk]
         counts = np.fromiter((p.num_reads for p in prs), np.int64, len(prs))
-        max_ops = max([1] + [p.max_ops for p in prs])
         B = len(chunk)
-        O = _next_pow2(max_ops, 16)
-        N = max(int(counts.sum()), 1)
-        ops = np.full((N, O), PAD_OP, np.int8)
-        lens = np.zeros((N, O), np.int32)
-        pos = np.zeros(N, np.int32)
-        n_ops = np.zeros(N, np.int32)
-        wid = np.full(N, B, np.int32)
-        _fill_reads(ops, lens, pos, n_ops, wid, prs,
-                    np.cumsum(counts) - counts, np.arange(B), O)
+        # The tiles' reads back to back, and one padding read (window B)
+        # for an empty chunk.
+        flats = [p.flat() for p in prs]
+        ops = np.concatenate([f[0] for f in flats] + [np.zeros(1, np.uint8)])
+        lens = np.concatenate([f[1] for f in flats] + [np.zeros(1, np.int32)])
+        pos = np.concatenate([p.pos for p in prs] + [np.zeros(1, np.int64)])
+        n_ops = np.concatenate([p.n_ops for p in prs] +
+                               [np.zeros(1, np.int32)])
+        wid = np.append(np.repeat(np.arange(B), counts), B)
         istart = np.array([s for s, _ in chunk], np.int64).astype(np.int32)
         iend = np.array([e for _, e in chunk], np.int64).astype(np.int32)
         wid_c = np.clip(wid, 0, B - 1)
 
-        cand, _ = extract_read_candidates(
-            to_device(ops, device, np.int8), to_device(lens, device),
+        op_cand, _, clip, _, row = walk_runs(
+            to_device(ops, device, np.uint8), to_device(lens, device),
             to_device(pos, device), to_device(n_ops, device),
-            torch.full((N,), KIND_INS, dtype=torch.int32, device=device),
+            torch.full((len(pos),), KIND_INS, dtype=torch.int32,
+                       device=device),
             to_device(istart[wid_c], device), to_device(iend[wid_c], device))
-        locs, dcounts, read_ovf = group_candidates_by_window(
-            cand, to_device(wid, device), B, K)
+        locs, dcounts = group_walk(op_cand, row, clip,
+                                   to_device(wid, device), B, K)
         best, support = window_scan_batch(
             locs, dcounts.clamp(max=K), min_count=cfg.consensus_min_count,
             window_size=cfg.window_size, slide_size=cfg.slide_size)
-        best, support, dcounts, read_ovf = (
-            x.cpu().numpy() for x in (best, support, dcounts, read_ovf))
+        best, support, dcounts = (
+            x.cpu().numpy() for x in (best, support, dcounts))
         _count(stats, "batches")
         for b, (s, e) in enumerate(chunk):
-            if read_ovf[b] or dcounts[b] > K:
+            if dcounts[b] > K:
                 _count(stats, "fallbacks")
                 results[base + b] = _oracle_tile(prs[b].to_list(), s, e, cfg)
             else:

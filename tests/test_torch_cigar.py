@@ -3,7 +3,9 @@
 bit-identical candidates, counts, sorted window rows and read_cap
 overflow flags on the random reads and hand-built break / soft-clip edges
 of tests/test_cigar_kernel.py, on rows whose positions wrap int32, and
-the searchsorted rank-select against the JAX broadcast form."""
+the searchsorted rank-select against the JAX broadcast form; and the flat
+walk (`walk_runs`, `group_walk`) against the JAX walk at a read_cap that
+keeps every candidate, on reads past 16,384 ops."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -211,3 +213,73 @@ def test_walk_calls_count_by_device():
     args = _per_read(pack_reads(_random_tasks(rng, 3, 3), 16), 3)
     tcigar.extract_read_candidates(*(_t(a) for a in args))
     assert tcigar.walk_calls["cpu"] == before + 1
+
+
+def _long_read(rng, base, n_pairs):
+    """A read of 2 * n_pairs ops, small M runs and D runs of which about a
+    third pass 50 bp, so that it holds many candidates in its window."""
+    cig = []
+    for _ in range(n_pairs):
+        cig.append((CIGAR_M, int(rng.integers(1, 4))))
+        cig.append((CIGAR_D if rng.random() < 0.7 else CIGAR_I,
+                    int(rng.choice([2, 51, 60]))))
+    return base - int(rng.integers(0, 400)), cig
+
+
+def _csr(packed):
+    """The flat streams of a pack_reads batch (its reads' runs end to end)."""
+    ops, lens, pos, n_ops, *rest = packed
+    keep = np.arange(ops.shape[1])[None, :] < n_ops[:, None]
+    return (ops[keep].astype(np.uint8), lens[keep], pos, n_ops, *rest)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_flat_walk_matches_jax_at_full_width(seed):
+    """walk_runs over the flat CSR streams and group_walk against JAX's
+    extract_read_candidates on the padded layout and
+    group_candidates_by_window with read_cap the batch's largest per-read
+    count (so JAX keeps every candidate too): reads past 16,384 ops with
+    tens of candidates in one window, random reads, and rows that wrap
+    int32.  Every slot's candidate, every clip, each window's row and
+    count are equal."""
+    rng = np.random.default_rng(300 + seed)
+    tasks = _random_tasks(rng, 10, 8, kinds=KINDS)
+    for k in (KIND_DEL_START, KIND_DEL_END, KIND_INS, KIND_INV_END):
+        base = int(rng.integers(40_000, 60_000))
+        long = _long_read(rng, base, 8_200 + int(rng.integers(0, 40)))
+        tasks.append((k, [long, random_read(rng, base),
+                          _long_read(rng, base, 20)],
+                      base - 2_000, base + int(rng.integers(500, 3_000)),
+                      base))
+    big = 2**31 - 1
+    tasks.append((KIND_DEL_END, [(big - 60, [(CIGAR_S, 9), (CIGAR_M, 30),
+                                             (CIGAR_D, 70), (CIGAR_M, 90),
+                                             (CIGAR_D, 55)])],
+                  big - 500, big, big - 50))
+    B, K = len(tasks), 32
+    O = max(len(c) for _, reads, *_ in tasks for _, c in reads)
+    assert O > 16_384
+    packed = pack_reads(tasks, O)
+    args = _per_read(packed, B)
+    jc, jn = (np.asarray(x) for x in jcigar.extract_read_candidates(*args))
+    cap = int(jn.max())
+    assert cap > 8
+    jl, jcnt, jovf = (np.asarray(x) for x in jcigar.group_candidates_by_window(
+        jc, packed[4], B, K, cap))
+    assert not jovf.any() and (jcnt > K).any()
+
+    ops, lens, pos, n_ops, wid, *_ = _csr(packed)
+    wc = np.clip(wid, 0, B - 1)
+    op_cand, op_mask, clip, clip_ok, row = tcigar.walk_runs(
+        *(_t(a) for a in (ops, lens, pos, n_ops, packed[5][wc],
+                          packed[6][wc], packed[7][wc])))
+    keep = np.arange(O)[None, :] < n_ops[:, None]
+    np.testing.assert_array_equal(op_cand.numpy(), jc[:, :O][keep])
+    np.testing.assert_array_equal(clip.numpy(), jc[:, O])
+    count = np.bincount(row.numpy(), op_mask.numpy(), len(n_ops)) + \
+        clip_ok.numpy()
+    np.testing.assert_array_equal(count, jn)
+    tl, tcnt = tcigar.group_walk(op_cand, row, clip, _t(wid), B, K)
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    np.testing.assert_array_equal(tcnt.numpy(), jcnt)
+    assert (jc[(jc < PAD)] < 0).any(), "no candidate wrapped negative"

@@ -4,12 +4,14 @@ JAX package on the same seeded inputs, all exact: the scan and its
 compaction on every returned array (the filler past `total` and int32
 wrap-around included), the CSR scatter, breakpoint detection on the
 Python-parse (the JAX package's padded feed), native and host paths (ragged tail, a read of more than 8,192 runs, a
-batch over the compaction cap), clustering, run_discover's lines with
+batch over the first page's cap, which the port pages on the device and
+the JAX package rescans on the host), the second page's order, clustering, run_discover's lines with
 `seq:` on the disc fixtures and on a small tools/bench_disc.py fixture, and
 the detection checkpoint restored across the two packages.  The JAX side
 runs with data_shards=1 (the single-device path)."""
 from __future__ import annotations
 
+import functools
 import io
 import os
 import sys
@@ -128,6 +130,37 @@ def test_scan_compact_csr():
         _assert_all_equal(got, [p.numpy() for p in pad])
 
 
+# The first page's capacity: a third of the hits, all but one, and one.
+@pytest.mark.parametrize("frac", [3, 1, "one"])
+def test_scan_compact_second_page(frac):
+    """A first page of `cap` hits and a second page of the hits of rank
+    cap .. total - 1 (`first`), padded and CSR, laid end to end equal the
+    JAX program's single page of size total: the same row-major order."""
+    rng = np.random.default_rng(20)
+    N, O = 64, 32
+    ops, lens, n_runs, ref_start = _padded(rng, N, O)
+    of, lf = _csr(ops, lens, n_runs, 4096)
+    total = int((np.asarray(jops.scan_projected_runs(
+        ops, lens, n_runs, ref_start)[0]) > 0).sum())
+    cap = {3: total // 3, 1: total - 1, "one": 1}[frac]
+    want = [np.asarray(a) for a in jops.scan_projected_runs_compact(
+        ops, lens, n_runs, ref_start, min_len=50, cap=total)]
+    for feed in ("padded", "csr"):
+        if feed == "padded":
+            page = functools.partial(tops.scan_projected_runs_compact,
+                                     *_torch(ops, lens, n_runs, ref_start))
+        else:
+            page = functools.partial(tops.scan_projected_runs_compact_csr,
+                                     *_torch(of, lf, n_runs, ref_start),
+                                     O=O)
+        p1 = page(min_len=50, cap=cap)
+        p2 = page(min_len=50, cap=total - cap, first=cap)
+        assert int(p1[0]) == int(p2[0]) == int(want[0]) == total > 40
+        for a, b, w in zip(p1[1:], p2[1:], want[1:]):
+            np.testing.assert_array_equal(
+                np.concatenate([a.numpy(), b.numpy()]), w)
+
+
 # T well past the runs' total, and rows with more runs than O (their cells
 # past O are dropped); a zero-run row at the end.
 @pytest.mark.parametrize("case", ["t_above_total", "rows_over_O"])
@@ -213,7 +246,10 @@ def test_detect_breakpoints(path):
                                    use_device_scan=device_scan, stats=stats)
     assert _dicts(got) == _dicts(want)
     if device_scan:
-        assert stats["scan_batches"] == 3 and stats["rescans"] == 1
+        # The dense block's batch takes a second page on the device where
+        # the JAX package rescans it on the host.
+        assert stats["scan_batches"] == 3 and stats["rescans"] == 0
+        assert stats["scan_pages2"] == 1
         assert stats["host_reads"] == 1 and stats["reads"] == 301
 
 
@@ -273,7 +309,8 @@ def test_detect_breakpoints_native(tmp_path):
         ta.close()
     assert _dicts(got) == _dicts(want)
     assert len(got) > 2048
-    assert stats["scan_batches"] == 4 and stats["rescans"] == 1
+    assert stats["scan_batches"] == 4 and stats["rescans"] == 0
+    assert stats["scan_pages2"] == 1
     assert stats["host_reads"] == 1 and stats["reads"] == 211
 
 

@@ -171,7 +171,7 @@ def test_run_scan_output_file(ins_fixture, tmp_path):
 @pytest.fixture(scope="module")
 def dense_ins_bam(tmp_path_factory):
     """One tile with 150 INS candidates (past K = 64) and one read with 10
-    INS ops in one tile (past the device walk's read_cap of 8)."""
+    INS ops in one tile (past the JAX device walk's read_cap of 8)."""
     d = tmp_path_factory.mktemp("dense_ins")
     bam = str(d / "dense.bam")
     reads = [(50_000 + 2 * i, [(0, 400 - 2 * i + i % 5), (1, 70),
@@ -194,8 +194,25 @@ def test_run_scan_overflow_fallbacks_match_jax(dense_ins_bam, native):
               max_candidates=64, use_native_io=native)
     want, got, stats = _scan_both(kw)
     assert got == want
-    assert stats["fallbacks"] >= (1 if native else 2)
+    # Only the tile past K: the port's walk keeps every candidate of the
+    # 10-INS read, where the JAX package's Python path sends its tile to
+    # the oracle too.
+    assert stats["fallbacks"] == 1
     assert any("support 150" in l for l in got[1])
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_run_scan_read_cap_tile_stays_on_device(dense_ins_bam, native):
+    """The tile of the read with 10 INS candidates (past the JAX device
+    walk's read_cap of 8) and no K overflow: the JAX package's lines, no
+    fallback on either path, and the tile's best position is the read's
+    cluster."""
+    kw = dict(bam_file=dense_ins_bam, start=59_001, end=62_001,
+              max_candidates=64, use_native_io=native)
+    want, got, stats = _scan_both(kw)
+    assert got == want
+    assert stats.get("fallbacks", 0) == 0 and stats["batches"] >= 1
+    assert any("support" in l and "support 0" not in l for l in got[1])
 
 
 @pytest.mark.parametrize("native", [True, False])

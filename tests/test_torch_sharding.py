@@ -3,9 +3,10 @@ the 8 virtual devices of tests/conftest.py, with tolerance 0: the
 shard-blockwise packers (every array and `window_slots`), the four sharded
 steps of svtrek_tpu_torch.parallel.mesh (against JAX's sharded steps and
 against the port's dense step), and `run_audit` / `run_discover` at
-data_shards 2 and 8 (each path, and batches over the per-shard disc cap
-that force the host rescan) against JAX's at the same count and the
-port's own data_shards=1 run."""
+data_shards 2 and 8 (each path, and batches over the per-shard disc cap,
+which the JAX package rescans on the host and the port pages on the
+device) against JAX's at the same count and the port's own data_shards=1
+run."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,6 +38,9 @@ from svtrek_tpu_torch.pipeline import discover as tdisc
 from svtrek_tpu_torch.pipeline import pack as tpack
 from tests.fixtures import write_fixture
 from tests.test_torch_audit import SVS
+from tests.test_torch_audit_device import (  # noqa: F401
+    _only_jax_fields, long_read_fixture, many_cand_fixture,
+)
 from tests.test_torch_discover import _dicts, _native_gaf, _projected
 from tests.test_torch_pack import _windows
 
@@ -81,7 +85,8 @@ def _equal(got, want):
 # ---- the packers --------------------------------------------------------
 
 def _same_sharded_batch(got, want):
-    for f in dataclasses.fields(want.batch):
+    _only_jax_fields(got.batch, want.batch)
+    for f in dataclasses.fields(got.batch):
         a, b = getattr(got.batch, f.name), getattr(want.batch, f.name)
         if isinstance(b, np.ndarray):
             assert a.dtype == b.dtype, f.name
@@ -195,8 +200,8 @@ def test_sharded_csr_step_matches_jax_and_dense(n):
     args = tmesh.make_sharded_demo_batch(n, b_per_shard=b_per,
                                          reads_per_window=5, O=16, seed=5)
     csr = _demo_csr(args, n)
-    got = tmesh.sharded_audit_step_csr(_cpu_mesh(n), num_windows=B, K=64,
-                                       O=16)(*csr).gather()
+    got = tmesh.sharded_audit_step_csr(_cpu_mesh(n), num_windows=B,
+                                       K=64)(*csr).gather()
     want = jmesh.sharded_audit_step_csr(_jax_mesh(n), num_windows=B, K=64,
                                         O=16)(*csr)
     _equal(got, want)
@@ -319,6 +324,31 @@ def test_run_audit_sharded_matches_jax(planted, path, n):
 
 
 @pytest.mark.parametrize("path", ["device", "python"])
+@pytest.mark.parametrize("route", ["long_read_fixture", "many_cand_fixture"])
+def test_run_audit_sharded_routes(request, route, path):
+    """The device walk's two routes at data_shards 2: a read past the top
+    ops bucket, and reads past the JAX walk's read_cap.  The lines equal
+    svtrek_tpu's at 2 shards (which sends those windows to the host
+    oracle) and the port's own one-shard run, with no window on the
+    oracle."""
+    bam, vcf = request.getfixturevalue(route)
+    kw = dict(bam_file=bam, vcf_file=vcf, batch_windows=4, verbose=True,
+              **AUDIT_PATHS[path])
+    jerr, terr = io.StringIO(), io.StringIO()
+    want = jax_run_audit(AudtConfig(data_shards=2, **kw), out=io.StringIO(),
+                         err=jerr)
+    got = taudit.run_audit(AudtConfig(data_shards=2, device="cpu", **kw),
+                           out=io.StringIO(), err=terr)
+    dense = taudit.run_audit(AudtConfig(data_shards=1, device="cpu", **kw),
+                             out=io.StringIO(), err=io.StringIO())
+    assert got == want == dense and len(got) == 2
+    jf = _fallbacks(jerr.getvalue(), "device")
+    assert jf[2] + jf[3] >= 1
+    assert _fallbacks(terr.getvalue(), "dev_ovf") == (0, 0, 0, 0)
+    assert "data_shards=2" in terr.getvalue()
+
+
+@pytest.mark.parametrize("path", ["device", "python"])
 def test_run_audit_more_shards_than_devices(planted, path):
     """data_shards 16: the port's mesh holds 16 shards whatever the
     device count, so the walk's shard-local window ids line up and the
@@ -347,7 +377,8 @@ def test_resolve_data_shards_defaults_to_one_cpu_shard():
 def test_detect_breakpoints_sharded(n):
     """The Python feed at n shards: JAX's breakpoints at n shards and the
     port's dense ones; the dense block of reads overflows a shard's cap, so
-    that batch takes the exact host rescan."""
+    that shard takes a second page on the device (the JAX package rescans
+    the batch on the host)."""
     prs = _projected(1, 301)
     stats = {}
     want = jdisc.detect_breakpoints(iter(prs), 50, batch_reads=128,
@@ -357,7 +388,8 @@ def test_detect_breakpoints_sharded(n):
     dense = tdisc.detect_breakpoints(iter(prs), 50, batch_reads=128,
                                      device="cpu")
     assert _dicts(got) == _dicts(want) == _dicts(dense)
-    assert stats["scan_batches"] == 3 and stats["rescans"] >= 1
+    assert stats["scan_batches"] == 3 and stats["rescans"] == 0
+    assert stats["scan_pages2"] >= 1
 
 
 @pytest.mark.parametrize("n", SHARDS)
@@ -379,7 +411,8 @@ def test_detect_breakpoints_native_sharded(tmp_path, n):
         for r in readers:
             r.close()
     assert _dicts(got) == _dicts(want) == _dicts(dense)
-    assert stats["scan_batches"] == 4 and stats["rescans"] >= 1
+    assert stats["scan_batches"] == 4 and stats["rescans"] == 0
+    assert stats["scan_pages2"] >= 1
 
 
 @pytest.fixture(scope="module")

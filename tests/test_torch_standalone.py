@@ -29,11 +29,11 @@ PKG_MODULES = sorted(
     for d, _, files in os.walk(os.path.join(ROOT, "svtrek_tpu_torch"))
     if "__pycache__" not in d and "_build" not in d
     for f in files if f.endswith(".py"))
-# The tools chip_smoke.py imports, and the kernel A/B timer that runs
-# beside it on the card.
+# The tools chip_smoke.py imports, and the kernel and routes A/B timers
+# that run beside it on the card.
 SMOKE_TOOLS = ["audt_scalar", "bench_disc", "disc_scalar", "ins_fixture",
                "scan_scalar", "torch_fixtures", "torch_step_overhead",
-               "torch_kernel_ab"]
+               "torch_kernel_ab", "torch_routes_ab"]
 
 # Run in a fresh interpreter: refuse jax, jaxlib and svtrek_tpu, import the
 # module (svtrek_tpu_torch.__main__ runs the CLI, so with --help), report

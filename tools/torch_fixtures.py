@@ -1,14 +1,32 @@
 #!/usr/bin/env python
 """The synthetic long-read `audt` fixture of tools/bench_e2e.py, built on the
 PyTorch port's own BAM writer (svtrek_tpu_torch.io.bam), so that a run of
-the port (chip_smoke.py) loads nothing of the JAX package.
+the port (chip_smoke.py) loads nothing of the JAX package; and the two
+route fixtures of chip_smoke.py's routes phase.
 
 `build_fixture` and `noisy_cigar` are copies of bench_e2e's: the same
 random draws in the same order, so the files are byte-identical to
 bench_e2e.build_fixture's for the same arguments.
 
+The route fixtures are synthetic shapes that reach a route of the JAX
+package's static shapes, not user traffic; they state no share of real
+reads:
+
+- `build_dense_disc_fixture`: tools/bench_disc.py's backbone and 1 kb
+  noisy reads, where DENSE_SHARE of the reads carry one deletion of
+  60-199 bases or a 60-259-base clip, so a batch of 8,192 reads holds
+  about 2,450 hits, past the 2,048 of the scan's first page; and a few
+  insertion sites whose clusters take the star consensus;
+- `build_route_bam`: records 200 kbp apart whose windows hold, beside 10
+  supporting reads, one read of 20,000-40,000 CIGAR ops (past the JAX
+  package's top ops bucket of 16,384) or one read of 10-16 candidates
+  (past its device walk's 8 a read), every window within the default K
+  and sweep caps.
+
     python tools/torch_fixtures.py DIR [--records N] [--depth D]
         [--ops-per-read O] [--realistic-seq]
+    python tools/torch_fixtures.py DIR --dense-disc READS
+    python tools/torch_fixtures.py DIR --route-bam RECORDS
 """
 from __future__ import annotations
 
@@ -20,6 +38,9 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import bench_disc  # noqa: E402
 
 from svtrek_tpu_torch.constants import (  # noqa: E402
     CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S,
@@ -117,6 +138,144 @@ def build_fixture(tmpdir, n_records, depth, ops_per_read, seed=0,
     return bam_path, vcf_path, len(reads), total_ops
 
 
+# The dense disc fixture's share of reads with one big deletion or clip.
+DENSE_SHARE = 0.30
+
+
+def build_dense_disc_fixture(tmpdir, n_reads, seed=0, ins_sites=8,
+                             ins_depth=8):
+    """Write bench.gfa / bench.gaf / bench.fq into tmpdir: tools/
+    bench_disc.py's 1 MiB backbone and noisy 1 kb template reads, where
+    DENSE_SHARE of the reads carry one deletion of 60-199 bases (spliced
+    into the template) or a clip of 60-259 bases (half each), at random
+    places, and ``ins_sites`` insertion sites of 55-119 bases each carry
+    ``ins_depth`` reads spread over the file.  Returns the three paths."""
+    bd = bench_disc
+    rng = np.random.default_rng(seed)
+    gfa = os.path.join(tmpdir, "bench.gfa")
+    gaf = os.path.join(tmpdir, "bench.gaf")
+    fq = os.path.join(tmpdir, "bench.fq")
+    seqs = {}
+    with open(gfa, "w") as fh:
+        for i in range(1, bd.N_SEG + 1):
+            seqs[i] = bd._rand_seq(rng, bd.SEG_LEN)
+            fh.write(f"S\t{i}\t{seqs[i]}\n")
+        fh.write("P\tref\t" + ",".join(
+            f"{i}+" for i in range(1, bd.N_SEG + 1)) + "\t*\n")
+        for i in range(1, bd.N_SEG):
+            fh.write(f"L\t{i}\t+\t{i + 1}\t+\t0M\n")
+
+    templates = [bd._noisy_runs(rng, bd.READ_LEN)
+                 for _ in range(bd.N_TEMPLATES)]
+    site_seg = rng.integers(1, bd.N_SEG + 1, ins_sites)
+    site_off = rng.integers(2_000, bd.SEG_LEN - 2_000 - bd.READ_LEN,
+                            ins_sites)
+    ins_seq = [bd._rand_seq(rng, int(n))
+               for n in rng.integers(55, 120, ins_sites)]
+    step = max(n_reads // (ins_sites * ins_depth), 1)
+
+    def splice(t: int, op: str, ln: int, lead_ref: int):
+        runs, ref, placed = [], 0, False
+        for o, l in templates[t]:
+            if not placed and ref >= lead_ref:
+                runs.append((op, ln))
+                placed = True
+            runs.append((o, l))
+            if o in "=XD":
+                ref += l
+        if not placed:
+            runs.append((op, ln))
+        return runs
+
+    with open(gaf, "w") as g, open(fq, "w") as f:
+        for r in range(n_reads):
+            t = int(rng.integers(0, bd.N_TEMPLATES))
+            lead = int(rng.integers(200, bd.READ_LEN - 300))
+            seg = int(rng.integers(1, bd.N_SEG + 1))
+            off = int(rng.integers(0, bd.SEG_LEN - 2 * bd.READ_LEN))
+            clip, big_ins = 0, None
+            u = rng.random()
+            if r % step == 0 and r // step < ins_sites * ins_depth:
+                s = (r // step) % ins_sites
+                seg, off = int(site_seg[s]), int(site_off[s]) - lead
+                big_ins = ins_seq[s]
+                runs = splice(t, "I", len(big_ins), lead)
+            elif u < DENSE_SHARE / 2:
+                runs = splice(t, "D", int(rng.integers(60, 200)), lead)
+            elif u < DENSE_SHARE:
+                runs, clip = templates[t], 60 + lead % 200
+            else:
+                runs = templates[t]
+            qlen, span = bd._qlen(runs), bd._rspan(runs)
+            g.write(f"rd{r}\t{qlen + clip}\t{clip}\t{qlen + clip}\t+\t"
+                    f">{seg}\t{bd.SEG_LEN}\t{off}\t{off + span}\t{qlen}"
+                    f"\t{qlen}\t60\tcg:Z:{bd._runs_str(runs)}\n")
+            seq = bd._rand_seq(rng, clip) + bd._read_seq(
+                rng, runs, seqs[seg], off, big_ins)
+            f.write(f"@rd{r}\n{seq}\n+\n{'I' * len(seq)}\n")
+    return gfa, gaf, fq
+
+
+def _small_ops(rng, n_ops):
+    """n_ops small M/I/D runs (1-8, 1-3, 1-3 bases), none a candidate."""
+    kinds = rng.choice(np.array([CIGAR_M, CIGAR_M, CIGAR_I, CIGAR_D]),
+                       n_ops)
+    lens = np.where(kinds == CIGAR_M, rng.integers(1, 9, n_ops),
+                    rng.integers(1, 4, n_ops))
+    return list(zip(kinds.tolist(), lens.tolist()))
+
+
+def build_route_bam(tmpdir, n_records, seed=0, depth=10):
+    """Write route.bam (+ .bai) and route.vcf into tmpdir: n_records SV
+    records (DEL and INS in turn) 200 kbp apart on one chromosome, each
+    with ``depth`` supporting reads of about 100 ops and, in turn, one
+    read of 20,000-40,000 small ops that carries the SV op at the
+    breakpoint, or one read of 10-16 SV ops of 51-90 bases 300 bases
+    apart inside the first window.  Returns (bam, vcf)."""
+    rng = np.random.default_rng(seed)
+    spacing = 200_000
+    chrom_len = spacing * (n_records + 2)
+    bam = os.path.join(tmpdir, "route.bam")
+    vcf = os.path.join(tmpdir, "route.vcf")
+    reads, records = [], []
+    for i in range(n_records):
+        pos = spacing * (i + 1)
+        svtype = ("DEL", "INS")[i % 2]
+        op = CIGAR_D if svtype == "DEL" else CIGAR_I
+        svlen = int(rng.integers(60, 400))
+        records.append((pos, svtype, svlen))
+        for _ in range(depth):
+            start = pos - 1 - int(rng.integers(1_000, 5_000))
+            lead = pos - 1 - start + int(rng.integers(-2, 3))
+            reads.append((start, [(CIGAR_M, lead), (op, svlen)] +
+                          _small_ops(rng, 100)))
+        start = pos - 1 - int(rng.integers(6_000, 9_000))
+        if i % 4 < 2:
+            tail = _small_ops(rng, int(rng.integers(20_000, 40_000)))
+            reads.append((start, [(CIGAR_M, pos - 1 - start), (op, svlen)]
+                          + tail))
+        else:
+            many = []
+            for _ in range(int(rng.integers(10, 17))):
+                many += [(CIGAR_M, 300), (op, int(rng.integers(51, 91)))]
+            reads.append((start, many + [(CIGAR_M, 500)]))
+    reads.sort(key=lambda r: r[0])
+    with BamWriter(bam, [("1", chrom_len)]) as w:
+        for i, (start, cig) in enumerate(reads):
+            qlen = sum(l for o, l in cig if o in (CIGAR_M, CIGAR_I, CIGAR_S))
+            w.write(BamRecord(name=f"r{i}", flag=0, tid=0, pos=start,
+                              mapq=60, cigar=cig, seq="A" * qlen))
+    with open(vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write('##INFO=<ID=SVTYPE,Number=1,Type=String,Description="x">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for i, (pos, svtype, svlen) in enumerate(records):
+            end = pos + (svlen if svtype == "DEL" else 0)
+            fh.write(f"1\t{pos}\trt{i}\tN\t<{svtype}>\t.\tPASS\t"
+                     f"SVTYPE={svtype};END={end}\n")
+    return bam, vcf
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dir")
@@ -124,8 +283,18 @@ def main():
     ap.add_argument("--depth", type=int, default=12)
     ap.add_argument("--ops-per-read", type=int, default=1500)
     ap.add_argument("--realistic-seq", action="store_true")
+    ap.add_argument("--dense-disc", type=int, metavar="READS",
+                    help="build the dense disc route fixture instead")
+    ap.add_argument("--route-bam", type=int, metavar="RECORDS",
+                    help="build the device-walk route BAM instead")
     args = ap.parse_args()
     os.makedirs(args.dir, exist_ok=True)
+    if args.dense_disc:
+        print(*build_dense_disc_fixture(args.dir, args.dense_disc))
+        return
+    if args.route_bam:
+        print(*build_route_bam(args.dir, args.route_bam))
+        return
     bam, vcf, n_reads, n_ops = build_fixture(
         args.dir, args.records, args.depth, args.ops_per_read,
         realistic_seq=args.realistic_seq)
