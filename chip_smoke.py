@@ -18,7 +18,9 @@ last line:
    plus 256 rows against tools/audt_scalar.py's scalar consensus;
    CUDA-event times of both, and at every shape the profiler's time of K1
    alone beside a launch floor (one int32 elementwise op on a [B] tensor,
-   which the port never calls);
+   which the port never calls); then the second pass's full sweep, K1 at
+   W = K against the bounded plain version (`consensus_pos_full`) at
+   (64, 2,048) and (8, 16,384), no overflow flag, timed the same way;
 4. POA kernels: K2 (banded DP pointers: its strip kernel, a warp a pair,
    and its wide kernel, eight warps a pair for bands above 527) and K3
    (traceback) against their plain PyTorch versions on the card, on seeded
@@ -64,8 +66,10 @@ last line:
    >= m + n: every band up to K2's 2,048 goes to the card, `band_wide`
    counts those past the JAX package's 512), and each DP batch's cols and
    ins must come back at each pair's own width, in at most 1.1 x (sum m +
-   4 sum (m + 1)) bytes of pinned memory; every line must equal an
-   in-process `--device cpu` run, the part before `, seq:` must be
+   4 sum (m + 1)) bytes of pinned memory; the first 500 sites' lines
+   (every insert-length class) must equal an in-process `--device cpu`
+   run and a `--device cuda` run of those sites, with the same band-route
+   counts on both, the part before `, seq:` must be
    byte-identical to tools/audt_scalar.py, and the `seq:` field equal to
    its scalar star consensus on a subset of sites from every insert-length
    class;
@@ -191,14 +195,32 @@ last line:
    the route BAM (64 records; windows with a read of 20,000-40,000 CIGAR
    ops, or one of 10-16 candidates): `long_ops` 0 and `dev_ovf` 0, the
    walk and K1 on the card every batch, the lines equal to
-   tools/audt_scalar.py and to a `--device cpu` run.
+   tools/audt_scalar.py and to a `--device cpu` run;
+18. deep routes (run after phase 17): the windows past the first passes'
+   widths, on the deep BAM of tools/torch_fixtures.py (64 records, 16 of
+   150-400 supporting reads and 8 of 1,100-2,500; a synthetic route
+   fixture, not user traffic).  `audt` on the host path, `--extract
+   device` and `--no-native-io` (batches of 32 windows), on cuda and on
+   cpu: the lines equal to tools/audt_scalar.py and to each other;
+   `kovf`, `sweep` and `dev_ovf` 0; `wide_k` above 0 on every path and
+   `sweep_full` above 0 on the device walk (the host path's first pass
+   holds n <= K = W, so its sweep cannot overflow at the defaults), both
+   equal on the two devices; K1 launched once for every first pass and
+   once for every second pass (a batch that holds a deep window), the
+   plain consensus never.  `scan` of a region holding a first- and a
+   second-tier INS record (native) and of the second one's tiles
+   (`--no-native-io`): lines equal to tools/scan_scalar.py and to cpu,
+   `fallbacks` 0, `wide_k` above 0, the window scan on the card once a
+   batch and once a second batch.
 
 Every phase prints its wall time.  The line before the last two is
 {"kernels": [...]}: each kernel's launches on its path (K1 the
 ins-consensus audt, in `launches_extract_device` the device-extract
 audt, in `launches_sharded` / `launches_sharded_extract` phase 15's
-4-shard host-extract and device-extract audt, and in `launches_routes`
-phase 17's two route-BAM audt runs; K2's strip kernel and K3 disc, and in
+4-shard host-extract and device-extract audt, in `launches_routes`
+phase 17's two route-BAM audt runs, and in `launches_deep` phase 18's
+three deep-BAM audt runs by path, with `full_sweep`, phase 3's W = K
+rows; K2's strip kernel and K3 disc, and in
 `launches_routes` phase 17's dense disc, K2's wide kernel the spread-site audt, K4 the probe, G1 the graph
 audt and in `launches_disc` the graph disc), its
 largest difference from the plain version, its CUDA-event time beside the
@@ -275,8 +297,10 @@ MAIN_SHAPE = (512, 16, 128)
 PY_RECORDS = 500
 PY_SCAN_REGION = (1, 6_000_000)
 CHROM_END = 120_000_000
-# The ins-consensus fixture (tools/ins_fixture.py): sites, seed.
-INS_SITES, INS_SEED = 2000, 0
+# The ins-consensus fixture (tools/ins_fixture.py): sites, seed, and the
+# first INS_CPU_SITES of them also run on --device cpu (the plain DP takes
+# about 0.1 s a site there; every insert-length class is among them).
+INS_SITES, INS_SEED, INS_CPU_SITES = 2000, 0, 500
 # Sites per insert-length class whose consensus tools/audt_scalar.py
 # recomputes (its DP is a Python loop over n*(2*band+1) cells).
 SCALAR_SEQ_PER_CLASS = 2
@@ -302,6 +326,16 @@ PROBE_CHECKS = [
 # device-walk route BAM's records (windows with a read of 20,000-40,000
 # ops, or one of 10-16 candidates), and the disc batch and first page.
 ROUTE_DISC_READS, ROUTE_RECORDS, ROUTE_SEED = 24_576, 64, 0
+# The second pass's full sweep (K1 at W = K) in phase 3: (B, K).
+FULL_SHAPES = [(64, 2048), (8, 16384)]
+# The deep routes phase: the deep BAM's seed, the audt batch width (so
+# that some batches hold a deep window and the last holds none), and the
+# scan regions, 1-based [start, end): a first- and a second-tier INS
+# record for the native path, the second one's tiles for --no-native-io
+# (tools/torch_routes_ab.py's DEEP_SCAN).
+DEEP_SEED, DEEP_BATCH = 0, 32
+DEEP_SCAN = {"native": (3_195_000, 3_605_000),
+             "python": (3_598_000, 3_603_000)}
 DISC_BATCH, DISC_PAGE = 8192, 2048
 # The disc fixture (tools/bench_disc.py): reads, seed; and how many
 # insertion clusters tools/disc_scalar.py recomputes the consensus of.
@@ -492,7 +526,9 @@ def phase_kernel():
     from audt_scalar import consensus_pos
     from svtrek_tpu_torch.kernels import consensus_pos_cuda
     from torch_step_overhead import cuda_ms
-    from svtrek_tpu_torch.ops.consensus import consensus_pos_batch_reference
+    from svtrek_tpu_torch.ops.consensus import (
+        consensus_pos_batch_reference, consensus_pos_full_reference,
+    )
 
     rng = np.random.default_rng(2026)
     max_err = 0
@@ -543,7 +579,41 @@ def phase_kernel():
                 checked += 1
             print(f"[kernel] {checked} rows equal audt_scalar.consensus_pos",
                   flush=True)
-    return max_err, main_times
+    full = []
+    for B, K in FULL_SHAPES:
+        locs, n, pos = kernel_rows(rng, B, K)
+        args = [torch.from_numpy(a).cuda() for a in (locs, n, pos)]
+        kw = dict(min_count=3, interval=5, range_=500)
+        got, got_ovf = consensus_pos_cuda(*args, sweep_width=K, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, want_ovf = consensus_pos_full_reference(*args, **kw)
+        end.record()
+        end.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want) or got_ovf.any() or want_ovf.any():
+            fail(f"K1 at W = K differs from the plain full sweep at B={B} "
+                 f"K={K}: max_abs_err={err}, overflow rows "
+                 f"{int(got_ovf.sum())} / {int(want_ovf.sum())}")
+        ms = cuda_ms(lambda: consensus_pos_cuda(*args, sweep_width=K, **kw),
+                     20)
+        alone = device_ms(lambda: consensus_pos_cuda(*args, sweep_width=K,
+                                                     **kw),
+                          "consensus_pos_kernel", 5)
+        # Bytes: locs in, refined and overflow out, as for the first pass.
+        b_ms, b_by = bound(B * K * 4 + B * 13, B * K)
+        full.append({"B": B, "K": K, "ms": ms,
+                     "plain_ms": start.elapsed_time(end),
+                     "device_ms": alone, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        print(f"[kernel] full sweep B={B} K={K} W={K}: equal, no overflow, "
+              f"refined_rows={int((got >= 0).sum())} K1 {ms:.4f} ms, "
+              f"plain {full[-1]['plain_ms']:.4f} ms (one call); alone "
+              f"(profiler) K1 {fmt_ms(alone)}; bound {b_ms:.6f} ms",
+              flush=True)
+    return max_err, main_times, full
 
 
 def poa_batches(rng):
@@ -1368,15 +1438,23 @@ def phase_ins_path():
           f"plain_calls={plain}", flush=True)
     print(f"[ins] {check_star_host('ins', stats, spy, dp_calls)}", flush=True)
 
+    keep = list(range(INS_CPU_SITES))
+    classes = sorted({sites[i]["class"] for i in keep})
+    if classes != sorted({s["class"] for s in sites}):
+        fail(f"the first {INS_CPU_SITES} sites hold classes {classes} only")
+    argv[4] = sub_vcf(vcf, keep, f"ins_{INS_CPU_SITES}.vcf")
+    sub, sub_stats, _ = run_cli([*argv, "--device", "cuda"], "ins sub")
     cpu, cpu_stats, cpu_wall = run_cli([*argv, "--device", "cpu"], "ins cpu")
-    if cpu != got:
+    if not cpu == sub == got[:INS_CPU_SITES]:
         bad = [(a, b) for a, b in zip(cpu, got) if a != b][:2]
-        fail(f"--device cuda and --device cpu lines differ: {bad}")
-    if [cpu_stats[k] for k in ("band_wide", "band_scalar")] != \
-            [stats[k] for k in ("band_wide", "band_scalar")]:
+        fail(f"--device cuda and --device cpu lines differ on the first "
+             f"{INS_CPU_SITES} sites: {bad}")
+    routes = ("band_wide", "band_scalar", "band_wide_k2")
+    if [cpu_stats[k] for k in routes] != [sub_stats[k] for k in routes]:
         fail("--device cuda and --device cpu count other band routes")
-    print(f"[ins] --device cpu: {len(cpu)} lines equal, wall "
-          f"{cpu_wall:.3f}s", flush=True)
+    print(f"[ins] --device cpu: the first {len(cpu)} sites (classes "
+          f"{classes}) equal to a cuda run of them and to the run's lines, "
+          f"wall {cpu_wall:.3f}s", flush=True)
 
     subset = scalar_subset(sites)
     t0 = time.perf_counter()
@@ -2829,6 +2907,109 @@ def phase_routes() -> dict:
             "page2_ms": pages["page2_ms"]}
 
 
+def deep_fixture() -> tuple[str, str]:
+    """The deep BAM and its VCF, built once and cached under the temp
+    dir."""
+    from torch_fixtures import build_deep_bam
+
+    d = os.path.join(tempfile.gettempdir(), f"svtrek_smoke_deep_s{DEEP_SEED}")
+    marker = os.path.join(d, "done")
+    if not os.path.exists(marker):
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        build_deep_bam(d, seed=DEEP_SEED)
+        open(marker, "w").close()
+        print(f"[fixture] deep BAM built in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    return os.path.join(d, "deep.bam"), os.path.join(d, "deep.vcf")
+
+
+def phase_deep_routes() -> dict:
+    """Phase 18: the windows past --cand-width, --max-candidates and
+    --sweep-width take a second pass on the card.  Returns K1's launches
+    on each audt path and the runs' rates."""
+    from audt_scalar import audt_lines
+    from scan_scalar import scan_lines
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.ops import cigar, consensus, window_scan
+    from torch_fixtures import deep_records
+
+    bam, vcf = deep_fixture()
+    want = audt_lines(bam, vcf)
+    # Windows in VCF order; the first two tiers' (a DEL two, an INS one)
+    # pass a width.  A batch of DEEP_BATCH windows holding one takes one
+    # second pass (on the host path, only its windows past --cand-width:
+    # its sweep cannot overflow at n <= K = W).
+    deep = [t < 2 for _, sv, t in deep_records()
+            for _ in range(1 + (sv == "DEL"))]
+    batches = -(-len(deep) // DEEP_BATCH)
+    second = sum(any(deep[i:i + DEEP_BATCH])
+                 for i in range(0, len(deep), DEEP_BATCH))
+    out = {"launches": {}, "records_per_s": {}}
+    for tag, flags in (("host", []), ("extract", ["--extract", "device"]),
+                       ("python", ["--no-native-io"])):
+        argv = ["audt", "-b", bam, "-v", vcf, "--batch-windows",
+                str(DEEP_BATCH), *flags]
+        reset_path_counts()
+        got, st, wall = run_cli([*argv, "--device", "cuda"], f"deep {tag}")
+        k1 = launch_counts["consensus_pos"]
+        plain = consensus.plain_calls["consensus_pos"]
+        if tag != "host":
+            check_walk_path(f"deep {tag}", st)
+        cpu, cst, cpu_wall = run_cli([*argv, "--device", "cpu"],
+                                     f"deep {tag} cpu")
+        routes = [st[k] for k in ("kovf", "sweep", "long_ops", "dev_ovf")]
+        counts = (st["wide_k"], st["sweep_full"])
+        if got != want or cpu != want or routes != ["0"] * 4 or \
+                counts != (cst["wide_k"], cst["sweep_full"]) or \
+                int(counts[0]) < 1 or \
+                (tag != "host" and int(counts[1]) < 1):
+            fail(f"deep {tag}: cuda == tools/audt_scalar.py {got == want}, "
+                 f"cpu == it {cpu == want}, kovf/sweep/long_ops/dev_ovf "
+                 f"{routes}, wide_k/sweep_full cuda {counts} cpu "
+                 f"{(cst['wide_k'], cst['sweep_full'])}")
+        if int(st["batches"]) != batches or k1 != batches + second or \
+                plain != 0:
+            fail(f"deep {tag}: K1 launched {k1} times for {st['batches']} "
+                 f"batches and {second} second passes; plain {plain}")
+        out["launches"][tag] = k1
+        out["records_per_s"][tag] = len(got) / wall
+        print(f"[deep] audt {' '.join(flags) or 'host extract'}: "
+              f"{len(got)} lines equal on cuda, on cpu ({cpu_wall:.3f}s) "
+              f"and tools/audt_scalar.py; records/s={len(got) / wall:.1f} "
+              f"wall={wall:.3f}s batches={st['batches']} K1={k1} (first "
+              f"passes {batches}, second passes {second}) wide_k="
+              f"{counts[0]} sweep_full={counts[1]} kovf=0 sweep=0 "
+              f"dev_ovf=0", flush=True)
+
+    for tag, native in (("native", True), ("python", False)):
+        lo, hi = DEEP_SCAN[tag]
+        argv = ["-b", bam, "-c", "1", "-s", str(lo), "-e", str(hi)] + \
+            ([] if native else ["--no-native-io"])
+        reset_path_counts()
+        got, st, wall = run_scan_cli([*argv, "--device", "cuda"])
+        scans, walks = dict(window_scan.scan_calls), dict(cigar.walk_calls)
+        cpu, cst, cpu_wall = run_scan_cli([*argv, "--device", "cpu"])
+        nb = st["batches"]
+        if got != cpu or got != scan_lines(bam, 1, lo, hi) or \
+                st["fallbacks"] != 0 or st["wide_k"] < 1 or \
+                st["wide_k"] != cst["wide_k"] or \
+                scans != {"cuda": 2 * nb, "cpu": 0} or \
+                (not native and walks.get("cuda", 0) != nb):
+            fail(f"deep scan {tag}: cuda == cpu {got == cpu}, fallbacks "
+                 f"{st['fallbacks']}, wide_k {st['wide_k']} / cpu "
+                 f"{cst['wide_k']}, window scan {scans} and walk {walks} "
+                 f"for {nb} batches")
+        out[f"scan_{tag}_tiles_per_s"] = st["tiles"] / wall
+        print(f"[deep] scan {lo}-{hi} ({tag}): {len(got)} lines equal on "
+              f"cuda, on cpu ({cpu_wall:.3f}s) and tools/scan_scalar.py; "
+              f"tiles={st['tiles']} tiles/s={st['tiles'] / wall:.1f} "
+              f"wall={wall:.3f}s batches={nb} wide_k={st['wide_k']} "
+              f"fallbacks=0 (window scan on cuda {scans['cuda']} times)",
+              flush=True)
+    return out
+
+
 def phase_jax_check() -> None:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print(f"[jax] {len(loaded)} modules of jax, jaxlib or svtrek_tpu loaded",
@@ -2852,8 +3033,8 @@ def main() -> int:
     import torch
 
     timed("build", phase_build)
-    max_err, (ms, plain_ms, k1_alone, k1_floor, k1_bound, k1_by) = \
-        timed("kernel", phase_kernel)
+    max_err, (ms, plain_ms, k1_alone, k1_floor, k1_bound, k1_by), \
+        k1_full = timed("kernel", phase_kernel)
     poa_err, poa_times = timed("poa kernels", phase_poa_kernels)
     probe_err, probe_launches, probe = timed("step probe", phase_step_probe)
     # Phase 13 runs with the other kernel checks: in one run on the card
@@ -2868,6 +3049,7 @@ def main() -> int:
     extract_launches = timed("extract device", phase_extract_device,
                              host_lines)
     routes = timed("routes", phase_routes)
+    deep = timed("deep routes", phase_deep_routes)
     timed("python bam path", phase_python_bam)
     timed("scan", phase_scan_full)
     sharded_launches, sharded_extract_launches, _ = timed(
@@ -2891,6 +3073,7 @@ def main() -> int:
         "launches_sharded": sharded_launches,
         "launches_sharded_extract": sharded_extract_launches,
         "launches_routes": routes["k1"],
+        "launches_deep": deep["launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2901,6 +3084,7 @@ def main() -> int:
         "device_ms": k1_alone,
         "device_ms_before": None,
         "launch_floor_ms": k1_floor,
+        "full_sweep": k1_full,
     }, {
         "name": "poa_dp_ptr",
         "route": "cuda",

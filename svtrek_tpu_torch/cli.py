@@ -56,7 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     audt.add_argument("--batch-windows", type=int, default=512,
                       help="[TPU] windows per device batch")
     audt.add_argument("--max-candidates", type=int, default=1024,
-                      help="[TPU] consensus candidate capacity per window")
+                      help="[TPU] device-walk candidate width of a "
+                      "window's first pass; a window past it takes a "
+                      "second pass on the device at its width (up to "
+                      "16,384, past that the host oracle)")
     audt.add_argument("--no-native-io", action="store_true",
                       help="[TPU] disable the C BAM reader fast path")
     audt.add_argument("--chrom-by-name", action="store_true",
@@ -70,11 +73,14 @@ def build_parser() -> argparse.ArgumentParser:
                       "ships only candidates (default with native IO), "
                       "device = ship packed CIGARs to the accelerator")
     audt.add_argument("--cand-width", type=int, default=128,
-                      help="[TPU] host-extract per-window candidate "
-                      "capacity (overflow refines exactly in C)")
+                      help="[TPU] host-extract candidate width of a "
+                      "window's first pass; a window past it takes a "
+                      "second pass on the device at its width (up to "
+                      "16,384, past that the C scalar consensus)")
     audt.add_argument("--sweep-width", type=int, default=128,
-                      help="[TPU] consensus sweep anchor budget "
-                      "(overflow falls back exactly to the host)")
+                      help="[TPU] anchors the first consensus pass folds; "
+                      "a row whose sweep passes it takes the full sweep "
+                      "on the device")
     audt.add_argument("--refined-vcf", default="",
                       help="[TPU] write a refined VCF (SVELDT=SUCCESS/"
                            "PARTIAL/INCORRECT) to this path")

@@ -10,9 +10,10 @@
 // near INT32_MAX.
 //
 // Bound: latency and launch, not bandwidth or arithmetic.  A batch is B
-// <= a few thousand rows of K <= 8192 int32 (at most a few MB), and at the
-// main path's (512, 16) the bytes bound is about 0.01 us: the floor is the
-// launch, a few us.  The design this one replaced ran one thread per
+// <= a few thousand rows of K <= 16384 int32 (at most a few MB; the first
+// pass ships K <= 8192, a second pass up to kMaxK), and at the main path's
+// (512, 16) the bytes bound is about 0.01 us: the floor is the launch, a
+// few us.  The design this one replaced ran one thread per
 // window: a binary search, then up to W anchors each with a serial cluster
 // scan, all dependent loads strided K*4 bytes from the next thread's, on 8
 // of 132 SMs at (512, 16).

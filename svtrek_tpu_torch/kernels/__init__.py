@@ -20,7 +20,9 @@ launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
                                  "poa_dp_ptr_wide": 0, "poa_traceback": 0,
                                  "step_probe": 0, "poa_graph_dp": 0}
 # The widest row K1 takes: one warp's row and its int64 prefix sums in the
-# shared memory of a block (csrc/consensus.cu); the packer ships K <= 8192.
+# shared memory of a block (csrc/consensus.cu).  The first pass ships K <=
+# 8192; a window past the first pass's width takes a second pass at the
+# width it needs (`ops.consensus.consensus_pos_full`), up to this one.
 CONSENSUS_MAX_K = 16384
 # The widest per-pair band K2 takes (the main path's band cap; the wide
 # kernel's strips hold up to POA_WIDE_MAX_BAND).

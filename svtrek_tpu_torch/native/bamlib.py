@@ -67,10 +67,18 @@ def load_library():
         ct.c_void_p, ct.c_int32, ct.POINTER(ct.c_int32),
         ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
         ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
-        ct.c_int32, ct.c_int32, ct.c_int32, ct.c_int32,
+        ct.c_int32, ct.c_int32, ct.c_int32, ct.c_int32, ct.c_int32,
         ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int32),
         ct.POINTER(ct.c_int64),
     ]
+    lib.svbam_wide_n.restype = ct.c_int64
+    lib.svbam_wide_n.argtypes = [ct.c_void_p]
+    for name, ty in [("svbam_wide_win", ct.POINTER(ct.c_int32)),
+                     ("svbam_wide_off", ct.POINTER(ct.c_int64)),
+                     ("svbam_wide_val", ct.POINTER(ct.c_int32))]:
+        fn = getattr(lib, name)
+        fn.restype = ty
+        fn.argtypes = [ct.c_void_p]
     lib.svbaseline_refine.restype = ct.c_int64
     lib.svbaseline_refine.argtypes = [
         ct.c_int32,
@@ -231,7 +239,8 @@ class NativeBamReader:
         return int(total), counts
 
     def extract_batch(self, kinds, istarts, iends, iposs, win_counts,
-                      K: int, min_count: int, interval: int, range_: int):
+                      K: int, min_count: int, interval: int, range_: int,
+                      wide_cap: int = 0):
         """Host-side evidence extraction over the last fetch_batch.
 
         Per window: the reference's CIGAR evidence walk
@@ -240,7 +249,9 @@ class NativeBamReader:
          counts [n] int32 true candidate counts,
          refined [n] int64 — INT64_MIN where the device should run the
          consensus; otherwise the already-computed scalar consensus for
-         windows whose candidates overflowed K)."""
+         windows whose candidates overflowed K and ``wide_cap``).  A
+         window with K < count <= wide_cap keeps INT64_MIN and a padding
+         row; its sorted candidates are in `wide_rows()`."""
         n = len(kinds)
         kinds = np.ascontiguousarray(kinds, np.int32)
         istarts = np.ascontiguousarray(istarts, np.int64)
@@ -257,12 +268,28 @@ class NativeBamReader:
             iends.ctypes.data_as(ct.POINTER(ct.c_int64)),
             iposs.ctypes.data_as(ct.POINTER(ct.c_int64)),
             win_counts.ctypes.data_as(ct.POINTER(ct.c_int64)),
-            K, min_count, interval, range_,
+            K, max(int(wide_cap), 0), min_count, interval, range_,
             locs.ctypes.data_as(ct.POINTER(ct.c_int32)),
             counts.ctypes.data_as(ct.POINTER(ct.c_int32)),
             refined.ctypes.data_as(ct.POINTER(ct.c_int64)),
         )
         return locs, counts, refined
+
+    def wide_rows(self):
+        """The side CSR of the last extract_batch, copied: (windows [m]
+        int32, offsets [m+1] int64, candidates [offsets[m]] int32), each
+        window's candidates sorted ascending."""
+        lib = self._lib
+        m = int(lib.svbam_wide_n(self._h))
+        if m == 0:
+            return (np.empty(0, np.int32), np.zeros(1, np.int64),
+                    np.empty(0, np.int32))
+        off = np.ctypeslib.as_array(lib.svbam_wide_off(self._h),
+                                    (m + 1,)).copy()
+        win = np.ctypeslib.as_array(lib.svbam_wide_win(self._h), (m,)).copy()
+        val = np.ctypeslib.as_array(lib.svbam_wide_val(self._h),
+                                    (int(off[m]),)).copy()
+        return win, off, val
 
     def batch_flat_n(self, n_reads: int):
         """Fast snapshot of the last fetch as flat CSR columns:

@@ -547,6 +547,12 @@ typedef struct {
      * per-insert offsets (n+1) */
     vec_t insbuf;
     vec_t insoff;
+    /* svbam_extract_batch's side CSR: the windows past K and within its
+     * wide cap (int32 window index), their candidate offsets (int64,
+     * n+1) and sorted candidates (int32) */
+    vec_t wide_win;
+    vec_t wide_off;
+    vec_t wide_val;
     /* sticky decode-error detail; "" = no error.  A corrupt/truncated
        BAM must FAIL the fetch, never silently return partial results
        (htslib errors there too; reference use at audit.c:270-272). */
@@ -627,6 +633,7 @@ void svbam_close(void *h) {
     vec_free(&b->ops); vec_free(&b->lens);
     vec_free(&b->endp); vec_free(&b->widx);
     vec_free(&b->insbuf); vec_free(&b->insoff);
+    vec_free(&b->wide_win); vec_free(&b->wide_off); vec_free(&b->wide_val);
     vec_free(&b->binvec);
     vec_free(&b->chunkvec);
     if (b->ref_names) {
@@ -1155,8 +1162,12 @@ int64_t svbaseline_refine(int32_t kind,
  * Per window: run the reference's evidence walk over its reads, sort the
  * candidates ascending; if count <= K write the row into cands_out
  * (INT32_MAX padded) for the device consensus and set refined_out[w] =
- * INT64_MIN, else refine right here with the scalar consensus (the
- * device never sees that window).  counts_out[w] = true candidate count.
+ * INT64_MIN.  A window with K < count <= wide_cap gets a padding row and
+ * refined_out[w] = INT64_MIN too, and its sorted candidates go to the
+ * handle's side CSR (svbam_wide_*) for a second device pass at the width
+ * it needs; past wide_cap the window is refined right here with the
+ * scalar consensus (the device never sees it).  counts_out[w] = true
+ * candidate count.
  *
  * This is the bandwidth-optimal feed for a remote accelerator: K int32s
  * per window instead of every read's full CIGAR (the walk is
@@ -1165,8 +1176,8 @@ int64_t svbaseline_refine(int32_t kind,
 void svbam_extract_batch(void *h, int32_t nwin, const int32_t *kinds,
                          const int64_t *istart, const int64_t *iend,
                          const int64_t *ipos, const int64_t *win_counts,
-                         int32_t K, int32_t min_count, int32_t interval,
-                         int32_t range,
+                         int32_t K, int32_t wide_cap, int32_t min_count,
+                         int32_t interval, int32_t range,
                          int32_t *cands_out, int32_t *counts_out,
                          int64_t *refined_out) {
     svbam_t *b = h;
@@ -1179,6 +1190,10 @@ void svbam_extract_batch(void *h, int32_t nwin, const int32_t *kinds,
      * [sum(win_counts[0..w)), +win_counts[w]) instead of consecutive
      * fetch rows (svbam_fetch_batch_merged) */
     const int64_t *widx = b->widx.len ? (const int64_t *)b->widx.data : NULL;
+    /* the side CSR is the handle's, its buffers reused from call to call */
+    b->wide_win.esz = 4; b->wide_off.esz = 8; b->wide_val.esz = 4;
+    b->wide_win.len = b->wide_off.len = b->wide_val.len = 0;
+    *(int64_t *)vec_push(&b->wide_off, 1) = 0;
     vec_t cands; vec_init(&cands, 4);
     int64_t row = 0;
     for (int32_t w = 0; w < nwin; w++) {
@@ -1194,22 +1209,43 @@ void svbam_extract_batch(void *h, int32_t nwin, const int32_t *kinds,
         row += win_counts[w];
         counts_out[w] = (int32_t)cands.len;
         int32_t *dst = cands_out + (int64_t)w * K;
-        if ((int64_t)cands.len <= (int64_t)K) {
-            if (cands.len) {
-                qsort(cands.data, cands.len, 4, cmp_i32);
-                memcpy(dst, cands.data, cands.len * 4);
+        int64_t n = (int64_t)cands.len;
+        if (n <= (int64_t)K) {
+            if (n) {
+                qsort(cands.data, n, 4, cmp_i32);
+                memcpy(dst, cands.data, n * 4);
             }
-            for (int64_t k = (int64_t)cands.len; k < K; k++)
-                dst[k] = 0x7fffffff;
+            for (int64_t k = n; k < K; k++) dst[k] = 0x7fffffff;
+            refined_out[w] = INT64_MIN;
+        } else if (n <= (int64_t)wide_cap) {
+            for (int32_t k = 0; k < K; k++) dst[k] = 0x7fffffff;
+            qsort(cands.data, n, 4, cmp_i32);
+            memcpy(vec_push(&b->wide_val, n), cands.data, n * 4);
+            *(int32_t *)vec_push(&b->wide_win, 1) = w;
+            *(int64_t *)vec_push(&b->wide_off, 1) = (int64_t)b->wide_val.len;
             refined_out[w] = INT64_MIN;
         } else {
             for (int32_t k = 0; k < K; k++) dst[k] = 0x7fffffff;
             refined_out[w] = svbaseline_consensus(
-                cands.data, (int64_t)cands.len, ipos[w],
-                min_count, interval, range);
+                cands.data, n, ipos[w], min_count, interval, range);
         }
     }
     vec_free(&cands);
+}
+
+/* The side CSR of the last svbam_extract_batch: its window count, and
+ * its window indices [n], offsets [n+1] and candidates [offsets[n]]. */
+int64_t svbam_wide_n(void *h) {
+    return (int64_t)((svbam_t *)h)->wide_win.len;
+}
+const int32_t *svbam_wide_win(void *h) {
+    return ((svbam_t *)h)->wide_win.data;
+}
+const int64_t *svbam_wide_off(void *h) {
+    return ((svbam_t *)h)->wide_off.data;
+}
+const int32_t *svbam_wide_val(void *h) {
+    return ((svbam_t *)h)->wide_val.data;
 }
 
 /* ================================================================== */

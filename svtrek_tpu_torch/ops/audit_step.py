@@ -12,7 +12,11 @@ run's device here (`to_device`).  The consensus of every step is
 Both refine steps walk the runs where they lie (`ops.cigar.walk_runs`):
 the CSR step builds no padded matrix, so a read of any op count stays on
 the device, and the grouping keeps every candidate of a read, so a window
-overflows only past K candidates or in the consensus sweep.
+overflows only past K candidates or in the consensus sweep.  Such a
+window takes a second pass on the batch's device at the width it needs
+(`audit_refine_wide` over the walk a step kept in a `WalkState`, and for
+host-extracted rows `audit_consensus_wide`): the full sweep of
+`ops.consensus.consensus_pos_full`, which cannot overflow.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from .. import constants as C
 
 from .cigar import group_walk, walk_runs
-from .consensus import consensus_pos_batch
+from .consensus import consensus_pos_batch, consensus_pos_full
 
 
 @dataclasses.dataclass
@@ -148,17 +152,75 @@ def csr_to_padded(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
     return ops[:-1].view(N, O), lens[:-1].view(N, O)
 
 
+def audit_consensus_wide(locs: np.ndarray, counts: np.ndarray,
+                         imprecise_pos: np.ndarray, rows=None, *,
+                         device: torch.device,
+                         min_count: int = C.CONSENSUS_MIN_COUNT,
+                         interval: int = C.CONSENSUS_INTERVAL,
+                         range_: int = C.CONSENSUS_INTERVAL_RANGE
+                         ) -> torch.Tensor:
+    """The second pass of host-extracted windows: the full sweep
+    (`consensus_pos_full`) on ``device`` over rows ``rows`` (default all)
+    of locs [B, K] (sorted, INT32_MAX padding).  Returns their refined
+    values [b] int32 on ``device`` (asynchronous on CUDA)."""
+    if rows is not None:
+        locs, counts, imprecise_pos = (locs[rows], counts[rows],
+                                       imprecise_pos[rows])
+    return consensus_pos_full(
+        to_device(locs, device), to_device(counts, device),
+        to_device(imprecise_pos, device), min_count=min_count,
+        interval=interval, range_=range_)[0]
+
+
+@dataclasses.dataclass
+class WalkState:
+    """A device-walk batch's grouping inputs (`group_walk`'s), kept on its
+    device from the step to the batch's collect for `audit_refine_wide`."""
+
+    op_cand: torch.Tensor
+    row: torch.Tensor
+    clip: torch.Tensor
+    window_id: torch.Tensor
+    imprecise_pos: torch.Tensor
+    num_windows: int
+
+
+def audit_refine_wide(state: WalkState, rows: np.ndarray, width: int, *,
+                      min_count: int = C.CONSENSUS_MIN_COUNT,
+                      interval: int = C.CONSENSUS_INTERVAL,
+                      range_: int = C.CONSENSUS_INTERVAL_RANGE
+                      ) -> torch.Tensor:
+    """The second pass of a device-walk batch on its device: windows
+    ``rows`` (past the first pass's K, or whose sweep overflowed)
+    regrouped at ``width``, at least their largest candidate count, so
+    that each row is the window's whole candidate set, then the full
+    sweep.  Returns their refined values [b] int32 on the batch's device
+    (asynchronous on CUDA)."""
+    rows = to_device(rows, state.clip.device, np.int64)
+    locs, n = group_walk(state.op_cand, state.row, state.clip,
+                         state.window_id, state.num_windows, width,
+                         rows=rows)
+    return consensus_pos_full(
+        locs, n, state.imprecise_pos[rows], min_count=min_count,
+        interval=interval, range_=range_)[0]
+
+
 def _refine(walk, window_id: torch.Tensor, imprecise_pos: torch.Tensor, *,
             num_windows: int, K: int, min_count: int, interval: int,
-            range_: int, sweep_width: int
+            range_: int, sweep_width: int, keep: list | None = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Group a walk's candidates by window and run the consensus."""
+    """Group a walk's candidates by window and run the consensus; with
+    ``keep``, append the batch's `WalkState` to it."""
     op_cand, _, clip, _, row = walk
     locs, counts = group_walk(op_cand, row, clip, window_id, num_windows, K)
+    pos = imprecise_pos.to(torch.int32)
     refined, sweep_ovf = consensus_pos_batch(
-        locs, counts.clamp(max=K), imprecise_pos.to(torch.int32),
+        locs, counts.clamp(max=K), pos,
         min_count=min_count, interval=interval, range_=range_,
         sweep_width=sweep_width)
+    if keep is not None:
+        keep.append(WalkState(op_cand, row, clip, window_id, pos,
+                              num_windows))
     return refined, counts, sweep_ovf | (counts > K)
 
 
@@ -176,20 +238,22 @@ def audit_refine_step(ops: torch.Tensor, lens: torch.Tensor,
                       K: int, min_count: int = C.CONSENSUS_MIN_COUNT,
                       interval: int = C.CONSENSUS_INTERVAL,
                       range_: int = C.CONSENSUS_INTERVAL_RANGE,
-                      sweep_width: int = 128
+                      sweep_width: int = 128, keep: list | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Refine a packed batch of tasks on the tensors' device (the layout of
     `AuditBatch`).
 
     Returns (refined [B] int32 with -1 = NA, counts [B] int32 candidate
     counts, overflow [B] bool).  A window whose count exceeds K or whose
-    consensus sweep overflowed must be recomputed by the host oracle."""
+    consensus sweep overflowed takes a second pass (`audit_refine_wide`
+    on the `WalkState` appended to ``keep``) or, past the widest one, the
+    host oracle."""
     walk = walk_runs(ops.reshape(-1), lens.reshape(-1), pos, n_ops,
                      *_read_attrs(window_id, num_windows, kind, inter_start,
                                   inter_end), width=ops.shape[1])
     return _refine(walk, window_id, imprecise_pos, num_windows=num_windows,
                    K=K, min_count=min_count, interval=interval,
-                   range_=range_, sweep_width=sweep_width)
+                   range_=range_, sweep_width=sweep_width, keep=keep)
 
 
 def audit_refine_step_csr(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
@@ -200,7 +264,7 @@ def audit_refine_step_csr(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
                           K: int, min_count: int = C.CONSENSUS_MIN_COUNT,
                           interval: int = C.CONSENSUS_INTERVAL,
                           range_: int = C.CONSENSUS_INTERVAL_RANGE,
-                          sweep_width: int = 128
+                          sweep_width: int = 128, keep: list | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """audit_refine_step fed the flat CSR layout of `AuditBatchCSR`: the
@@ -210,4 +274,4 @@ def audit_refine_step_csr(ops_flat: torch.Tensor, lens_flat: torch.Tensor,
                                   inter_end))
     return _refine(walk, window_id, imprecise_pos, num_windows=num_windows,
                    K=K, min_count=min_count, interval=interval,
-                   range_=range_, sweep_width=sweep_width)
+                   range_=range_, sweep_width=sweep_width, keep=keep)

@@ -162,7 +162,8 @@ def walk_runs(ops: torch.Tensor, lens: torch.Tensor, pos: torch.Tensor,
 
 
 def group_walk(op_cand: torch.Tensor, row: torch.Tensor, clip: torch.Tensor,
-               window_id: torch.Tensor, num_windows: int, K: int
+               window_id: torch.Tensor, num_windows: int, K: int,
+               rows: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Group a walk's candidates (`walk_runs`) into per-window sorted rows.
 
@@ -175,8 +176,10 @@ def group_walk(op_cand: torch.Tensor, row: torch.Tensor, clip: torch.Tensor,
     [B] int32 per-window candidate counts, which may exceed K).  Every
     candidate of every read counts: the stream's candidates get gap-free
     slots in (read, run) order, each read's clip after its runs, so a
-    window's are contiguous and its row takes the first K.  Windows with
-    counts > K must go to the host oracle."""
+    window's are contiguous and its row takes the first K.  A window with
+    counts > K takes a second pass at a K past its count.  With ``rows``
+    (int64 window indices [b]), only those windows' rows and counts are
+    returned, [b, K] and [b]: the second pass's layout."""
     dev = clip.device
     i64 = torch.int64
     T, N, B = op_cand.shape[0], clip.shape[0], num_windows
@@ -200,6 +203,8 @@ def group_walk(op_cand: torch.Tensor, row: torch.Tensor, clip: torch.Tensor,
     counts = torch.zeros(B + 1, dtype=i64, device=dev).index_add_(
         0, window_id.to(i64).clamp(max=B), bounds[1:] - bounds[:-1] + vc)[:B]
     w_off = torch.cumsum(counts, 0) - counts
+    if rows is not None:
+        counts, w_off = counts[rows], w_off[rows]
     kk = torch.arange(K, device=dev)[None, :]
     idx = (w_off[:, None] + kk).clamp(0, dump - 1)
     locs = torch.where(kk < counts[:, None], flat[idx], PAD)

@@ -13,6 +13,15 @@ totals are int64 sums (the reference sums in uint64, refinement.c:59),
 where the JAX program recovers them from wrapping int32 sums; both give
 the same candidate at every anchor a sweep uses, and may differ at unused
 padding anchors, which no output reads.
+
+`consensus_pos_full` is the second pass of a window past a first pass's
+width: the same consensus at ``sweep_width = K``, where neither sweep can
+overflow (``point_l - (K-1) > 0`` and ``point_r + (K-1) < n-1`` are both
+false for ``point_l, point_r < n <= K``).  On the card it is K1 at W = K
+(K <= kernels.CONSENSUS_MAX_K); its plain version finds the clusters as
+K1 does, by searches on the sorted row and differences of int64 prefix
+sums, a few rows at a time, so that its memory stays bounded at K =
+16,384.
 """
 from __future__ import annotations
 
@@ -24,6 +33,10 @@ from .sweep import abs_i32, sweep_fold, wrap_i32
 
 _I32_BIG = 0x7FFFFFFF
 _CHUNK = 2048
+# The full sweep's plain version takes rows in blocks of at most
+# _FULL_BLOCK // K rows, so that each [rows, K] int64 tensor it holds
+# stays at 4 MiB.
+_FULL_BLOCK = 1 << 19
 
 # Calls of the plain version through `consensus_pos_batch` (the CPU route).
 plain_calls: dict[str, int] = {"consensus_pos": 0}
@@ -73,30 +86,14 @@ def _anchor_stats(locs, n, anchor_idx, loc_a, interval: int):
     return cand_l, count_l, cand_r, count_r
 
 
-def consensus_pos_batch_reference(
-    locs: torch.Tensor,
-    n: torch.Tensor,
-    pos: torch.Tensor,
-    *,
-    min_count: int = C.CONSENSUS_MIN_COUNT,
-    interval: int = C.CONSENSUS_INTERVAL,
-    range_: int = C.CONSENSUS_INTERVAL_RANGE,
-    sweep_width: int = 128,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch consensus_pos_batch.
-
-    locs [B, K] int32 sorted ascending per row, INT32_MAX padding; n [B]
-    valid counts (<= K); pos [B] imprecise positions.  Returns (refined [B]
-    int32 with -1 = NA, overflow [B] bool: the sweep window was exceeded,
-    recompute those rows on the host)."""
+def _sweep_anchors(locs32, locs, n, pos, W: int, range_: int):
+    """Both sweeps' anchors (refinement.c:56-57, 78-79): for each side
+    (clamped anchor index [B, W], anchor value [B, W], active [B, W],
+    overflow [B]), active being the cumulative AND of the in-row and
+    in-range tests."""
     B, K = locs.shape
     dev = locs.device
-    locs32 = locs.to(torch.int32).contiguous()
-    locs = locs32.long()
-    n = n.long()
-    pos = pos.long()
     half = C.SV_MIN_LENGTH // 2
-    W = min(sweep_width, K)
     k_idx = torch.arange(W, device=dev)[None, :]
     last = (n - 1).clamp(min=0)
 
@@ -124,17 +121,128 @@ def consensus_pos_batch_reference(
         (abs_i32(wrap_i32(pos[:, None] - loc_at_r)) < range_)
     active_r = _cumulative_and(ok_r)
     ovf_r = active_r[:, -1] & (point_r + (W - 1) < n - 1)
+    return ((idx_l_c, loc_at_l, active_l, ovf_l),
+            (idx_r_c, loc_at_r, active_r, ovf_r))
 
-    cand_l, count_l, _, _ = _anchor_stats(locs, n, idx_l_c, loc_at_l,
-                                          interval)
-    _, _, cand_r, count_r = _anchor_stats(locs, n, idx_r_c, loc_at_r,
-                                          interval)
-    out = sweep_fold(pos, cand_l, count_l, active_l, cand_r, count_r,
-                     active_r, min_count=min_count, interval=interval)
 
+def _finish(out, overflow, n, min_count: int):
+    """NA for rows with too few candidates; their overflow flags drop."""
     invalid = (n < min_count) | (n <= 0)
     out = torch.where(invalid, torch.full_like(out, -1), out)
-    return out, (ovf_l | ovf_r) & ~invalid
+    return out, overflow & ~invalid
+
+
+def consensus_pos_batch_reference(
+    locs: torch.Tensor,
+    n: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    min_count: int = C.CONSENSUS_MIN_COUNT,
+    interval: int = C.CONSENSUS_INTERVAL,
+    range_: int = C.CONSENSUS_INTERVAL_RANGE,
+    sweep_width: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch consensus_pos_batch.
+
+    locs [B, K] int32 sorted ascending per row, INT32_MAX padding; n [B]
+    valid counts (<= K); pos [B] imprecise positions.  Returns (refined [B]
+    int32 with -1 = NA, overflow [B] bool: the sweep window was exceeded,
+    recompute those rows on the host)."""
+    K = locs.shape[1]
+    locs32 = locs.to(torch.int32).contiguous()
+    locs = locs32.long()
+    n = n.long()
+    pos = pos.long()
+    (idx_l, loc_l, active_l, ovf_l), (idx_r, loc_r, active_r, ovf_r) = \
+        _sweep_anchors(locs32, locs, n, pos, min(sweep_width, K), range_)
+    cand_l, count_l, _, _ = _anchor_stats(locs, n, idx_l, loc_l, interval)
+    _, _, cand_r, count_r = _anchor_stats(locs, n, idx_r, loc_r, interval)
+    out = sweep_fold(pos, cand_l, count_l, active_l, cand_r, count_r,
+                     active_r, min_count=min_count, interval=interval)
+    return _finish(out, ovf_l | ovf_r, n, min_count)
+
+
+def _cluster_sorted(locs32, prefix, n, anchor_idx, loc_a, interval: int,
+                    left: bool):
+    """`_anchor_stats` of one side, on the sorted row: the left cluster
+    of anchor i is [lower_bound(L - interval), i], the right one [i,
+    min(upper_bound(L + interval), n)), and a cluster's total is a
+    difference of the row's int64 prefix sums (K1's form).  Returns
+    (candidate, count), [B, W] int64."""
+    near_max = loc_a >= _I32_BIG - interval
+    if left:
+        bound = torch.where(near_max, loc_a, wrap_i32(loc_a - interval))
+        first = torch.searchsorted(locs32, bound.to(torch.int32).contiguous())
+        first = torch.minimum(first, anchor_idx + 1)
+        count = anchor_idx + 1 - first
+        s = count * loc_a - (prefix.gather(1, anchor_idx + 1) -
+                             prefix.gather(1, first))
+        return wrap_i32(loc_a + torch.div(count // 2 - s, count.clamp(min=1),
+                                          rounding_mode="floor")), count
+    bound = torch.where(near_max, loc_a, wrap_i32(loc_a + interval))
+    end = torch.searchsorted(locs32, bound.to(torch.int32).contiguous(),
+                             right=True)
+    end = torch.maximum(torch.minimum(end, n[:, None]), anchor_idx)
+    count = end - anchor_idx
+    s = prefix.gather(1, end) - prefix.gather(1, anchor_idx) - \
+        count * loc_a
+    cr = count.clamp(min=1)
+    return wrap_i32(loc_a + torch.div(s + cr // 2, cr,
+                                      rounding_mode="floor")), count
+
+
+def _full_rows(locs32, n, pos, *, min_count: int, interval: int,
+               range_: int):
+    """The full sweep of one block of rows (`consensus_pos_full_reference`).
+    Anchors past a side's last active one change nothing, so the clusters
+    and the fold take only the columns some row's sweep reaches."""
+    locs = locs32.long()
+    (idx_l, loc_l, active_l, ovf_l), (idx_r, loc_r, active_r, ovf_r) = \
+        _sweep_anchors(locs32, locs, n, pos, locs.shape[1], range_)
+    reach = max(int(torch.maximum(active_l.sum(1), active_r.sum(1)).max()),
+                1)
+    idx_l, loc_l, active_l, idx_r, loc_r, active_r = (
+        x[:, :reach] for x in (idx_l, loc_l, active_l, idx_r, loc_r,
+                               active_r))
+    prefix = torch.nn.functional.pad(torch.cumsum(locs, 1), (1, 0))
+    cand_l, count_l = _cluster_sorted(locs32, prefix, n, idx_l, loc_l,
+                                      interval, True)
+    cand_r, count_r = _cluster_sorted(locs32, prefix, n, idx_r, loc_r,
+                                      interval, False)
+    out = sweep_fold(pos, cand_l, count_l, active_l, cand_r, count_r,
+                     active_r, min_count=min_count, interval=interval)
+    return _finish(out, ovf_l | ovf_r, n, min_count)
+
+
+def consensus_pos_full_reference(
+    locs: torch.Tensor,
+    n: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    min_count: int = C.CONSENSUS_MIN_COUNT,
+    interval: int = C.CONSENSUS_INTERVAL,
+    range_: int = C.CONSENSUS_INTERVAL_RANGE,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch `consensus_pos_full`: consensus_pos_batch_reference at
+    sweep_width = K, equal to it on every row, in bounded memory.
+
+    Rows go in blocks of b = max(1, 2**19 // K), and a block holds no
+    [b, W, *] tensor: its anchors, their cluster bounds, counts, sums and
+    candidates are [b, K] tensors of at most 2**19 int64 values (4 MiB)
+    each, so the peak is a block's, whatever B: near 120 MiB (112-118 MiB
+    of resident growth measured on a CPU at (32, 16,384) and (128,
+    4,096)), under 256 MiB at any B <= 512 and K <= 16,384.  The overflow
+    flags it returns are all false."""
+    B, K = locs.shape
+    locs32 = locs.to(torch.int32).contiguous()
+    n, pos = n.long(), pos.long()
+    rows = max(1, _FULL_BLOCK // K)
+    parts = [_full_rows(locs32[i:i + rows], n[i:i + rows], pos[i:i + rows],
+                        min_count=min_count, interval=interval,
+                        range_=range_)
+             for i in range(0, B, rows)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
 
 
 def consensus_pos_batch(
@@ -160,3 +268,28 @@ def consensus_pos_batch(
         raise ValueError(f"no consensus_pos path for device {locs.device}")
     plain_calls["consensus_pos"] += 1
     return consensus_pos_batch_reference(locs, n, pos, **kw)
+
+
+def consensus_pos_full(
+    locs: torch.Tensor,
+    n: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    min_count: int = C.CONSENSUS_MIN_COUNT,
+    interval: int = C.CONSENSUS_INTERVAL,
+    range_: int = C.CONSENSUS_INTERVAL_RANGE,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """consensus_pos_batch at sweep_width = K, on the tensors' device: K1
+    at W = K for CUDA tensors (K <= kernels.CONSENSUS_MAX_K), the bounded
+    plain version for CPU tensors.  No row's sweep can overflow, so every
+    refined value is final."""
+    kw = dict(min_count=min_count, interval=interval, range_=range_)
+    if locs.device.type == "cuda":
+        from ..kernels import consensus_pos_cuda
+
+        return consensus_pos_cuda(locs, n, pos, sweep_width=locs.shape[1],
+                                  **kw)
+    if locs.device.type != "cpu":
+        raise ValueError(f"no consensus_pos path for device {locs.device}")
+    plain_calls["consensus_pos"] += 1
+    return consensus_pos_full_reference(locs, n, pos, **kw)

@@ -11,6 +11,10 @@ the single-device op there under the shard's stream: `audit_refine_step`,
 step needs a collective: a call reads nothing back, and
 `ShardedOutput.gather` copies each shard's results to the host on that
 shard's own stream, so the copy is ordered after the shard's kernels.
+The audit steps' second pass (a window past the first pass's width) runs
+the same way, per shard, on the shard's device and stream
+(`launch_on_shards`, `read_on_shards`), from the walk each shard kept
+(`ShardedOutput.kept`).
 
 A mesh may hold one card more than once (`make_mesh(n=4)` on one card
 gives four shards on four streams), as the JAX package's tests run 8
@@ -194,9 +198,12 @@ class ShardedOutput:
     """One sharded-step call's per-shard results (``shards[i]``, a tuple of
     tensors on shard i's device), left where they were computed."""
 
-    def __init__(self, mesh: Mesh, shards: list[tuple]):
+    def __init__(self, mesh: Mesh, shards: list[tuple], kept=None):
         self.mesh = mesh
         self.shards = shards
+        # A device-walk step's WalkState per shard (``keep=True``), else
+        # None.
+        self.kept = kept
 
     def gather(self) -> tuple[np.ndarray, ...]:
         """Each output's shards concatenated on the host: the JAX step's
@@ -215,7 +222,31 @@ class ShardedOutput:
                      for k in range(len(parts[0])))
 
 
-def _launch(mesh: Mesh, args, dtypes, local) -> ShardedOutput:
+def _shard_ctx(mesh: Mesh | None, s):
+    return contextlib.nullcontext() if mesh is None else mesh.on(s)
+
+
+def launch_on_shards(mesh: Mesh | None, groups, fn) -> list:
+    """Run ``fn(s, idx)`` for each (shard, indices) of ``groups`` under
+    shard s's device and stream (``mesh`` None: one device, s None, the
+    current stream).  Reads nothing back; returns [(s, idx, tensor)]."""
+    parts = []
+    for s, idx in groups:
+        with _shard_ctx(mesh, s):
+            parts.append((s, idx, fn(s, idx)))
+    return parts
+
+
+def read_on_shards(mesh: Mesh | None, parts, out: np.ndarray) -> np.ndarray:
+    """Copy each part of `launch_on_shards` to the host on its shard's
+    stream: ``out[idx] = tensor``.  Returns ``out``."""
+    for s, idx, t in parts:
+        with _shard_ctx(mesh, s):
+            out[idx] = t.cpu().numpy()
+    return out
+
+
+def _launch(mesh: Mesh, args, dtypes, local, kept=None) -> ShardedOutput:
     """Run ``local`` on each shard's block of ``args`` (numpy arrays split
     here, or ShardedArrays already on the shards) under the shard's
     stream.  Reads nothing back."""
@@ -243,7 +274,7 @@ def _launch(mesh: Mesh, args, dtypes, local) -> ShardedOutput:
                 else:
                     ins.append(to_device(blk, dev, dt))
             outs.append(tuple(local(*ins)))
-    return ShardedOutput(mesh, outs)
+    return ShardedOutput(mesh, outs, kept)
 
 
 def _windows_local(mesh: Mesh, num_windows: int) -> int:
@@ -261,7 +292,7 @@ def sharded_audit_step(mesh: Mesh, *, num_windows: int, K: int,
                        min_count: int = C.CONSENSUS_MIN_COUNT,
                        interval: int = C.CONSENSUS_INTERVAL,
                        range_: int = C.CONSENSUS_INTERVAL_RANGE,
-                       sweep_width: int = 128):
+                       sweep_width: int = 128, keep: bool = False):
     """The multi-device audit step for `mesh`.
 
     Expects batch arrays laid out shard-blockwise: reads axis N and window
@@ -269,22 +300,32 @@ def sharded_audit_step(mesh: Mesh, *, num_windows: int, K: int,
     shard's block* (padding reads use the local sentinel B//n).
     Returns fn(ops, lens, pos, n_ops, window_id, kind, istart, iend, ipos)
     -> ShardedOutput, whose gather() gives (refined [B], counts [B],
-    overflow [B])."""
+    overflow [B]); with ``keep``, its `kept` holds each shard's WalkState
+    for the second pass."""
     b_loc = _windows_local(mesh, num_windows)
+    return _walk_step(mesh, audit_refine_step, _WALK_DTYPES, keep,
+                      num_windows=b_loc, K=K, min_count=min_count,
+                      interval=interval, range_=range_,
+                      sweep_width=sweep_width)
 
-    def local(*a):
-        return audit_refine_step(
-            *a, num_windows=b_loc, K=K, min_count=min_count,
-            interval=interval, range_=range_, sweep_width=sweep_width)
 
-    return lambda *args: _launch(mesh, args, _WALK_DTYPES, local)
+def _walk_step(mesh: Mesh, step, dtypes, keep: bool, **kw):
+    """A sharded call of a device-walk step: its launch on each shard and,
+    with ``keep``, each shard's WalkState in the output's `kept`."""
+
+    def run(*args):
+        kept = [] if keep else None
+        return _launch(mesh, args, dtypes,
+                       lambda *a: step(*a, keep=kept, **kw), kept)
+
+    return run
 
 
 def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int,
                            min_count: int = C.CONSENSUS_MIN_COUNT,
                            interval: int = C.CONSENSUS_INTERVAL,
                            range_: int = C.CONSENSUS_INTERVAL_RANGE,
-                           sweep_width: int = 128):
+                           sweep_width: int = 128, keep: bool = False):
     """The multi-device step for the flat (CSR) device-extract layout
     (ops.audit_step.AuditBatchCSR): each shard receives its own block of
     the flat op stream and walks it on its own device.
@@ -292,16 +333,14 @@ def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int,
     Layout contract (pack.pack_chunk_native with n_shards > 1): every
     axis shard-blockwise, flat T, reads N, windows B all divisible by the
     mesh size; window_id shard-local with padding sentinel B_loc;
-    per-shard flat tails beyond sum(local n_ops) are not read."""
+    per-shard flat tails beyond sum(local n_ops) are not read; ``keep``
+    as for `sharded_audit_step`."""
     b_loc = _windows_local(mesh, num_windows)
-
-    def local(*a):
-        return audit_refine_step_csr(
-            *a, num_windows=b_loc, K=K, min_count=min_count,
-            interval=interval, range_=range_, sweep_width=sweep_width)
-
-    return lambda *args: _launch(mesh, args, (np.uint8,) + _WALK_DTYPES[1:],
-                                 local)
+    return _walk_step(mesh, audit_refine_step_csr,
+                      (np.uint8,) + _WALK_DTYPES[1:], keep,
+                      num_windows=b_loc, K=K, min_count=min_count,
+                      interval=interval, range_=range_,
+                      sweep_width=sweep_width)
 
 
 def sharded_consensus_step(mesh: Mesh, *, num_windows: int,

@@ -18,14 +18,24 @@ complete.  The producers take one of the JAX pipeline's three branches:
   device walk (`pack_chunk` → `audit_refine_step`), or the flat layout
   where a read passes the top ops bucket.
 
-Windows the device cannot finish exactly are refined on the host: a
-window with more than K candidates on the host-extract path arrives
-already refined by the C scalar consensus, one whose sweep outran
-`sweep_width` goes through `oracle.consensus_pos`, and on the device walk
-a window past K candidates or whose sweep overflowed (`fallback_device`)
-goes through `oracle.refine_task`.  The walk takes reads of any op count
-and every candidate of a read, so `fallback_long`, the JAX package's
-windows with a read past its top ops bucket, stays 0.
+`--cand-width` and `--max-candidates` set the width K of the first
+pass's batch and `--sweep-width` the anchors its consensus folds, as in
+the JAX package.  A window past them takes a second pass on the batch's
+device at the width it needs (`pack.WIDE_MAX_K` at most, K1's widest
+row): the full sweep `ops.consensus.consensus_pos_full`, over the host
+path's side batch of the windows past K (`PackedCandBatch.wide_batch`,
+launched with the first) and the rows whose sweep overflowed, or over the
+device walk regrouped at that width (`ops.audit_step.audit_refine_wide`
+on the walk the step kept).  `wide_k` counts the windows past K and
+`sweep_full` the other rows whose sweep overflowed.  Only a window past
+WIDE_MAX_K candidates is refined on the host: on the host-extract path by
+the C scalar consensus (`kovf`), on the device walk by `oracle.refine_task`
+(`fallback_device`, printed `dev_ovf`).  A host-extracted first pass is at
+most 8,192 wide, so every row whose sweep overflows takes the full sweep,
+and `fallback_sweep` (`sweep`), the JAX package's host route for them,
+stays 0.  The walk takes reads of any op count and every candidate of a
+read, so `fallback_long`, the JAX package's windows with a read past its
+top ops bucket, stays 0.
 
 With `--ins-consensus`, each refined INS record also gets the consensus of
 the inserted bases its supporting reads carry: the native reader decodes
@@ -69,20 +79,22 @@ from ..emit import format_result
 from ..io.bam import BamReader
 from ..io.vcf import VcfSkip, VcfTask, iter_vcf_tasks
 from ..native import native_bam_reader
-from ..oracle import consensus_pos, refine_task
+from ..oracle import refine_task
 
 from ..device import resolve_device
 from ..ops.audit_step import (
-    AuditBatchCSR, audit_consensus_step, audit_refine_step,
-    audit_refine_step_csr, to_device,
+    AuditBatchCSR, audit_consensus_step, audit_consensus_wide,
+    audit_refine_step, audit_refine_step_csr, audit_refine_wide, to_device,
 )
 from ..ops.poa_batch import consensus_sequence_batch
 from ..ops.poa_graph_batch import consensus_sequence_poa_batch
 from ..parallel.mesh import (
-    ShardedOutput, init_distributed, run_mesh, sharded_audit_step,
-    sharded_audit_step_csr, sharded_consensus_step,
+    ShardedOutput, init_distributed, launch_on_shards, read_on_shards,
+    run_mesh, sharded_audit_step, sharded_audit_step_csr,
+    sharded_consensus_step,
 )
 from ..refusals import raise_refused
+from . import pack
 from .pack import (
     INT64_MIN, PackedBatch, PackedCandBatch, as_read_list, pack_chunk,
     pack_chunk_cand, pack_chunk_native, window_tid, windows_for_task,
@@ -184,10 +196,14 @@ class AuditStats:
     reads: int = 0
     batches: int = 0
     oracle_windows: int = 0  # host-fallback windows, all causes (total)
-    fallback_kovf: int = 0   # candidate count exceeded K (cand_width)
-    fallback_sweep: int = 0  # consensus sweep exceeded sweep_width
+    fallback_kovf: int = 0   # past K and pack.WIDE_MAX_K candidates
+    fallback_sweep: int = 0  # the JAX package's sweep route: 0 here
     fallback_long: int = 0   # the JAX package's long-read windows: 0 here
-    fallback_device: int = 0  # device-walk overflow: K or sweep
+    fallback_device: int = 0  # device-walk overflow (K or sweep) past
+                              # WIDE_MAX_K candidates
+    wide_k: int = 0          # windows past K in a second device pass
+    sweep_full: int = 0      # other rows whose sweep passed sweep_width,
+                             # given the full sweep on the device
     device: str = ""
     data_shards: int = 1
 
@@ -200,7 +216,8 @@ class AuditStats:
             f"oracle_fallbacks={self.oracle_windows} "
             f"(kovf={self.fallback_kovf} sweep={self.fallback_sweep} "
             f"long_ops={self.fallback_long} dev_ovf={self.fallback_device}) "
-            f"device={self.device} data_shards={self.data_shards}",
+            f"device={self.device} data_shards={self.data_shards} "
+            f"wide_k={self.wide_k} sweep_full={self.sweep_full}",
             file=err,
         )
         print(
@@ -222,13 +239,6 @@ class AuditStats:
             )
 
 
-def _next_pow2(n: int, lo: int = 16) -> int:
-    v = lo
-    while v < n:
-        v *= 2
-    return v
-
-
 @functools.lru_cache(maxsize=None)
 def _get_sharded_step(device_type: str, n: int, num_windows: int, K: int,
                       min_count: int, interval: int, range_: int,
@@ -236,7 +246,7 @@ def _get_sharded_step(device_type: str, n: int, num_windows: int, K: int,
     return sharded_audit_step(
         run_mesh(device_type, n), num_windows=num_windows, K=K,
         min_count=min_count, interval=interval, range_=range_,
-        sweep_width=sweep_width)
+        sweep_width=sweep_width, keep=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,7 +256,7 @@ def _get_sharded_csr(device_type: str, n: int, num_windows: int, K: int,
     return sharded_audit_step_csr(
         run_mesh(device_type, n), num_windows=num_windows, K=K,
         min_count=min_count, interval=interval, range_=range_,
-        sweep_width=sweep_width)
+        sweep_width=sweep_width, keep=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,11 +286,34 @@ def resolve_data_shards(cfg, device: torch.device, err=None) -> int:
     return n
 
 
+def _walk_k(cfg: AudtConfig) -> int:
+    """The device walk's first-pass width K (`--max-candidates`)."""
+    return pack.pow2(min(cfg.max_candidates, 8192), 64)
+
+
+def _full_kw(cfg: AudtConfig) -> dict:
+    return dict(min_count=cfg.consensus_min_count,
+                interval=cfg.consensus_interval,
+                range_=cfg.consensus_interval_range)
+
+
+def _by_shard(slots: np.ndarray, num_windows: int, mesh):
+    """(shard, positions in ``slots``) of each shard that holds one of the
+    window slots ``slots`` of a batch laid out shard-blockwise (one group
+    with shard None on one device)."""
+    if mesh is None:
+        return [(None, np.arange(len(slots)))] if len(slots) else []
+    shard = np.asarray(slots) // (num_windows // mesh.size)
+    return [(int(s), np.flatnonzero(shard == s)) for s in np.unique(shard)]
+
+
 def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
                         cfg: AudtConfig, device: torch.device):
     """Launch the device step for one packed batch (asynchronous on
-    CUDA); returns the device tensors (a ShardedOutput for a batch packed
-    for several shards), or None for an empty batch."""
+    CUDA), and on the host-extract path the second pass of its windows
+    past K; returns (the first pass's device tensors, or a ShardedOutput
+    for a batch packed for several shards; the second pass's parts or the
+    walk's kept WalkStates), or None for an empty batch."""
     b = packed.batch
     if b.num_windows == 0:
         return None
@@ -289,34 +322,48 @@ def dispatch_refinement(packed: PackedCandBatch | PackedBatch,
               range_=cfg.consensus_interval_range,
               sweep_width=cfg.sweep_width)
     n = packed.n_shards
+    mesh = run_mesh(device.type, n) if n > 1 else None
     if isinstance(packed, PackedCandBatch):
         if n > 1:
-            return _get_sharded_consensus(device.type, n, b.num_windows,
-                                          *kw.values())(
+            first = _get_sharded_consensus(device.type, n, b.num_windows,
+                                           *kw.values())(
                 b.locs, b.counts, b.imprecise_pos)
-        return audit_consensus_step(b.locs, b.counts, b.imprecise_pos,
-                                    device=device, **kw)
-    K = _next_pow2(min(cfg.max_candidates, 8192), 64)
+        else:
+            first = audit_consensus_step(b.locs, b.counts, b.imprecise_pos,
+                                         device=device, **kw)
+        wide = launch_on_shards(
+            mesh, _by_shard(packed.wide_win, b.num_windows, mesh),
+            lambda s, sel: audit_consensus_wide(
+                *packed.wide_batch(sel),
+                device=device if mesh is None else mesh.devices[s],
+                **_full_kw(cfg)))
+        return first, wide
+    K = _walk_k(cfg)
     if n > 1:
         walk = (b.pos, b.n_ops, b.window_id, b.kind, b.inter_start,
                 b.inter_end, b.imprecise_pos)
         if isinstance(b, AuditBatchCSR):
-            return _get_sharded_csr(device.type, n, b.num_windows, K,
-                                    *kw.values())(
+            first = _get_sharded_csr(device.type, n, b.num_windows, K,
+                                     *kw.values())(
                 b.ops_flat, b.lens_flat, *walk)
-        return _get_sharded_step(device.type, n, b.num_windows, K,
-                                 *kw.values())(b.ops, b.lens, *walk)
+        else:
+            first = _get_sharded_step(device.type, n, b.num_windows, K,
+                                      *kw.values())(b.ops, b.lens, *walk)
+        return first, first.kept
     common = [to_device(a, device) for a in (
         b.pos, b.n_ops, b.window_id, b.kind, b.inter_start, b.inter_end,
         b.imprecise_pos)]
+    kept: list = []
     if isinstance(b, AuditBatchCSR):
-        return audit_refine_step_csr(
+        first = audit_refine_step_csr(
             to_device(b.ops_flat, device, np.uint8),
             to_device(b.lens_flat, device), *common,
-            num_windows=b.num_windows, K=K, **kw)
-    return audit_refine_step(
-        to_device(b.ops, device, np.int8), to_device(b.lens, device),
-        *common, num_windows=b.num_windows, K=K, **kw)
+            num_windows=b.num_windows, K=K, keep=kept, **kw)
+    else:
+        first = audit_refine_step(
+            to_device(b.ops, device, np.int8), to_device(b.lens, device),
+            *common, num_windows=b.num_windows, K=K, keep=kept, **kw)
+    return first, kept
 
 
 def _refine_on_host(w, reads, cfg: AudtConfig) -> int:
@@ -333,64 +380,101 @@ def _to_host(dev) -> tuple[np.ndarray, ...]:
     return tuple(x.cpu().numpy() for x in dev)
 
 
+def _mesh_of(first):
+    return first.mesh if isinstance(first, ShardedOutput) else None
+
+
 def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
                        cfg: AudtConfig,
                        stats: AuditStats | None = None) -> list:
-    """Copy one batch's results to the host and apply the exact host
-    fallbacks.  Returns (window, refined) pairs."""
+    """Copy one batch's results to the host, run the second pass of the
+    rows whose sweep overflowed (on the batch's device) and read the
+    windows past K, and take the C extractor's values past WIDE_MAX_K.
+    Returns (window, refined) pairs."""
     if isinstance(packed, PackedBatch):
         return _collect_walk(packed, dev, cfg, stats)
     if dev is None:
         return []
-    refined, sweep_ovf = _to_host(dev)
+    first, wide = dev
+    mesh = _mesh_of(first)
+    refined, sweep_ovf = _to_host(first)
+    n_win = len(packed.windows)
+    value = np.asarray(refined, np.int64)[:n_win].copy()
+    is_wide = np.zeros(n_win, bool)
+    is_wide[packed.wide_win] = True
+    value[packed.wide_win] = read_on_shards(
+        mesh, wide, np.empty(len(packed.wide_win), np.int64))
+    on_host = packed.refined_c[:n_win] != INT64_MIN
+    sweep = sweep_ovf[:n_win] & ~is_wide & ~on_host
+    full = np.flatnonzero(sweep)
+    if len(full):
+        b = packed.batch
+        value[full] = read_on_shards(mesh, launch_on_shards(
+            mesh, _by_shard(full, b.num_windows, mesh),
+            lambda s, sel: audit_consensus_wide(
+                b.locs, b.counts, b.imprecise_pos, full[sel],
+                device=(first[0].device if mesh is None
+                        else mesh.devices[s]), **_full_kw(cfg))),
+            np.empty(len(full), np.int64))
     out = []
     for i, w in enumerate(packed.windows):
-        if packed.refined_c[i] != INT64_MIN:
-            # K overflow: the C extractor already ran the exact scalar
-            # consensus over the full candidate set.
+        if on_host[i]:
+            # Past WIDE_MAX_K candidates: the C extractor already ran the
+            # exact scalar consensus over the full candidate set.
             if stats:
                 stats.oracle_windows += 1
                 stats.fallback_kovf += 1
             out.append((w, int(packed.refined_c[i])))
-        elif sweep_ovf[i]:
-            # Sweep overflow: exact host consensus over the (<= K, already
-            # sorted) candidates; no re-fetch needed.
-            if stats:
-                stats.oracle_windows += 1
-                stats.fallback_sweep += 1
-            cnt = int(packed.true_counts[i])
-            r = consensus_pos(
-                packed.batch.locs[i, :cnt].tolist(), w.imprecise_pos,
-                cfg.consensus_min_count, cfg.consensus_interval,
-                cfg.consensus_interval_range,
-            )
-            out.append((w, r))
-        else:
-            out.append((w, int(refined[i])))
+            continue
+        if stats:
+            stats.wide_k += int(is_wide[i])
+            stats.sweep_full += int(sweep[i])
+        out.append((w, int(value[i])))
     return out
 
 
 def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
                   stats: AuditStats | None) -> list:
-    """collect_refinement of a device-walk batch: windows that overflowed
-    on the device (K or the sweep) are refined by the scalar oracle over
-    their reads."""
+    """collect_refinement of a device-walk batch: the windows that
+    overflowed on the device (K or the sweep) take the second pass on
+    the batch's device, regrouped from the walk its step kept; past
+    WIDE_MAX_K candidates, the scalar oracle over their reads."""
     if dev is None:
         return []
+    first, kept = dev
+    mesh = _mesh_of(first)
+    refined, counts, overflow = _to_host(first)
+    slots = np.asarray(packed.window_slots if packed.window_slots is not None
+                       else range(len(packed.windows)), np.int64)
+    value = np.asarray(refined, np.int64)[slots]
+    second = np.flatnonzero(overflow[slots] &
+                            (counts[slots] <= pack.WIDE_MAX_K))
+    if len(second):
+        B = len(overflow)
+        b_loc = B if mesh is None else B // mesh.size
+        rows = slots[second]
+        value[second] = read_on_shards(mesh, launch_on_shards(
+            mesh, _by_shard(rows, B, mesh),
+            lambda s, sel: audit_refine_wide(
+                kept[s or 0], rows[sel] % b_loc,
+                pack.pow2(int(counts[rows[sel]].max()), 16),
+                **_full_kw(cfg))),
+            np.empty(len(second), np.int64))
+    K = _walk_k(cfg)
     out = []
-    refined, _, overflow = _to_host(dev)
-    slots = (packed.window_slots if packed.window_slots is not None
-             else range(len(packed.windows)))
     for i, (w, slot) in enumerate(zip(packed.windows, slots)):
-        if overflow[slot]:
+        if overflow[slot] and counts[slot] > pack.WIDE_MAX_K:
             if stats:
                 stats.oracle_windows += 1
                 stats.fallback_device += 1
-            r = _refine_on_host(
+            value[i] = _refine_on_host(
                 w, as_read_list(packed.reads_per_window[i]), cfg)
-        else:
-            r = int(refined[slot])
-        out.append((w, r))
+        elif overflow[slot] and stats:
+            if counts[slot] > K:
+                stats.wide_k += 1
+            else:
+                stats.sweep_full += 1
+        out.append((w, int(value[i])))
     return out
 
 

@@ -40,7 +40,7 @@ to its global result slot.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import numpy as np
@@ -51,6 +51,7 @@ from ..constants import (
     KIND_DEL_END, KIND_DEL_START, KIND_INS, KIND_INV_END, KIND_POINT, SVType,
 )
 from ..io.vcf import VcfTask
+from ..kernels import CONSENSUS_MAX_K
 from ..ops.audit_step import AuditBatch, AuditBatchCSR
 
 # The top width of the padded layout: a batch with a longer read is laid
@@ -59,6 +60,12 @@ MAX_OPS_BUCKET = 16384
 OPS_BUCKETS = (64, 256, 1024, 2048, 4096, 8192, MAX_OPS_BUCKET)
 
 PAD_OP = 9  # CIGAR op code that consumes nothing (padding sentinel)
+
+# The widest window a second device pass takes: a window past the first
+# pass's width (--cand-width, --max-candidates) and within this many
+# candidates is refined on the device at the width it needs; past it, on
+# the host.  K1's widest row.
+WIDE_MAX_K = CONSENSUS_MAX_K
 
 
 class PackedReads:
@@ -409,9 +416,9 @@ def _csr_batch(window_chunk, flat, counts: np.ndarray, cfg: AudtConfig,
     wlo = [min(s * b_loc, n_win) for s in range(n_shards + 1)]
     rlo = [int(roff[w]) for w in wlo]
     olo = [int(ooff[r]) for r in rlo]
-    n_loc = _pow2(max(1, max(rlo[s + 1] - rlo[s]
+    n_loc = pow2(max(1, max(rlo[s + 1] - rlo[s]
                              for s in range(n_shards))), lo=64)
-    t_loc = _pow2(max(1, max(olo[s + 1] - olo[s]
+    t_loc = pow2(max(1, max(olo[s + 1] - olo[s]
                              for s in range(n_shards))), lo=256)
 
     N = n_shards * n_loc
@@ -488,7 +495,12 @@ class AuditBatchCand:
 
 @dataclass
 class PackedCandBatch:
-    """A host-extracted batch plus everything collect/emit need."""
+    """A host-extracted batch plus everything collect/emit need.
+
+    The windows past the batch's width K and within WIDE_MAX_K candidates
+    (`wide_win`) keep a padding row in `batch`; their sorted candidates
+    are the CSR `wide_off` / `wide_val`, which `wide_batch` lays out as
+    the second pass's batch."""
 
     batch: AuditBatchCand
     windows: list[WindowSpec]
@@ -496,6 +508,24 @@ class PackedCandBatch:
     refined_c: np.ndarray      # [n_win] int64; != INT64_MIN → precomputed
     num_reads: int = 0
     n_shards: int = 1
+    wide_win: np.ndarray = field(                    # [m] window indices
+        default_factory=lambda: np.empty(0, np.int32))
+    wide_off: np.ndarray = field(                    # [m+1]
+        default_factory=lambda: np.zeros(1, np.int64))
+    wide_val: np.ndarray = field(                    # [wide_off[m]]
+        default_factory=lambda: np.empty(0, np.int32))
+
+    def wide_batch(self, sel=None) -> tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+        """The wide windows (those of ``sel``, indices into `wide_win`,
+        default all) as a [b, K'] batch: (locs sorted with INT32_MAX
+        padding, counts [b], imprecise_pos [b]) int32, K' the power of
+        two (>= 16) of their largest count."""
+        sel = np.arange(len(self.wide_win)) if sel is None else sel
+        lo, hi = self.wide_off[sel], self.wide_off[np.asarray(sel) + 1]
+        counts = (hi - lo).astype(np.int32)
+        return (csr_rows(self.wide_val, lo, counts),
+                counts, self.batch.imprecise_pos[self.wide_win[sel]])
 
 
 def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
@@ -535,15 +565,16 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
                                                       cfg.merge_fetch_gap)
     else:
         total, win_counts = reader.fetch_batch(tids, begs, ends)
-    K = _pow2(min(cfg.cand_width, 8192), lo=16)
+    K = pow2(min(cfg.cand_width, 8192), lo=16)
     locs, counts, refined = reader.extract_batch(
         kinds, istart, iend, ipos, win_counts, K,
         cfg.consensus_min_count, cfg.consensus_interval,
-        cfg.consensus_interval_range,
+        cfg.consensus_interval_range, wide_cap=WIDE_MAX_K,
     )
+    wide_win, wide_off, wide_val = reader.wide_rows()
     # Ship only this batch's live candidate width (pow2 bucket, >= 16).
     kmax = int(np.minimum(counts, K).max()) if n_win else 1
-    keff = _pow2(max(kmax, 1), lo=16)
+    keff = pow2(max(kmax, 1), lo=16)
     if keff < K:
         locs = np.ascontiguousarray(locs[:, :keff])
         K = keff
@@ -573,7 +604,23 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
         refined_c=refined,
         num_reads=int(total),
         n_shards=n_shards,
+        wide_win=wide_win, wide_off=wide_off, wide_val=wide_val,
     )
+
+
+def csr_rows(values: np.ndarray, starts: np.ndarray,
+             counts: np.ndarray) -> np.ndarray:
+    """Rows ``values[starts[i]:starts[i] + counts[i]]`` of a CSR, sorted
+    already, as a [b, K'] int32 matrix padded with INT32_MAX, K' the power
+    of two (>= 16) of the largest count."""
+    width = pow2(int(counts.max()) if len(counts) else 1, lo=16)
+    out = np.full((len(counts), width), _I32_PAD, np.int32)
+    if len(counts) and counts.sum():
+        r = np.repeat(np.arange(len(counts)), counts)
+        c = np.arange(int(counts.sum())) - np.repeat(
+            np.cumsum(counts) - counts, counts)
+        out[r, c] = values[np.repeat(starts, counts) + c]
+    return out
 
 
 def _fill_reads(ops, lens, pos, n_ops, wid, prs: list[PackedReads],
@@ -612,7 +659,7 @@ def _fill_reads(ops, lens, pos, n_ops, wid, prs: list[PackedReads],
     lens.reshape(-1)[flat_idx] = lens_seq
 
 
-def _pow2(n: int, lo: int = 256) -> int:
+def pow2(n: int, lo: int = 256) -> int:
     v = lo
     while v < n:
         v *= 2
@@ -630,7 +677,7 @@ def _pack_one(items: list[tuple[WindowSpec, PackedReads]],
     O = _bucket(max(max_ops, 1), OPS_BUCKETS)
     # Constant window axis + pow2-bucketed reads axis.
     B = max(cfg.batch_windows, n_win, 1)
-    N = _pow2(max(n_reads, 1))
+    N = pow2(max(n_reads, 1))
 
     ops = np.full((N, O), PAD_OP, np.int8)
     lens = np.zeros((N, O), np.int32)
@@ -680,7 +727,7 @@ def _pack_one_sharded(items: list[tuple[WindowSpec, PackedReads]],
     # reads axis to pow2.
     b_cap = -(-cfg.batch_windows // n_shards)
     b_loc = max(b_cap, max((len(b) for b in bins), default=1), 1)
-    n_loc = _pow2(max(1, max(bin_reads, default=1)), lo=64)
+    n_loc = pow2(max(1, max(bin_reads, default=1)), lo=64)
     B = n_shards * b_loc
     N = n_shards * n_loc
 

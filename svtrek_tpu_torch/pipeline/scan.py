@@ -16,10 +16,15 @@ bounds, sliding_window.c:27).  Two paths, as in the JAX package:
   runs the evidence walk over the tiles' runs laid end to end
   (`ops.cigar.walk_runs`, the refine_ins rule), the grouping and the scan.
 
-Tiles whose evidence overflows the device capacity (more than K
-candidates) are scanned by the scalar oracle, so no tile is approximate.  Output mirrors the reference's
-per-window print (sliding_window.c:87) plus the JAX package's overall-best
-summary line.
+`--max-candidates` sets the width K of the first pass's batch, as in the
+JAX package.  A tile past K candidates takes a second pass on the device
+at the width it needs: the window scan over its whole candidate row, from
+the C extractor's side CSR on the native path (no second fetch) or from
+the walk regrouped at that width on the Python path (`stats["wide_k"]`).
+The scan is plain PyTorch with no kernel's width limit, so every tile
+stays on the device and `stats["fallbacks"]`, the JAX package's host
+route, stays 0.  Output mirrors the reference's per-window print
+(sliding_window.c:87) plus the JAX package's overall-best summary line.
 """
 from __future__ import annotations
 
@@ -40,16 +45,12 @@ from ..device import resolve_device
 from ..ops.audit_step import to_device
 from ..ops.cigar import group_walk, walk_runs
 from ..ops.window_scan import window_scan_batch
-from ..oracle import extract_candidates, window_scan
+from . import pack
 from .audit import open_native_reader, open_reader, python_fetch, reader_tid
-from .pack import PackedReads, as_packed
+from .pack import as_packed, csr_rows
 
-
-def _next_pow2(n: int, lo: int = 16) -> int:
-    v = lo
-    while v < n:
-        v *= 2
-    return v
+# The side CSR of the C extractor takes every tile past K on the scan.
+_ALL_WIDE = 0x7FFFFFFF
 
 
 def scan_tiles(cfg: ScanConfig) -> list[tuple[int, int]]:
@@ -73,16 +74,15 @@ def resolve_scan_tid(cfg: ScanConfig, reader=None) -> int:
     return cfg.chrom - 1
 
 
-def _oracle_tile(reads, s: int, e: int, cfg: ScanConfig) -> tuple[int, int]:
-    """The exact scalar scan of one tile's reads (the overflow fallback)."""
-    return window_scan(extract_candidates(KIND_INS, reads, s, e),
-                       cfg.consensus_min_count, cfg.window_size,
-                       cfg.slide_size)
-
-
 def _count(stats: dict | None, key: str, n: int = 1) -> None:
     if stats is not None:
         stats[key] = stats.get(key, 0) + n
+
+
+def _scan_rows(locs, n, cfg: ScanConfig):
+    return window_scan_batch(locs, n, min_count=cfg.consensus_min_count,
+                             window_size=cfg.window_size,
+                             slide_size=cfg.slide_size)
 
 
 def run_scan_tiles(tiles: list[tuple[int, int]], fetch, cfg: ScanConfig,
@@ -94,9 +94,11 @@ def run_scan_tiles(tiles: list[tuple[int, int]], fetch, cfg: ScanConfig,
     ``fetch(tid, beg, end)`` → [(pos, [(op, len), ...]), ...] or
     PackedReads.  Returns [(best_pos or -1, support)] per tile."""
     results: list[tuple[int, int]] = [(-1, 0)] * len(tiles)
-    K = _next_pow2(min(cfg.max_candidates, 8192), 64)
+    K = pack.pow2(min(cfg.max_candidates, 8192), 64)
     if tid is None:
         tid = cfg.chrom - 1
+    _count(stats, "fallbacks", 0)
+    _count(stats, "wide_k", 0)
 
     for base in range(0, len(tiles), cfg.batch_windows):
         chunk = tiles[base:base + cfg.batch_windows]
@@ -124,20 +126,26 @@ def run_scan_tiles(tiles: list[tuple[int, int]], fetch, cfg: ScanConfig,
             torch.full((len(pos),), KIND_INS, dtype=torch.int32,
                        device=device),
             to_device(istart[wid_c], device), to_device(iend[wid_c], device))
-        locs, dcounts = group_walk(op_cand, row, clip,
-                                   to_device(wid, device), B, K)
-        best, support = window_scan_batch(
-            locs, dcounts.clamp(max=K), min_count=cfg.consensus_min_count,
-            window_size=cfg.window_size, slide_size=cfg.slide_size)
+        wid_d = to_device(wid, device)
+        locs, dcounts = group_walk(op_cand, row, clip, wid_d, B, K)
+        best, support = _scan_rows(locs, dcounts.clamp(max=K), cfg)
         best, support, dcounts = (
             x.cpu().numpy() for x in (best, support, dcounts))
         _count(stats, "batches")
-        for b, (s, e) in enumerate(chunk):
-            if dcounts[b] > K:
-                _count(stats, "fallbacks")
-                results[base + b] = _oracle_tile(prs[b].to_list(), s, e, cfg)
-            else:
-                results[base + b] = (int(best[b]), int(support[b]))
+        # The tiles past K: the walk regrouped at their width, scanned on
+        # the device.
+        wide = np.flatnonzero(dcounts > K)
+        if len(wide):
+            rows = to_device(wide, device, np.int64)
+            wlocs, wn = group_walk(op_cand, row, clip, wid_d, B,
+                                   pack.pow2(int(dcounts[wide].max()), 16),
+                                   rows=rows)
+            wbest, wsup = (x.cpu().numpy() for x in _scan_rows(wlocs, wn,
+                                                              cfg))
+            best[wide], support[wide] = wbest, wsup
+            _count(stats, "wide_k", len(wide))
+        for b in range(B):
+            results[base + b] = (int(best[b]), int(support[b]))
     return results
 
 
@@ -167,23 +175,25 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
                           ) -> list[tuple[int, int]]:
     """The scan over pre-built tiles with the host stages in C: one C
     merged fetch + one C extract_batch per chunk (GIL released
-    throughout), the strided cluster scan batched on ``device``.  Tiles
-    whose evidence overflows K are re-fetched and scanned by the scalar
-    oracle.
+    throughout), the strided cluster scan batched on ``device``.  The
+    tiles past K, from the extractor's side CSR, take a second batch at
+    their width on ``device``.
 
     With ``make_reader``, the chunks' host stages run on a
     cfg.thread_number worker pool, one private reader per worker, while
     this thread scans completed chunks in order."""
     results: list[tuple[int, int]] = [(-1, 0)] * len(tiles)
-    K = _next_pow2(min(cfg.max_candidates, 8192), 64)
+    K = pack.pow2(min(cfg.max_candidates, 8192), 64)
     if tid is None:
         tid = cfg.chrom - 1
+    _count(stats, "fallbacks", 0)
+    _count(stats, "wide_k", 0)
     chunks = [(base, tiles[base:base + cfg.batch_windows])
               for base in range(0, len(tiles), cfg.batch_windows)]
 
     def host_stage(chunk, rd):
-        """Fetch + extract one chunk on reader `rd`; the reads of overflow
-        tiles are fetched HERE (the handle belongs to this worker)."""
+        """Fetch + extract one chunk on reader `rd`; the candidates of the
+        tiles past K come back in the extractor's side CSR."""
         n = len(chunk)
         tids = np.full(n, tid if tid >= 0 else -1, np.int32)
         begs = np.fromiter((int(C.u32(s - 1)) for s, _ in chunk),
@@ -203,12 +213,9 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
             np.full(n, KIND_INS, np.int32), istart, iend,
             np.zeros(n, np.int64), win_counts, K,
             cfg.consensus_min_count, cfg.consensus_interval,
-            cfg.consensus_interval_range,
+            cfg.consensus_interval_range, wide_cap=_ALL_WIDE,
         )
-        overflow = {int(b): rd.fetch_packed(int(tids[b]), int(begs[b]),
-                                            int(ends[b]))
-                    for b in np.nonzero(counts > K)[0]}
-        return locs, counts, overflow
+        return locs, counts, rd.wide_rows()
 
     n_workers = max(1, min(cfg.thread_number, len(chunks)))
     ex = None
@@ -225,31 +232,36 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
     else:
         staged = (host_stage(c, reader) for _, c in chunks)
 
-    def apply(base, chunk, counts, overflow, best, support):
-        best, support = best.cpu().numpy(), support.cpu().numpy()
-        for b, (s, e) in enumerate(chunk):
-            if counts[b] > K:
-                _count(stats, "fallbacks")
-                results[base + b] = _oracle_tile(
-                    PackedReads(*overflow[b]).to_list(), s, e, cfg)
-            else:
-                results[base + b] = (int(best[b]), int(support[b]))
+    def apply(base, chunk, win, first, second):
+        best, support = (x.cpu().numpy() for x in first)
+        if second is not None:
+            best[win], support[win] = (x.cpu().numpy() for x in second)
+        for b in range(len(chunk)):
+            results[base + b] = (int(best[b]), int(support[b]))
 
     in_flight: deque = deque()
     try:
-        for (base, chunk), (locs, counts, overflow) in zip(chunks, staged):
+        for (base, chunk), (locs, counts, wide) in zip(chunks, staged):
             n = len(chunk)
             B = max(cfg.batch_windows, n)
             locs_p = np.full((B, K), 0x7FFFFFFF, np.int32)
             locs_p[:n] = locs
             counts_p = np.zeros(B, np.int32)
             counts_p[:n] = np.minimum(counts, K)
-            best, support = window_scan_batch(
-                to_device(locs_p, device), to_device(counts_p, device),
-                min_count=cfg.consensus_min_count,
-                window_size=cfg.window_size, slide_size=cfg.slide_size)
+            first = _scan_rows(to_device(locs_p, device),
+                               to_device(counts_p, device), cfg)
             _count(stats, "batches")
-            in_flight.append((base, chunk, counts, overflow, best, support))
+            # The tiles past K: a second batch at their width, launched
+            # beside the first.
+            win, off, val = wide
+            second = None
+            if len(win):
+                wn = np.diff(off)
+                second = _scan_rows(to_device(csr_rows(val, off[:-1], wn),
+                                              device),
+                                    to_device(wn, device), cfg)
+                _count(stats, "wide_k", len(win))
+            in_flight.append((base, chunk, win, first, second))
             if len(in_flight) > 3:
                 apply(*in_flight.popleft())
         while in_flight:
@@ -267,7 +279,9 @@ def run_scan(cfg: ScanConfig, out=None, err=None, *,
     """Full scan pipeline on ``device`` ("cuda", "cpu" or a torch.device).
     Returns (overall_best_pos or -1, lines); the lines also go to ``out``
     and cfg.output_file.  ``stats``, when given, receives tiles, batches,
-    fallbacks (tiles the scalar oracle scanned) and total_s.
+    wide_k (tiles past K scanned in a second batch on the device),
+    fallbacks (the JAX package's host-scanned tiles: 0 here) and
+    total_s.
 
     Raises device.DeviceUnavailable when the card is asked for and
     absent, and NativeReaderUnavailable when the native reader is asked

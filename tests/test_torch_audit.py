@@ -16,6 +16,7 @@ from svtrek_tpu.io.bam import BamRecord, BamWriter
 from svtrek_tpu.pipeline.audit import run_audit as jax_run_audit
 from svtrek_tpu_torch.pipeline import audit as taudit
 from tests.fixtures import PlantedSV, simulate_reads_for_sv, write_fixture
+from tests.test_torch_audit_device import _second_pass
 from tests.test_golden_audit_e2e import CHROM_LEN, gen_reads, gen_vcf_lines
 
 SVS = [
@@ -61,6 +62,14 @@ def _fallbacks(err: str) -> tuple[int, int]:
     return int(m.group(1)), int(m.group(2))
 
 
+def _assert_routes(terr: str, jerr: str) -> None:
+    """The JAX package's host routes (kovf, sweep) are the port's second
+    passes (wide_k, sweep_full); no window here passes
+    pack.WIDE_MAX_K, so the port's host routes count 0."""
+    assert _fallbacks(terr) == (0, 0)
+    assert _second_pass(terr) == _fallbacks(jerr)
+
+
 CASES = {
     "default": {},
     "refine_inv": dict(refine_inv=True),
@@ -82,15 +91,15 @@ def test_run_audit_matches_jax(planted, name):
         dict(bam_file=bam, vcf_file=vcf, **CASES[name]), d, name)
     assert tl == jl
     assert len(tl) >= 1
-    assert _fallbacks(terr) == _fallbacks(jerr)
+    _assert_routes(terr, jerr)
     for key in ("output_file", "refined_vcf"):
         if getattr(tcfg, key):
             with open(getattr(tcfg, key)) as a, open(getattr(jcfg, key)) as b:
                 assert a.read() == b.read(), key
     if name.startswith("small_"):
-        kovf, sweep = _fallbacks(terr)
-        assert (kovf > 0) == (name == "small_k_overflow")
-        assert (sweep > 0) == (name == "small_sweep_overflow")
+        wide_k, sweep_full = _second_pass(terr)
+        assert (wide_k > 0) == (name == "small_k_overflow")
+        assert (sweep_full > 0) == (name == "small_sweep_overflow")
         assert int(re.search(r"batches=(\d+)", terr).group(1)) > 3
     if name == "default":
         assert "device=cpu" in terr
@@ -174,5 +183,5 @@ def test_golden_generators_match_jax(tmp_path, seed):
         dict(bam_file=bam, vcf_file=str(vcf)), str(tmp_path), "golden")
     assert tl == jl
     assert len(tl) > 10
-    assert _fallbacks(terr) == _fallbacks(jerr)
+    _assert_routes(terr, jerr)
 

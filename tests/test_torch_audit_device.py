@@ -213,9 +213,18 @@ def _fallbacks(err: str, device_key: str) -> tuple[int, ...]:
     return tuple(int(x) for x in m.groups())
 
 
-def _run_both(cfg_kw, d=None, tag=""):
+def _second_pass(err: str) -> tuple[int, int]:
+    """The port's (wide_k, sweep_full): windows past K and rows whose
+    sweep overflowed, both given a second pass on the device."""
+    m = re.search(r"wide_k=(\d+) sweep_full=(\d+)", err)
+    assert m, err
+    return int(m.group(1)), int(m.group(2))
+
+
+def _run_both(cfg_kw, d=None, tag="", second=False):
     """svtrek_tpu's and the port's run_audit (--device cpu) on one config;
-    returns ((lines, fallbacks), (lines, fallbacks))."""
+    returns ((lines, fallbacks, cfg), (lines, fallbacks, cfg)), and with
+    ``second`` the port's `_second_pass` counts as well."""
     out = []
     for run, extra, key in ((jax_run_audit, dict(data_shards=1), "device"),
                             (taudit.run_audit, dict(device="cpu"),
@@ -228,6 +237,8 @@ def _run_both(cfg_kw, d=None, tag=""):
         err = io.StringIO()
         lines = run(cfg, out=io.StringIO(), err=err)
         out.append((lines, _fallbacks(err.getvalue(), key), cfg))
+    if second:
+        return out, _second_pass(err.getvalue())
     return out
 
 
@@ -276,18 +287,19 @@ def test_run_audit_device_paths_match_jax(planted, name):
 def test_dense_repeat_regimes_match_jax(dense_fixture, path, cand_width,
                                         sweep_width):
     """tests/test_fallback_stress.py's regimes on the device walk: the
-    lines and every fallback count equal svtrek_tpu's, and the dense
-    window goes through the host oracle (dev_ovf)."""
+    lines equal svtrek_tpu's; the dense window, which svtrek_tpu sends to
+    the host oracle (its `device` count), takes the port's second pass on
+    the device (wide_k + sweep_full), and the port's dev_ovf is 0."""
     bam, vcf, _, _ = dense_fixture
     kw = dict(bam_file=bam, vcf_file=vcf, cand_width=cand_width,
               sweep_width=sweep_width, max_candidates=cand_width,
               batch_windows=4)
     kw.update(extract="device" if path == "device" else "auto",
               use_native_io=path == "device")
-    (jl, jf, _), (tl, tf, _) = _run_both(kw)
+    ((jl, jf, _), (tl, tf, _)), second = _run_both(kw, second=True)
     assert tl == jl and len(tl) == 1
-    assert tf == jf
-    assert tf[3] >= 1
+    assert tf[:3] == jf[:3] and tf[3] == 0
+    assert jf[3] >= 1 and sum(second) == jf[3]
 
 
 @pytest.fixture(scope="module")

@@ -411,3 +411,61 @@ def test_k1_model_nondefault_params(seed):
                dict(min_count=1, interval=-3, range_=400)):
         _assert_same(_k1_model(locs, n, pos, **kw), _torch(locs, n, pos,
                                                            **kw))
+
+
+# ---- the full sweep (the second pass of a window past a first pass) ----
+
+@pytest.mark.parametrize("K,B,seed", [(64, 8, 0), (128, 16, 1), (256, 12, 2)])
+def test_full_sweep_matches_jax_at_sweep_width_k(K, B, seed):
+    """consensus_pos_full equals the JAX consensus_pos_batch at
+    sweep_width = K, rows filled to K included; neither side raises an
+    overflow flag at that width."""
+    rng = np.random.default_rng(600 + seed)
+    cases = _random_cases(rng, B, K + 1, spread=300)
+    cases[0] = ([cases[0][1] + int(d) for d in rng.integers(-3, 4, K)],
+                cases[0][1])
+    locs, n, pos = _pack(cases, K)
+    got = tcons.consensus_pos_full(*(torch.from_numpy(x)
+                                     for x in (locs, n, pos)))
+    got = got[0].numpy(), got[1].numpy()
+    want = _jax(locs, n, pos, impl="scan", sweep_width=K)
+    _assert_same(got, want)
+    assert not got[1].any() and not want[1].any()
+
+
+def test_full_sweep_matches_oracle_where_w4_overflows():
+    """Rows whose sweep overflows at W = 4 (the first pass's flag) are
+    exact under the full sweep: equal to the scalar oracle."""
+    rng = np.random.default_rng(77)
+    cases = _random_cases(rng, 64, 64)
+    locs, n, pos = _pack(cases, 64)
+    _, ovf = _torch(locs, n, pos, sweep_width=4)
+    assert ovf.sum() > 10
+    full, full_ovf = tcons.consensus_pos_full(*(torch.from_numpy(x)
+                                                for x in (locs, n, pos)))
+    assert not full_ovf.any()
+    for b in np.flatnonzero(ovf):
+        vals, p = cases[b]
+        assert int(full[b]) == consensus_pos(vals, p), b
+
+
+@pytest.mark.parametrize("name", ["random", "edge_wrap", "k1024",
+                                  "nondefault"])
+def test_full_sweep_bounded_form_matches_mask_form(name, monkeypatch):
+    """The bounded plain form (searches on the sorted row, int64 prefix
+    differences, blocks of rows) equals the mask form of the first pass
+    run at sweep_width = K, overflow flags included, with blocks of one
+    row and of many."""
+    kw = {}
+    if name == "nondefault":
+        rng = np.random.default_rng(81)
+        locs, n, pos = _pack(_random_cases(rng, 40, 32, spread=300), 32)
+        kw = dict(min_count=2, interval=12, range_=200)
+    else:
+        locs, n, pos, _ = _k1_case(name)
+    t = [torch.from_numpy(x) for x in (locs, n, pos)]
+    want = _torch(locs, n, pos, sweep_width=locs.shape[1], **kw)
+    for block in (tcons._FULL_BLOCK, locs.shape[1]):
+        monkeypatch.setattr(tcons, "_FULL_BLOCK", block)
+        got = tcons.consensus_pos_full_reference(*t, **kw)
+        _assert_same((got[0].numpy(), got[1].numpy()), want)

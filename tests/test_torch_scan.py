@@ -2,8 +2,8 @@
 `window_scan_batch` (svtrek_tpu_torch.ops.window_scan) bit-identical to
 svtrek_tpu.ops.window_scan's, the wrapping mean, truncating division and
 first-maximum ties included; `run_scan` on the native and the Python path
-giving svtrek_tpu's lines, --chrom-by-name and the overflow fallbacks
-included; `bounded_map` cancelling what it has not started when a call
+giving svtrek_tpu's lines, --chrom-by-name and the tiles past K
+included (a tile past 16,384 candidates too); `bounded_map` cancelling what it has not started when a call
 fails; and tools/scan_scalar.py, the independent scalar scan chip_smoke.py
 holds the port to, equal to svtrek_tpu's run_scan."""
 from __future__ import annotations
@@ -25,7 +25,7 @@ from svtrek_tpu import constants as C
 from svtrek_tpu.config import ScanConfig
 from svtrek_tpu.io.bam import BamRecord, BamWriter
 from svtrek_tpu.ops.window_scan import window_scan_batch as jax_scan
-from svtrek_tpu.oracle import window_scan
+from svtrek_tpu.oracle import extract_candidates, window_scan
 from svtrek_tpu.pipeline.scan import run_scan as jax_run_scan
 from svtrek_tpu_torch.config import ScanConfig as TScanConfig
 from svtrek_tpu_torch.ops import window_scan as twin
@@ -194,11 +194,50 @@ def test_run_scan_overflow_fallbacks_match_jax(dense_ins_bam, native):
               max_candidates=64, use_native_io=native)
     want, got, stats = _scan_both(kw)
     assert got == want
-    # Only the tile past K: the port's walk keeps every candidate of the
-    # 10-INS read, where the JAX package's Python path sends its tile to
-    # the oracle too.
-    assert stats["fallbacks"] == 1
+    # Only the tile past K, which the JAX package scans on the host
+    # oracle, takes the port's second pass on the device (the port's walk
+    # keeps every candidate of the 10-INS read, where the JAX package's
+    # Python path sends its tile to the oracle too); no tile is left to
+    # the oracle.
+    assert stats["fallbacks"] == 0 and stats["wide_k"] == 1
     assert any("support 150" in l for l in got[1])
+
+
+@pytest.fixture(scope="module")
+def crowded_tile_bam(tmp_path_factory):
+    """One tile [50,000, 51,000] with 17,000 INS candidates: past 16,384,
+    K1's widest row, where the JAX package scans the tile on the host."""
+    bam = str(tmp_path_factory.mktemp("crowded") / "crowded.bam")
+    with BamWriter(bam, [("1", 200_000)]) as w:
+        for i, p in enumerate(sorted(50_000 + (i * 37) % 900
+                                     for i in range(17_000))):
+            w.write(BamRecord(name=f"r{i}", flag=0, tid=0, pos=p, mapq=60,
+                              cigar=[(0, 30), (1, 60), (0, 30)],
+                              seq="A" * 120))
+    return bam
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_run_scan_tile_past_16384_candidates_stays_on_device(
+        crowded_tile_bam, native):
+    """The scan's second pass has no width limit: the tile of 17,000
+    candidates is scanned on the device at K' 32,768 (`wide_k` 1,
+    `fallbacks` 0), and its line holds the JAX package's window scan over
+    the oracle's candidates."""
+    stats: dict = {}
+    got = tscan.run_scan(TScanConfig(
+        bam_file=crowded_tile_bam, start=50_000, end=51_000,
+        use_native_io=native), out=io.StringIO(), device="cpu",
+        stats=stats)
+    assert stats["fallbacks"] == 0 and stats["wide_k"] == 1
+    reads = [(50_000 + (i * 37) % 900, [(0, 30), (1, 60), (0, 30)])
+             for i in range(17_000)]
+    cands = extract_candidates(C.KIND_INS, reads, 50_000, 51_000)
+    assert len(cands) == 17_000
+    bp, sup = (int(x[0]) for x in jax_scan(*_pack([cands], 32_768)))
+    assert sup == 17_000
+    assert got[1][0] == (f"INS Discovery in window [50000, 51000] at "
+                         f"position {bp} with support {sup}")
 
 
 @pytest.mark.parametrize("native", [True, False])

@@ -29,6 +29,7 @@ from svtrek_tpu.pipeline import discover as jdisc
 from svtrek_tpu.pipeline import pack as jpack
 from svtrek_tpu.pipeline.audit import run_audit as jax_run_audit
 from svtrek_tpu_torch.io.gaf_native import NativeGafReader
+from svtrek_tpu_torch.native import native_bam_reader as torch_bam_reader
 from svtrek_tpu_torch.ops import audit_step as tstep
 from svtrek_tpu_torch.ops import consensus as tconsensus
 from svtrek_tpu_torch.ops import discover as tops
@@ -39,10 +40,10 @@ from svtrek_tpu_torch.pipeline import pack as tpack
 from tests.fixtures import write_fixture
 from tests.test_torch_audit import SVS
 from tests.test_torch_audit_device import (  # noqa: F401
-    _only_jax_fields, long_read_fixture, many_cand_fixture,
+    _only_jax_fields, _second_pass, long_read_fixture, many_cand_fixture,
 )
 from tests.test_torch_discover import _dicts, _native_gaf, _projected
-from tests.test_torch_pack import _windows
+from tests.test_torch_pack import _windows, resolved_refined_c
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -112,15 +113,17 @@ def test_sharded_packers_match_jax(planted, layout, n):
     tw, _ = _windows(tpack, vcf, cfg)
     assert len(jw) % 6
     reader = native_bam_reader(bam)
+    treader = torch_bam_reader(bam)
     py = taudit.python_fetch(taudit.BamReader(bam))
     for lo in range(0, len(jw), 6):
         jc, tc = jw[lo:lo + 6], tw[lo:lo + 6]
         if layout == "cand":
             want = jpack.pack_chunk_cand(jc, reader, cfg, n_shards=n)
-            got = tpack.pack_chunk_cand(tc, reader, cfg, n_shards=n)
+            got = tpack.pack_chunk_cand(tc, treader, cfg, n_shards=n)
             assert got.batch.num_windows % n == 0
             np.testing.assert_array_equal(got.true_counts, want.true_counts)
-            np.testing.assert_array_equal(got.refined_c, want.refined_c)
+            np.testing.assert_array_equal(resolved_refined_c(got),
+                                          want.refined_c)
             assert got.num_reads == want.num_reads
         elif layout == "native":
             want = jpack.pack_chunk_native(jc, reader, cfg, n_shards=n)
@@ -316,11 +319,17 @@ def test_run_audit_sharded_matches_jax(planted, path, n):
     dense = taudit.run_audit(AudtConfig(data_shards=1, device="cpu", **kw),
                              out=io.StringIO(), err=io.StringIO())
     assert got == want == dense and len(got) >= 4
-    assert _fallbacks(terr.getvalue(), "dev_ovf") == \
-        _fallbacks(jerr.getvalue(), "device")
+    # The JAX package's host routes are the port's second passes on the
+    # shards' devices: kovf and sweep are wide_k and sweep_full on the
+    # host path, and `device` their sum on the device walk.
+    jf = _fallbacks(jerr.getvalue(), "device")
+    second = _second_pass(terr.getvalue())
+    assert _fallbacks(terr.getvalue(), "dev_ovf") == (0, 0, 0, 0)
+    assert second == jf[:2] if path.startswith("host") else \
+        sum(second) == jf[3]
     assert f"device=cpu data_shards={n}" in terr.getvalue()
     if path.endswith("overflow"):
-        assert sum(_fallbacks(terr.getvalue(), "dev_ovf")) > 0
+        assert sum(second) > 0
 
 
 @pytest.mark.parametrize("path", ["device", "python"])

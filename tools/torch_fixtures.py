@@ -21,12 +21,18 @@ reads:
   supporting reads, one read of 20,000-40,000 CIGAR ops (past the JAX
   package's top ops bucket of 16,384) or one read of 10-16 candidates
   (past its device walk's 8 a read), every window within the default K
-  and sweep caps.
+  and sweep caps;
+- `build_deep_bam`: records 200 kbp apart whose windows hold more
+  candidates than the default first-pass widths (`--cand-width` 128,
+  `--sweep-width` 128, `--max-candidates` 1,024), in three tiers of
+  supporting depth (DEEP_TIERS), the shape of deep long-read sampling
+  at a call; no window holds more than 4,096 candidates.
 
     python tools/torch_fixtures.py DIR [--records N] [--depth D]
         [--ops-per-read O] [--realistic-seq]
     python tools/torch_fixtures.py DIR --dense-disc READS
     python tools/torch_fixtures.py DIR --route-bam RECORDS
+    python tools/torch_fixtures.py DIR --deep-bam [--seed S]
 """
 from __future__ import annotations
 
@@ -276,6 +282,67 @@ def build_route_bam(tmpdir, n_records, seed=0, depth=10):
     return bam, vcf
 
 
+# The deep BAM's tiers: (records, fewest and most supporting reads).  The
+# first passes --cand-width 128 on the host path and --sweep-width 128 on
+# the device walk, the second --max-candidates 1,024; the third stays in
+# the first pass.
+DEEP_TIERS = ((16, 150, 400), (8, 1_100, 2_500), (40, 10, 30))
+DEEP_SPACING = 200_000
+
+
+def deep_records(tiers=DEEP_TIERS) -> list[tuple[int, str, int]]:
+    """The deep BAM's records in order, (pos, svtype, tier): DEL and INS
+    in turn, DEEP_SPACING apart, tier after tier."""
+    out, i = [], 0
+    for t, (n, _, _) in enumerate(tiers):
+        for _ in range(n):
+            out.append((DEEP_SPACING * (i + 1), ("DEL", "INS")[i % 2], t))
+            i += 1
+    return out
+
+
+def build_deep_bam(tmpdir, seed=0, tiers=DEEP_TIERS):
+    """Write deep.bam (+ .bai) and deep.vcf into tmpdir: the records of
+    `deep_records`, each with as many supporting reads as its tier draws,
+    reads of 2-4 kb (M, the SV op of 60-399 bases at the breakpoint
+    jittered by +-2, a few small indels, M).  Returns (bam, vcf)."""
+    rng = np.random.default_rng(seed)
+    recs = deep_records(tiers)
+    chrom_len = DEEP_SPACING * (len(recs) + 2)
+    bam = os.path.join(tmpdir, "deep.bam")
+    vcf = os.path.join(tmpdir, "deep.vcf")
+    reads, svlens = [], []
+    for pos, svtype, t in recs:
+        op = CIGAR_D if svtype == "DEL" else CIGAR_I
+        svlen = int(rng.integers(60, 400))
+        svlens.append(svlen)
+        _, lo, hi = tiers[t]
+        for _ in range(int(rng.integers(lo, hi + 1))):
+            span = int(rng.integers(2_000, 4_001))
+            lead = int(rng.integers(500, span - 500))
+            start = pos - 1 + int(rng.integers(-2, 3)) - lead
+            small = _small_ops(rng, 6)
+            rest = span - lead - sum(l for o, l in small
+                                     if o in (CIGAR_M, CIGAR_D))
+            reads.append((start, [(CIGAR_M, lead), (op, svlen)] + small +
+                          [(CIGAR_M, max(rest, 1))]))
+    reads.sort(key=lambda r: r[0])
+    with BamWriter(bam, [("1", chrom_len)]) as w:
+        for i, (start, cig) in enumerate(reads):
+            qlen = sum(l for o, l in cig if o in (CIGAR_M, CIGAR_I, CIGAR_S))
+            w.write(BamRecord(name=f"d{i}", flag=0, tid=0, pos=start,
+                              mapq=60, cigar=cig, seq="A" * qlen))
+    with open(vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write('##INFO=<ID=SVTYPE,Number=1,Type=String,Description="x">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for i, ((pos, svtype, _), svlen) in enumerate(zip(recs, svlens)):
+            end = pos + (svlen if svtype == "DEL" else 0)
+            fh.write(f"1\t{pos}\tdp{i}\tN\t<{svtype}>\t.\tPASS\t"
+                     f"SVTYPE={svtype};END={end}\n")
+    return bam, vcf
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dir")
@@ -287,8 +354,15 @@ def main():
                     help="build the dense disc route fixture instead")
     ap.add_argument("--route-bam", type=int, metavar="RECORDS",
                     help="build the device-walk route BAM instead")
+    ap.add_argument("--deep-bam", action="store_true",
+                    help="build the deep BAM (windows past the first "
+                    "passes' widths) instead")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     os.makedirs(args.dir, exist_ok=True)
+    if args.deep_bam:
+        print(*build_deep_bam(args.dir, seed=args.seed))
+        return
     if args.dense_disc:
         print(*build_dense_disc_fixture(args.dir, args.dense_disc))
         return
