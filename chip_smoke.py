@@ -440,9 +440,8 @@ def device_ms(fn, kernel: str, reps: int = 5) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    # The kernels' own spans, from the trace as tools/torch_audt_measure.py
-    # reads it (the event table can leave out a kernel launched through
-    # ctypes).
+    # The kernels' own spans, from the exported trace (the event table can
+    # leave out a kernel launched through ctypes).
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:

@@ -96,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                       help="[TPU] append to --output, skipping records "
                            "whose result lines are already there")
     audt.add_argument("--trace-dir", default="",
-                      help="[TPU] write a jax.profiler trace of the "
-                           "batch loop to this directory")
+                      help="write a torch.profiler trace of the run "
+                           "(host threads and card, with the svtrek.* "
+                           "stage ranges) to DIR/audt_trace.json")
     audt.add_argument("--ins-consensus", action="store_true", default=False,
                       help="[TPU] emit a POA consensus of the inserted "
                            "sequence on refined INS lines (', seq: ...'):"

@@ -58,7 +58,7 @@ class AudtConfig:
     num_shards: int = 1             # record-level sharding across hosts/jobs
     shard_index: int = 0            # which record shard this process owns
     resume: bool = False            # skip records already in output_file
-    trace_dir: str = ""             # write a jax.profiler trace here
+    trace_dir: str = ""             # write a torch.profiler trace here
     refine_inv: bool = False        # real INV refinement (clip + D>50
                                     # evidence at both breakpoints); off =
                                     # reference parity (INV always NA,

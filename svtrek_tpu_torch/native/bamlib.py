@@ -97,6 +97,8 @@ def load_library():
         ct.c_void_p, ct.c_int32, ct.c_int64, ct.c_int64,
         ct.c_int32, ct.c_int64, ct.c_int64,
     ]
+    lib.svbam_counters.restype = None
+    lib.svbam_counters.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int64)]
     lib.svbam_ins_buf.restype = ct.POINTER(ct.c_char)
     lib.svbam_ins_buf.argtypes = [ct.c_void_p]
     lib.svbam_ins_off.restype = ct.POINTER(ct.c_int64)
@@ -144,6 +146,15 @@ class NativeBamReader:
         msg = self._lib.svbam_error(self._h)
         raise NativeBamError(
             msg.decode() if msg else "BAM decode failed")
+
+    def counters(self) -> tuple[int, int]:
+        """(ns inside BGZF inflate, bytes inflated) on this handle since
+        the last call, which zeroes them: a block served from the handle's
+        cache or skipped unread counts nothing."""
+        out = np.zeros(2, np.int64)
+        self._lib.svbam_counters(self._h,
+                                 out.ctypes.data_as(ct.POINTER(ct.c_int64)))
+        return int(out[0]), int(out[1])
 
     def ref_name(self, tid: int) -> str:
         """Reference name for a tid (BAM header)."""

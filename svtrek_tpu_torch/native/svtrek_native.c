@@ -17,6 +17,7 @@
 #include <stdlib.h>
 #include <string.h>
 #include <sys/stat.h>
+#include <time.h>
 #include <zlib.h>
 #ifdef SVTREK_HAVE_LIBDEFLATE
 #include <libdeflate.h>  /* ~2.7x faster raw-deflate decode than zlib */
@@ -75,6 +76,8 @@ typedef struct {
     uint32_t tick;
     int64_t coffset;       /* cursor: compressed offset of current block */
     int upos;              /* cursor within the current block */
+    int64_t inflate_ns;    /* counters since the last svbam_counters: */
+    int64_t inflate_bytes; /* time in bgzf_inflate_block, bytes it made */
 #ifdef SVTREK_HAVE_LIBDEFLATE
     struct libdeflate_decompressor *dec;  /* reused across blocks */
 #endif
@@ -87,6 +90,7 @@ static int bgzf_init(bgzf_t *z) {
     z->tick = 0;
     z->coffset = 0;
     z->upos = 0;
+    z->inflate_ns = z->inflate_bytes = 0;
 #ifdef SVTREK_HAVE_LIBDEFLATE
     z->dec = libdeflate_alloc_decompressor();
     if (!z->dec) { free(z->slots); z->slots = NULL; return -1; }
@@ -210,10 +214,16 @@ static bgzf_blk_t *bgzf_ensure(bgzf_t *z, int64_t coffset) {
     uint8_t tail[8];
     if (fread(tail, 1, 8, z->fp) != 8) { free(cbuf); return NULL; }
 
+    struct timespec t0, t1;
+    clock_gettime(CLOCK_MONOTONIC, &t0);
     int produced = bgzf_inflate_block(z, cbuf, csize, blk->ubuf,
                                       (int)sizeof(blk->ubuf));
+    clock_gettime(CLOCK_MONOTONIC, &t1);
     free(cbuf);
     if (produced < 0) return NULL;
+    z->inflate_ns += (int64_t)(t1.tv_sec - t0.tv_sec) * 1000000000 +
+                     (t1.tv_nsec - t0.tv_nsec);
+    z->inflate_bytes += produced;
     uint32_t isize = (uint32_t)tail[4] | ((uint32_t)tail[5] << 8) |
                      ((uint32_t)tail[6] << 16) | ((uint32_t)tail[7] << 24);
     if ((uint32_t)produced != isize) return NULL;  /* corrupt stream */
@@ -670,6 +680,16 @@ int32_t svbam_tid(void *h, const char *name) {
 }
 
 const char *svbam_error(void *h) { return ((svbam_t *)h)->errmsg; }
+
+/* The handle's inflate counters since the last call, which zeroes them:
+ * out[0] ns inside bgzf_inflate_block, out[1] the bytes it produced
+ * (cache hits and skipped blocks inflate nothing). */
+void svbam_counters(void *h, int64_t *out) {
+    bgzf_t *z = &((svbam_t *)h)->z;
+    out[0] = z->inflate_ns;
+    out[1] = z->inflate_bytes;
+    z->inflate_ns = z->inflate_bytes = 0;
+}
 
 /* Fetch one region; returns #reads, or -1 with b->errmsg set on any
  * decode failure.  A corrupt or truncated BAM must surface an error,

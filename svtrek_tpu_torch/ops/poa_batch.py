@@ -22,6 +22,7 @@ from .poa import (
     decode_ins, encode, majority_length_mode, new_vote_state,
 )
 from ..kernels import POA_MAX_BAND, POA_STRIP_MAX_BAND
+from ..tracing import span
 from .poa_dp import PAD, dp_cols
 
 # svtrek_tpu's band cap: wider pairs take its scalar host DP, and here
@@ -153,29 +154,35 @@ def consensus_sequence_batch(clusters, band: int = 64, max_len: int = 4096,
     star alignment with insertion recovery, realign until a fixed point or
     ``rounds``) applied to many clusters, with every round's member to
     consensus alignments across ALL clusters in one `banded_cols_batch`
-    call on ``device`` (``counts`` as there)."""
+    call on ``device`` (``counts`` as there).  With ``counts``,
+    counts["vote_s"] times the host's part (mode and seed selection,
+    encode, `accumulate_votes`, `assemble_consensus`; profiler range
+    `svtrek.cons.vote`) and counts["dp_s"] the `banded_cols_batch` calls
+    (a timer only: they launch and wait for the device)."""
     results: list[str | None] = [None] * len(clusters)
     active: dict[int, tuple[list[str], str]] = {}
-    for ci, seqs in enumerate(clusters):
-        seqs = [s for s in seqs if s]
-        if not seqs:
-            results[ci] = ""
-            continue
-        if len(seqs) == 1:
-            results[ci] = seqs[0]
-            continue
-        members = majority_length_mode(seqs)
-        if len(members) == 1:
-            results[ci] = members[0]
-            continue
-        order = sorted(range(len(members)), key=lambda i: len(members[i]))
-        cons = members[order[len(order) // 2]]
-        if len(cons) > max_len:
-            results[ci] = cons
-            continue
-        active[ci] = (members, cons)
+    with span(counts, "vote_s", "svtrek.cons.vote", round=0):
+        for ci, seqs in enumerate(clusters):
+            seqs = [s for s in seqs if s]
+            if not seqs:
+                results[ci] = ""
+                continue
+            if len(seqs) == 1:
+                results[ci] = seqs[0]
+                continue
+            members = majority_length_mode(seqs)
+            if len(members) == 1:
+                results[ci] = members[0]
+                continue
+            order = sorted(range(len(members)),
+                           key=lambda i: len(members[i]))
+            cons = members[order[len(order) // 2]]
+            if len(cons) > max_len:
+                results[ci] = cons
+                continue
+            active[ci] = (members, cons)
 
-    for _ in range(max(rounds, 1)):
+    for r in range(1, max(rounds, 1) + 1):
         if not active:
             break
         votes = {}
@@ -183,31 +190,35 @@ def consensus_sequence_batch(clusters, band: int = 64, max_len: int = 4096,
         pair_ci: list[int] = []
         pair_t: list[np.ndarray] = []
         pair_q: list[np.ndarray] = []
-        for ci, (members, cons) in active.items():
-            target = encode(cons)
-            m = len(target)
-            v, iv = new_vote_state(target)
-            for s in members:
-                if s == cons:
-                    v[np.arange(m), target] += 1
-                else:
-                    pair_ci.append(ci)
-                    pair_t.append(target)
-                    pair_q.append(encode(s[: 4 * m]))
-            votes[ci] = v
-            insv[ci] = iv
+        with span(counts, "vote_s", "svtrek.cons.vote", round=r):
+            for ci, (members, cons) in active.items():
+                target = encode(cons)
+                m = len(target)
+                v, iv = new_vote_state(target)
+                for s in members:
+                    if s == cons:
+                        v[np.arange(m), target] += 1
+                    else:
+                        pair_ci.append(ci)
+                        pair_t.append(target)
+                        pair_q.append(encode(s[: 4 * m]))
+                votes[ci] = v
+                insv[ci] = iv
         if pair_ci:
-            all_cols, all_segs = banded_cols_batch(
-                pair_t, pair_q, band, device=device, counts=counts)
-            for ci, cols, segs in zip(pair_ci, all_cols, all_segs):
-                accumulate_votes(votes[ci], insv[ci], cols, segs)
-        nxt: dict[int, tuple[list[str], str]] = {}
-        for ci, (members, cons) in active.items():
-            new = assemble_consensus(votes[ci], insv[ci], len(members))
-            if not new or new == cons:
-                results[ci] = cons
-            else:
-                nxt[ci] = (members, new)
+            with span(counts, "dp_s"):
+                all_cols, all_segs = banded_cols_batch(
+                    pair_t, pair_q, band, device=device, counts=counts)
+        with span(counts, "vote_s", "svtrek.cons.vote", round=r):
+            if pair_ci:
+                for ci, cols, segs in zip(pair_ci, all_cols, all_segs):
+                    accumulate_votes(votes[ci], insv[ci], cols, segs)
+            nxt: dict[int, tuple[list[str], str]] = {}
+            for ci, (members, cons) in active.items():
+                new = assemble_consensus(votes[ci], insv[ci], len(members))
+                if not new or new == cons:
+                    results[ci] = cons
+                else:
+                    nxt[ci] = (members, new)
         active = nxt
     for ci, (_members, cons) in active.items():  # rounds exhausted
         results[ci] = cons

@@ -94,6 +94,7 @@ from ..parallel.mesh import (
     sharded_consensus_step,
 )
 from ..refusals import raise_refused
+from ..tracing import span
 from . import pack
 from .pack import (
     INT64_MIN, PackedBatch, PackedCandBatch, as_read_list, pack_chunk,
@@ -172,14 +173,32 @@ class AuditResult:
 
 @dataclass
 class AuditStats:
-    """Per-stage wall-clock and work counters (--verbose)."""
+    """Per-stage wall-clock and work counters (--verbose).  The `stages`
+    line's come from `tracing.span` timers, and those that name a profiler
+    range appear in a torch.profiler trace as `svtrek.<stage>`."""
 
     parse_s: float = 0.0
     pack_s: float = 0.0      # producer pool: fetch + evidence walk + pack
                              # (aggregate worker-seconds)
-    device_s: float = 0.0    # blocked on device results
-    emit_s: float = 0.0
+    device_s: float = 0.0    # collect: results, second passes, emit
+    emit_s: float = 0.0      # flush_frontier: cons_s + write_s
     cons_s: float = 0.0      # --ins-consensus: seq fetch + POA batches
+    # stages (consumer: run_audit's thread; producer: the thread that
+    # feeds its queue; workers: the pool, summed over its -t threads)
+    queue_wait_s: float = 0.0  # consumer blocked in q.get (svtrek.queue_wait)
+    put_wait_s: float = 0.0    # producer blocked in q.put
+    fetch_s: float = 0.0       # workers in the C fetch (svtrek.fetch)
+    extract_s: float = 0.0     # workers in the C extract (svtrek.extract)
+    inflate_s: float = 0.0     # workers' C readers inside BGZF inflate
+    inflated_bytes: int = 0    # the bytes they inflated
+    dispatch_s: float = 0.0    # consumer launching a batch's device step
+    sync_wait_s: float = 0.0   # consumer blocked in results' device→host
+    write_s: float = 0.0       # emit_s less cons_s: format, print, write
+                               # (svtrek.write)
+    cons_seq_s: float = 0.0    # cons_s: the native ins_seqs calls
+                               # (svtrek.cons.seq)
+    cons_vote_s: float = 0.0   # cons_s: host voting (svtrek.cons.vote)
+    cons_dp_s: float = 0.0     # cons_s: the DP batches, device leg
     cons_sites: int = 0      # INS sites given a consensus sequence
     cons_flushes: int = 0    # batched consensus calls
     cons_dp_calls: int = 0   # DP batches those calls sent to the device
@@ -226,6 +245,15 @@ class AuditStats:
             f"emit={self.emit_s:.3f}s total={self.total_s:.3f}s",
             file=err,
         )
+        print(
+            f"[VERBOSE] stages queue_wait={self.queue_wait_s:.3f}s "
+            f"put_wait={self.put_wait_s:.3f}s fetch={self.fetch_s:.3f}s "
+            f"extract={self.extract_s:.3f}s inflate={self.inflate_s:.3f}s "
+            f"inflated_mb={self.inflated_bytes / 1e6:.3f} "
+            f"dispatch={self.dispatch_s:.3f}s "
+            f"sync_wait={self.sync_wait_s:.3f}s write={self.write_s:.3f}s",
+            file=err,
+        )
         if self.cons_sites:
             print(
                 f"[VERBOSE] ins_consensus sites={self.cons_sites} "
@@ -234,7 +262,10 @@ class AuditStats:
                 f"graph_scalar={self.cons_graph_scalar} "
                 f"band_wide={self.cons_band_wide} "
                 f"band_scalar={self.cons_band_scalar} "
-                f"band_wide_k2={self.cons_band_wide_k2}",
+                f"band_wide_k2={self.cons_band_wide_k2} "
+                f"seq_time={self.cons_seq_s:.3f}s "
+                f"vote_time={self.cons_vote_s:.3f}s "
+                f"dp_time={self.cons_dp_s:.3f}s",
                 file=err,
             )
 
@@ -397,25 +428,29 @@ def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
         return []
     first, wide = dev
     mesh = _mesh_of(first)
-    refined, sweep_ovf = _to_host(first)
+    with span(stats, "sync_wait_s"):
+        refined, sweep_ovf = _to_host(first)
+        wide_value = read_on_shards(
+            mesh, wide, np.empty(len(packed.wide_win), np.int64))
     n_win = len(packed.windows)
     value = np.asarray(refined, np.int64)[:n_win].copy()
     is_wide = np.zeros(n_win, bool)
     is_wide[packed.wide_win] = True
-    value[packed.wide_win] = read_on_shards(
-        mesh, wide, np.empty(len(packed.wide_win), np.int64))
+    value[packed.wide_win] = wide_value
     on_host = packed.refined_c[:n_win] != INT64_MIN
     sweep = sweep_ovf[:n_win] & ~is_wide & ~on_host
     full = np.flatnonzero(sweep)
     if len(full):
         b = packed.batch
-        value[full] = read_on_shards(mesh, launch_on_shards(
+        launched = launch_on_shards(
             mesh, _by_shard(full, b.num_windows, mesh),
             lambda s, sel: audit_consensus_wide(
                 b.locs, b.counts, b.imprecise_pos, full[sel],
                 device=(first[0].device if mesh is None
-                        else mesh.devices[s]), **_full_kw(cfg))),
-            np.empty(len(full), np.int64))
+                        else mesh.devices[s]), **_full_kw(cfg)))
+        with span(stats, "sync_wait_s"):
+            value[full] = read_on_shards(mesh, launched,
+                                         np.empty(len(full), np.int64))
     out = []
     for i, w in enumerate(packed.windows):
         if on_host[i]:
@@ -443,7 +478,8 @@ def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
         return []
     first, kept = dev
     mesh = _mesh_of(first)
-    refined, counts, overflow = _to_host(first)
+    with span(stats, "sync_wait_s"):
+        refined, counts, overflow = _to_host(first)
     slots = np.asarray(packed.window_slots if packed.window_slots is not None
                        else range(len(packed.windows)), np.int64)
     value = np.asarray(refined, np.int64)[slots]
@@ -453,13 +489,15 @@ def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
         B = len(overflow)
         b_loc = B if mesh is None else B // mesh.size
         rows = slots[second]
-        value[second] = read_on_shards(mesh, launch_on_shards(
+        launched = launch_on_shards(
             mesh, _by_shard(rows, B, mesh),
             lambda s, sel: audit_refine_wide(
                 kept[s or 0], rows[sel] % b_loc,
                 pack.pow2(int(counts[rows[sel]].max()), 16),
-                **_full_kw(cfg))),
-            np.empty(len(second), np.int64))
+                **_full_kw(cfg)))
+        with span(stats, "sync_wait_s"):
+            value[second] = read_on_shards(mesh, launched,
+                                           np.empty(len(second), np.int64))
     K = _walk_k(cfg)
     out = []
     for i, (w, slot) in enumerate(zip(packed.windows, slots)):
@@ -510,7 +548,9 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     reader's SEQ decode, or the Python reader's); one batched consensus
     call on ``device`` covers all records, of the star engine or, with
     ``cfg.poa_engine == "graph"``, the graph engine.  res.seq = "" when
-    there is no consensus (printed NA)."""
+    there is no consensus (printed NA).  The SEQ fetch is timed into
+    stats.cons_seq_s, the star engine's voting and DP into cons_vote_s and
+    cons_dp_s (the graph engine times neither)."""
     consensus_batch = consensus_sequence_poa_batch \
         if cfg.poa_engine == "graph" else consensus_sequence_batch
     t0 = time.perf_counter()
@@ -518,16 +558,19 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     ins_seqs = reader.ins_seqs if hasattr(reader, "ins_seqs") else \
         functools.partial(_ins_seqs_py, reader)
     seq_lists: list[list[str]] = []
-    for res in records:
-        r = int(C.u32(res.rstart))
-        lo, hi = r - interval, r + interval
-        if res.cons_tid < 0:
-            seq_lists.append([])
-            continue
-        seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
-                                  C.SV_MIN_LENGTH, lo, hi))
+    with span(stats, "cons_seq_s", "svtrek.cons.seq",
+              flush=stats.cons_flushes):
+        for res in records:
+            r = int(C.u32(res.rstart))
+            lo, hi = r - interval, r + interval
+            if res.cons_tid < 0:
+                seq_lists.append([])
+                continue
+            seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
+                                      C.SV_MIN_LENGTH, lo, hi))
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
-              "band_scalar": 0, "band_wide_k2": 0}
+              "band_scalar": 0, "band_wide_k2": 0, "vote_s": 0.0,
+              "dp_s": 0.0}
     for res, s in zip(records, consensus_batch(
             seq_lists, device=device, counts=counts)):
         res.seq = s or ""
@@ -539,6 +582,8 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     stats.cons_band_wide += counts["band_wide"]
     stats.cons_band_scalar += counts["band_scalar"]
     stats.cons_band_wide_k2 += counts["band_wide_k2"]
+    stats.cons_vote_s += counts["vote_s"]
+    stats.cons_dp_s += counts["dp_s"]
     stats.cons_s += time.perf_counter() - t0
 
 
@@ -723,23 +768,53 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     q: queue.Queue = queue.Queue(maxsize=max(2, cfg.tload_factor))
     stats_lock = threading.Lock()
 
+    # --trace-dir: a torch.profiler trace of the run, host and card,
+    # started before the producer so that it holds the first chunks.
+    # With profile_all_threads (where this torch has it) the workers'
+    # svtrek.fetch and svtrek.extract ranges are in it too.
+    trace_dir = cfg.trace_dir
+    prof = None
+    if trace_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            extra = dict(experimental_config=torch._C._profiler.
+                         _ExperimentalConfig(profile_all_threads=True))
+        except TypeError:  # a torch without profile_all_threads
+            extra = {}
+        prof = torch.profiler.profile(activities=acts, **extra)
+        prof.__enter__()
+
     def producer():
         tls = threading.local()
 
-        def work(chunk):
+        def work(index, chunk):
             if not hasattr(tls, "reader"):
                 tls.reader = open_reader(cfg)
+                # the C reader's inflate counters (the Python reader has
+                # none), zeroed of the header's
+                tls.counters = getattr(tls.reader, "counters",
+                                       lambda: (0, 0))
+                tls.counters()
+            spans = functools.partial(span, stats, lock=stats_lock,
+                                      batch=index)
             t0 = time.perf_counter()
             if not cfg.use_native_io:
                 pb = pack_chunk(chunk, python_fetch(tls.reader), cfg,
                                 n_shards)
             elif cfg.extract == "device":
-                pb = pack_chunk_native(chunk, tls.reader, cfg, n_shards)
+                pb = pack_chunk_native(chunk, tls.reader, cfg, n_shards,
+                                       spans)
             else:
-                pb = pack_chunk_cand(chunk, tls.reader, cfg, n_shards)
+                pb = pack_chunk_cand(chunk, tls.reader, cfg, n_shards,
+                                     spans)
             dt = time.perf_counter() - t0
+            ns, nbytes = tls.counters()
             with stats_lock:
                 stats.pack_s += dt  # aggregate worker-seconds
+                stats.inflate_s += ns / 1e9
+                stats.inflated_bytes += nbytes
             return pb
 
         bw = cfg.batch_windows
@@ -754,40 +829,33 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             if chunk:
                 yield chunk
 
-        chunks = chunk_stream()
+        chunks = enumerate(chunk_stream())
         n_workers = max(1, cfg.thread_number)
         try:
             with ThreadPoolExecutor(
                 n_workers, thread_name_prefix="svtrek-pack"
             ) as ex:
                 pending = deque(
-                    ex.submit(work, c)
+                    ex.submit(work, *c)
                     for c in itertools.islice(chunks, n_workers + 2)
                 )
                 while pending:
                     pb = pending.popleft().result()
                     nxt = next(chunks, None)
                     if nxt is not None:
-                        pending.append(ex.submit(work, nxt))
-                    q.put(pb)  # blocks when full → bounds work in flight
+                        pending.append(ex.submit(work, *nxt))
+                    # blocks when full → bounds work in flight
+                    with span(stats, "put_wait_s"):
+                        q.put(pb)
         except BaseException as e:  # surfaced in the consumer loop
             q.put(e)
             return
-        q.put(None)
+        with span(stats, "put_wait_s"):
+            q.put(None)
 
     prod = threading.Thread(target=producer, daemon=True,
                             name="svtrek-pack-producer")
     prod.start()
-
-    # --trace-dir: a torch.profiler trace of the batch loop, host and card.
-    trace_dir = cfg.trace_dir
-    prof = None
-    if trace_dir:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
 
     # Streamed, input-ordered emit: lines go to `out` (and the output file)
     # as soon as every earlier record has completed.
@@ -797,19 +865,15 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
         file_out = open(cfg.output_file,
                         "a" if cfg.resume else "w")
 
-    def flush_frontier():
-        t0 = time.perf_counter()
-        while pending_records and pending_records[0].remaining == 0:
-            head = pending_records[0]
-            if (head.needs_seq and head.seq is None
-                    and C.u32(head.rstart) != NA32):
-                # Resolve every completed-but-unemitted INS site in one
-                # batched POA call: one per collected device batch.
-                batch = [r for r in pending_records
-                         if r.remaining == 0 and r.needs_seq
-                         and r.seq is None and C.u32(r.rstart) != NA32]
-                _resolve_ins_consensus(batch, cons_reader, cfg, device,
-                                       stats)
+    def needs_cons(r: AuditResult) -> bool:
+        return (r.needs_seq and r.seq is None
+                and C.u32(r.rstart) != NA32)
+
+    def emit_ready():
+        """Emit the completed records at the head, up to one that waits
+        for its consensus."""
+        while (pending_records and pending_records[0].remaining == 0
+               and not needs_cons(pending_records[0])):
             res = pending_records.popleft()
             del results[res.task.line_index]
             if not res.emit:
@@ -823,9 +887,22 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             print(line, file=out)
             if file_out is not None:
                 file_out.write(line + "\n")
+
+    def flush_frontier(batch: int):
+        t0 = time.perf_counter()
+        while pending_records and pending_records[0].remaining == 0:
+            if needs_cons(pending_records[0]):
+                # Resolve every completed-but-unemitted INS site in one
+                # batched POA call: one per collected device batch.
+                _resolve_ins_consensus(
+                    [r for r in pending_records
+                     if r.remaining == 0 and needs_cons(r)],
+                    cons_reader, cfg, device, stats)
+            with span(stats, "write_s", "svtrek.write", batch=batch):
+                emit_ready()
         stats.emit_s += time.perf_counter() - t0
 
-    def apply(pairs):
+    def apply(pairs, batch: int):
         for w, refined in pairs:
             res = results[w.record_index]
             if w.slot == 0:
@@ -833,33 +910,43 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             else:
                 res.rend = C.u32(refined)
             res.remaining -= 1
-        flush_frontier()
+        flush_frontier(batch)
 
     # Keep several batches in flight: launches are asynchronous, and each
     # collect pays one device→host sync.
+    # The consumer's stretches: queue_wait_s, dispatch_s and device_s
+    # (collect, which holds emit_s), each batch's under its index.
     in_flight: deque = deque()
     depth = max(2, cfg.tload_factor)
+
+    def collect():
+        index, packed, dev = in_flight.popleft()
+        apply(collect_refinement(packed, dev, cfg, stats), index)
+
     try:
         while True:
-            packed = q.get()
+            with span(stats, "queue_wait_s", "svtrek.queue_wait",
+                      batch=stats.batches):
+                packed = q.get()
             if isinstance(packed, BaseException):
                 raise packed
             if packed is None:
                 break
-            in_flight.append((packed, dispatch_refinement(packed, cfg,
-                                                          device)))
+            with span(stats, "dispatch_s"):
+                dev = dispatch_refinement(packed, cfg, device)
+            in_flight.append((stats.batches, packed, dev))
             stats.batches += 1
             stats.reads += (packed.num_reads
                             if isinstance(packed, PackedCandBatch)
                             else packed.batch.num_reads)
             if len(in_flight) > depth:
                 t0 = time.perf_counter()
-                apply(collect_refinement(*in_flight.popleft(), cfg, stats))
+                collect()
                 stats.device_s += time.perf_counter() - t0
         # Drain: each outstanding batch's results, in order.
         t0 = time.perf_counter()
         while in_flight:
-            apply(collect_refinement(*in_flight.popleft(), cfg, stats))
+            collect()
         stats.device_s += time.perf_counter() - t0
     finally:
         if prof is not None:
@@ -873,7 +960,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
     # Final frontier flush: everything is applied, so all zero-window
     # records (and any tail) drain here.
-    flush_frontier()
+    flush_frontier(stats.batches)
     if file_out is not None:
         file_out.close()
     if pending_records:

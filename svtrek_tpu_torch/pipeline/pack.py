@@ -39,6 +39,7 @@ to its global result slot.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -53,6 +54,11 @@ from ..constants import (
 from ..io.vcf import VcfTask
 from ..kernels import CONSENSUS_MAX_K
 from ..ops.audit_step import AuditBatch, AuditBatchCSR
+from ..tracing import span
+
+# The packers' default `spans`: timers that feed no counter.  run_audit's
+# workers pass `tracing.span` bound to the run's AuditStats.
+UNTIMED = functools.partial(span, None)
 
 # The top width of the padded layout: a batch with a longer read is laid
 # out flat (the JAX package sends its window to the host oracle).
@@ -361,13 +367,15 @@ def _window_attrs(window_chunk: Sequence[WindowSpec], B: int):
 
 
 def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
-                      cfg: AudtConfig, n_shards: int = 1) -> PackedBatch:
+                      cfg: AudtConfig, n_shards: int = 1,
+                      spans=UNTIMED) -> PackedBatch:
     """Dense fetch + CSR pack, the heavy work in C (`--extract device`).
 
     One `svbam_fetch_batch` call pulls every window's reads (GIL released
     for the whole chunk) and the flat op/len streams are shipped as they
     are, reads of any op count; the Python layer builds only the
-    per-window attribute vectors."""
+    per-window attribute vectors.  ``spans(field, name)`` times the fetch
+    (`fetch_s`, `svtrek.fetch`)."""
     n_win = len(window_chunk)
     tids = np.empty(n_win, np.int32)
     begs = np.empty(n_win, np.int64)
@@ -381,7 +389,8 @@ def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
             begs[i] = int(C.u32(w.inter_start - 1))
             ends[i] = int(C.u32(w.inter_end - 1))
 
-    total, counts = reader.fetch_batch(tids, begs, ends)
+    with spans("fetch_s", "svtrek.fetch"):
+        total, counts = reader.fetch_batch(tids, begs, ends)
     # Overflow-fallback evidence is re-fetched lazily (rare).
     reads_per_window = [
         LazyWindowReads(reader.path, int(tids[i]), int(begs[i]), int(ends[i]))
@@ -529,12 +538,15 @@ class PackedCandBatch:
 
 
 def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
-                    cfg: AudtConfig, n_shards: int = 1) -> PackedCandBatch:
+                    cfg: AudtConfig, n_shards: int = 1,
+                    spans=UNTIMED) -> PackedCandBatch:
     """Fetch + host-extract one chunk of windows (all heavy work in C).
 
     One `svbam_fetch_batch` + one `svbam_extract_batch` call per chunk;
     windows whose candidates overflow K arrive pre-refined by the C
-    scalar consensus (exact)."""
+    scalar consensus (exact).  ``spans(field, name)`` times the fetch
+    (`fetch_s`, `svtrek.fetch`) and the extract (`extract_s`,
+    `svtrek.extract`)."""
     n_win = len(window_chunk)
     tids = np.empty(n_win, np.int32)
     begs = np.empty(n_win, np.int64)
@@ -560,17 +572,19 @@ def pack_chunk_cand(window_chunk: Sequence[WindowSpec], reader,
     # fetch and each read is decoded once; the per-window read sets are
     # identical by construction (the C re-applies the overlap test per
     # window).
-    if cfg.merge_fetch_gap > 0:
-        total, win_counts = reader.fetch_batch_merged(tids, begs, ends,
-                                                      cfg.merge_fetch_gap)
-    else:
-        total, win_counts = reader.fetch_batch(tids, begs, ends)
+    with spans("fetch_s", "svtrek.fetch"):
+        if cfg.merge_fetch_gap > 0:
+            total, win_counts = reader.fetch_batch_merged(
+                tids, begs, ends, cfg.merge_fetch_gap)
+        else:
+            total, win_counts = reader.fetch_batch(tids, begs, ends)
     K = pow2(min(cfg.cand_width, 8192), lo=16)
-    locs, counts, refined = reader.extract_batch(
-        kinds, istart, iend, ipos, win_counts, K,
-        cfg.consensus_min_count, cfg.consensus_interval,
-        cfg.consensus_interval_range, wide_cap=WIDE_MAX_K,
-    )
+    with spans("extract_s", "svtrek.extract"):
+        locs, counts, refined = reader.extract_batch(
+            kinds, istart, iend, ipos, win_counts, K,
+            cfg.consensus_min_count, cfg.consensus_interval,
+            cfg.consensus_interval_range, wide_cap=WIDE_MAX_K,
+        )
     wide_win, wide_off, wide_val = reader.wide_rows()
     # Ship only this batch's live candidate width (pow2 bucket, >= 16).
     kmax = int(np.minimum(counts, K).max()) if n_win else 1

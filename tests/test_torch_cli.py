@@ -65,7 +65,19 @@ def test_cli_trace_dir_writes_profiler_trace(audt_fixture, capsys):
     assert rc == 0
     assert "torch.profiler trace" in capsys.readouterr().err
     with open(os.path.join(trace_dir, "audt_trace.json")) as fh:
-        assert "traceEvents" in json.load(fh)
+        trace = json.load(fh)
+    assert "traceEvents" in trace
+    # the stage ranges: the consumer's, and the workers' on their own rows
+    # where this torch records every thread
+    rows = {e["name"]: e["tid"] for e in trace["traceEvents"]
+            if e.get("name", "").startswith("svtrek.")}
+    assert {"svtrek.queue_wait", "svtrek.write"} <= set(rows)
+    try:
+        torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return
+    assert rows["svtrek.fetch"] != rows["svtrek.queue_wait"]
+    assert "svtrek.extract" in rows
 
 
 # The options the port refused until the slice that ported them: the

@@ -22,22 +22,20 @@ first 64 sites of its long-site run, inserts past 1,024 bases; with
 star-engine pairs take K2's wide kernel.  Each star-engine run on the card
 also prints K2's CUDA-event time of each DP batch (`chip_smoke.k2_timer`).
 A last run under
-`--trace-dir` writes a torch.profiler trace and prints its summary:
-the traced window, the events and time per category, the device events by
-name, and the card's busy and idle share of the window.  A trace slows the
-run several times, so it reads the device's share, not the wall time.
+`--trace-dir` writes a torch.profiler trace (with the port's `svtrek.*`
+stage ranges) and prints its path.  The benchmark's traced runs read the
+card's busy and idle share and name the idle gaps (`portbench/devtrace.py`,
+`python3 portbench/run.py --workload W --seed N --seconds S --trace 1`).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import io
-import json
 import os
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
@@ -49,7 +47,6 @@ RUNS = [["--device", "cuda"], ["--device", "cpu"],
         ["--device", "cuda", "-t", "8"], ["--device", "cuda", "-t", "8"]]
 INS_RUNS = [["--ins-consensus", "--device", "cuda"]] * 2
 DISC_RUNS = ["cuda", "cpu", "cuda"]
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def run_cli(bam: str, vcf: str, flags: list[str]) -> None:
@@ -93,33 +90,13 @@ def measure_disc(trace_dir: str, flags: list[str]) -> None:
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "disc_trace.json")
     prof.export_chrome_trace(path)
-    summarize_trace(path)
+    print_trace_path(path)
 
 
-def summarize_trace(path: str) -> None:
-    with open(path) as fh:
-        events = [e for e in json.load(fh)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    t0 = min(e["ts"] for e in events)
-    window = max(e["ts"] + e["dur"] for e in events) - t0
-    by_cat, by_dev = defaultdict(lambda: [0, 0.0]), defaultdict(
-        lambda: [0, 0.0])
-    for e in events:
-        c = by_cat[e.get("cat", "")]
-        c[0] += 1
-        c[1] += e["dur"]
-        if e.get("cat") in DEVICE_CATS:
-            d = by_dev[e["name"][:80]]
-            d[0] += 1
-            d[1] += e["dur"]
-    print(f"[trace] window {window:.1f} us", flush=True)
-    for cat, (n, us) in sorted(by_cat.items(), key=lambda kv: -kv[1][1]):
-        print(f"[trace] category {cat}: {n} events, {us:.1f} us", flush=True)
-    busy = sum(us for _, us in by_dev.values())
-    for name, (n, us) in sorted(by_dev.items(), key=lambda kv: -kv[1][1]):
-        print(f"[trace] device {n} x {name}: {us:.1f} us", flush=True)
-    print(f"[trace] device busy {busy:.1f} us of {window:.1f} us, idle "
-          f"{100 * (1 - busy / window):.4f} %", flush=True)
+def print_trace_path(path: str) -> None:
+    print(f"[trace] wrote {path}; the card's idle share and the named idle "
+          f"gaps come from the benchmark's traced runs "
+          f"(portbench/devtrace.py)", flush=True)
 
 
 def graph_vcf(args, vcf: str, sites) -> str:
@@ -182,7 +159,7 @@ def main() -> None:
     for flags in runs:
         run_cli(bam, vcf, flags)
     run_cli(bam, vcf, [*traced, "--trace-dir", args.trace_dir])
-    summarize_trace(os.path.join(args.trace_dir, "audt_trace.json"))
+    print_trace_path(os.path.join(args.trace_dir, "audt_trace.json"))
 
 
 if __name__ == "__main__":
