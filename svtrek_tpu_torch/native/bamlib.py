@@ -113,6 +113,8 @@ def load_library():
         ct.c_void_p, _INFLATE_FN, ct.c_int32, ct.c_void_p, ct.c_int64,
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int32,
     ]
+    lib.svbam_walk_counters.restype = None
+    lib.svbam_walk_counters.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int64)]
     lib.svbam_stage_counters.restype = None
     lib.svbam_stage_counters.argtypes = [ct.c_void_p,
                                          ct.POINTER(ct.c_int64)]
@@ -239,6 +241,16 @@ class NativeBamReader:
         last call, which zeroes them."""
         out = np.zeros(2, np.int64)
         self._lib.svbam_stage_counters(
+            self._h, out.ctypes.data_as(ct.POINTER(ct.c_int64)))
+        return int(out[0]), int(out[1])
+
+    def walk_counters(self) -> tuple[int, int]:
+        """(CIGAR ops of the reads `extract_batch` handed its windows'
+        walks, a read once for each window it falls in; bytes the walk of
+        the staged fetches read: each record's length, fixed fields, name
+        and CIGAR) on this handle since the last call, which zeroes them."""
+        out = np.zeros(2, np.int64)
+        self._lib.svbam_walk_counters(
             self._h, out.ctypes.data_as(ct.POINTER(ct.c_int64)))
         return int(out[0]), int(out[1])
 

@@ -638,6 +638,9 @@ struct stager {
      * also in svbam_counters), those of them made on the card, and the
      * bytes zlib inflated during staged fetches (bgzf_t.miss_bytes) */
     int64_t ns, bytes, card_bytes;
+    /* the bytes the walk reads during staged fetches: each record's
+     * length, fixed fields, name and CIGAR (svbam_walk_counters) */
+    int64_t walked_bytes;
 };
 
 typedef struct svbam {
@@ -675,6 +678,9 @@ typedef struct svbam {
     vec_t wide_win;
     vec_t wide_off;
     vec_t wide_val;
+    /* the CIGAR ops of the reads svbam_extract_batch hands each window's
+     * walk, since the last svbam_walk_counters */
+    int64_t walk_ops;
     /* sticky decode-error detail; "" = no error.  A corrupt/truncated
        BAM must FAIL the fetch, never silently return partial results
        (htslib errors there too; reference use at audit.c:270-272). */
@@ -926,6 +932,7 @@ static int64_t fetch_into(svbam_t *b, int32_t tid, int64_t beg, int64_t end) {
                 err = -1;
                 goto done;
             }
+            if (b->z.sg) b->sg.walked_bytes += 4 + 32;
             if (rtid != tid || rpos >= end) goto done;
             if ((size_t)prefix > b->rec_cap) {
                 b->rec_cap = (size_t)prefix * 2;
@@ -938,6 +945,7 @@ static int64_t fetch_into(svbam_t *b, int32_t tid, int64_t beg, int64_t end) {
                 err = -1;
                 goto done;
             }
+            if (b->z.sg) b->sg.walked_bytes += prefix - 32;
             if (bgzf_skip(&b->z, bsz - prefix) != 0) {
                 FETCH_ERR(b, "BAM record payload skip failed: corrupt "
                           "or truncated BAM");
@@ -1284,6 +1292,18 @@ void svbam_stage_counters(void *h, int64_t *out) {
     out[0] = b->sg.card_bytes;
     out[1] = b->z.miss_bytes;
     b->sg.card_bytes = b->z.miss_bytes = 0;
+}
+
+/* out[0] the CIGAR ops of the reads svbam_extract_batch handed its
+ * windows' walks (a read counts once for each window it falls in; the
+ * walk stops at the op that passes the window's end), out[1] the bytes the
+ * walk of the staged fetches read (each record's length, fixed fields,
+ * name and CIGAR), since the last call, which zeroes them. */
+void svbam_walk_counters(void *h, int64_t *out) {
+    svbam_t *b = h;
+    out[0] = b->walk_ops;
+    out[1] = b->sg.walked_bytes;
+    b->walk_ops = b->sg.walked_bytes = 0;
 }
 
 int64_t svbam_fetch(void *h, int32_t tid, int64_t beg, int64_t end) {
@@ -1693,6 +1713,7 @@ void svbam_extract_batch(void *h, int32_t nwin, const int32_t *kinds,
             int64_t r = widx ? widx[t] : t;
             int n = rnops[r];
             if (!n) continue;
+            b->walk_ops += n;
             extract_read(kinds[w], ops + ropoff[r], lens + ropoff[r], n,
                          rpos[r], (uint32_t)istart[w], (uint32_t)iend[w],
                          &cands);

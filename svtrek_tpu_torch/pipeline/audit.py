@@ -195,6 +195,13 @@ class AuditStats:
                                # inflate (copies, kernel, stream wait)
     inflated_bytes: int = 0    # the bytes they inflated, host or card
     card_inflated_bytes: int = 0  # of those, the card's
+    walk_ops: int = 0          # CIGAR ops of the reads the C extract hands
+                               # its windows' walks (a read once a window)
+    walked_bytes: int = 0      # bytes of the staged fetches' records the
+                               # walk reads: length, fixed fields, name, CIGAR
+    workers: int = 0           # the pool's threads (-t)
+    pool_tail_s: float = 0.0   # workers idle at the pool's end: the last
+                               # chunk's end less each worker's, summed
     dispatch_s: float = 0.0    # consumer launching a batch's device step
     sync_wait_s: float = 0.0   # consumer blocked in results' device→host
     write_s: float = 0.0       # emit_s less cons_s: format, print, write
@@ -255,6 +262,9 @@ class AuditStats:
             f"extract={self.extract_s:.3f}s inflate={self.inflate_s:.3f}s "
             f"inflated_mb={self.inflated_bytes / 1e6:.3f} "
             f"card_inflated_mb={self.card_inflated_bytes / 1e6:.3f} "
+            f"walk_ops={self.walk_ops} "
+            f"walked_mb={self.walked_bytes / 1e6:.3f} "
+            f"workers={self.workers} pool_tail={self.pool_tail_s:.3f}s "
             f"dispatch={self.dispatch_s:.3f}s "
             f"sync_wait={self.sync_wait_s:.3f}s write={self.write_s:.3f}s",
             file=err,
@@ -793,6 +803,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
     def producer():
         tls = threading.local()
+        last_end: dict[int, float] = {}  # each worker's last chunk's end
 
         def work(index, chunk):
             if not hasattr(tls, "reader"):
@@ -803,6 +814,8 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
                 tls.counters = getattr(tls.reader, "counters",
                                        lambda: (0, 0))
                 tls.card_counters = getattr(tls.reader, "stage_counters",
+                                            lambda: (0, 0))
+                tls.walk_counters = getattr(tls.reader, "walk_counters",
                                             lambda: (0, 0))
                 tls.counters()
                 if cfg.use_native_io:
@@ -819,14 +832,18 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             else:
                 pb = pack_chunk_cand(chunk, tls.reader, cfg, n_shards,
                                      spans)
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
             ns, nbytes = tls.counters()
             card_bytes, _ = tls.card_counters()
+            ops, walked = tls.walk_counters()
             with stats_lock:
-                stats.pack_s += dt  # aggregate worker-seconds
+                stats.pack_s += t1 - t0  # aggregate worker-seconds
                 stats.inflate_s += ns / 1e9
                 stats.inflated_bytes += nbytes
                 stats.card_inflated_bytes += card_bytes
+                stats.walk_ops += ops
+                stats.walked_bytes += walked
+                last_end[threading.get_ident()] = t1
             return pb
 
         bw = cfg.batch_windows
@@ -842,7 +859,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
                 yield chunk
 
         chunks = enumerate(chunk_stream())
-        n_workers = max(1, cfg.thread_number)
+        n_workers = stats.workers = max(1, cfg.thread_number)
         try:
             with ThreadPoolExecutor(
                 n_workers, thread_name_prefix="svtrek-pack"
@@ -862,6 +879,9 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
         except BaseException as e:  # surfaced in the consumer loop
             q.put(e)
             return
+        if last_end:
+            end = max(last_end.values())
+            stats.pool_tail_s = sum(end - t for t in last_end.values())
         with span(stats, "put_wait_s"):
             q.put(None)
 
