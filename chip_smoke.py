@@ -1541,6 +1541,15 @@ def phase_ins_path():
           f"K2={launches['poa_dp_ptr']} K3={launches['poa_traceback']} "
           f"plain_calls={plain}", flush=True)
     print(f"[ins] {check_star_host('ins', stats, spy, dp_calls)}", flush=True)
+    # the ins_consensus line's inflated_mb (printed after the stages
+    # line's, so the one in stats): the consensus reader's, all on the card
+    if not 0 < float(stats["card_mb"]) == float(stats["inflated_mb"]):
+        fail(f"the consensus reader inflated {stats['inflated_mb']} MB, "
+             f"{stats['card_mb']} MB of it on the card")
+    print(f"[ins] consensus reader: inflate={stats['inflate']}s "
+          f"inflated_mb={stats['inflated_mb']} card_mb={stats['card_mb']}",
+          flush=True)
+    print(f"[ins] {check_ins_seqs_batch(bam, got)}", flush=True)
 
     keep = list(range(INS_CPU_SITES))
     classes = sorted({sites[i]["class"] for i in keep})
@@ -1575,6 +1584,53 @@ def phase_ins_path():
           f"before ', seq:'; seq equal on {len(subset)} sites (classes "
           f"{classes}) in {time.perf_counter() - t0:.1f}s", flush=True)
     return launches, got
+
+
+def check_ins_seqs_batch(bam: str, lines: list[str]) -> str:
+    """`ins_seqs_batch` on a reader whose batch inflate is the card's, over
+    the INS sites of ``lines`` (each refined position, as the consensus
+    fetches it), against the lazy per-site `ins_seqs`: equal site by site
+    and string by string, the card inflating every byte, zlib none."""
+    from svtrek_tpu_torch.config import AudtConfig
+    from svtrek_tpu_torch.constants import SV_MIN_LENGTH
+    from svtrek_tpu_torch.kernels import launch_counts
+    from svtrek_tpu_torch.pipeline.audit import open_native_reader
+
+    interval = AudtConfig().consensus_interval
+    refined = [int(m.group(1)) for m in
+               (re.search(r"ref pos: (\d+)", l) for l in lines
+                if l.startswith("(INS)")) if m]
+    begs = [max(r - interval, 0) for r in refined]
+    ends = [r + interval + 1 for r in refined]
+    los, his = [r - interval for r in refined], [r + interval for r in refined]
+    lazy, staged = open_native_reader(bam), open_native_reader(bam)
+    staged.stage_inflate("cuda")
+    staged.counters()
+    t0 = time.perf_counter()
+    want = [lazy.ins_seqs(0, b, e, SV_MIN_LENGTH, lo, hi)
+            for b, e, lo, hi in zip(begs, ends, los, his)]
+    lazy_s = time.perf_counter() - t0
+    n0 = launch_counts["bgzf_inflate"]
+    t0 = time.perf_counter()
+    got = staged.ins_seqs_batch([0] * len(refined), begs, ends,
+                                SV_MIN_LENGTH, los, his)
+    batch_s = time.perf_counter() - t0
+    launches = launch_counts["bgzf_inflate"] - n0
+    _, nbytes = staged.counters()
+    card, by_zlib = staged.stage_counters()
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        fail(f"ins_seqs_batch differs from ins_seqs at site {bad} "
+             f"(ref pos {refined[bad]}): {len(got[bad])} against "
+             f"{len(want[bad])} strings")
+    if launches < 1 or by_zlib or card != nbytes or card < 1:
+        fail(f"ins_seqs_batch: bgzf_inflate launched {launches} times, "
+             f"{card} B on the card, {by_zlib} B by zlib, of {nbytes} B")
+    return (f"ins_seqs_batch on the card: {len(refined)} sites, "
+            f"{sum(map(len, got))} strings equal to ins_seqs; "
+            f"bgzf_inflate launches={launches}, {card} B on the card, 0 B by "
+            f"zlib; {1000 * batch_s / len(refined):.4f} ms a site against "
+            f"{1000 * lazy_s / len(refined):.4f} lazy")
 
 
 def spread_fixture():

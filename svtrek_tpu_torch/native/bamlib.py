@@ -106,6 +106,13 @@ def load_library():
         ct.c_void_p, ct.c_int32, ct.c_int64, ct.c_int64,
         ct.c_int32, ct.c_int64, ct.c_int64,
     ]
+    lib.svbam_ins_seqs_batch.restype = ct.c_int64
+    lib.svbam_ins_seqs_batch.argtypes = [
+        ct.c_void_p, ct.c_int32, ct.POINTER(ct.c_int32),
+        ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64), ct.c_int32,
+        ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
+        ct.POINTER(ct.c_int64),
+    ]
     lib.svbam_counters.restype = None
     lib.svbam_counters.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int64)]
     lib.svbam_stage_attach.restype = ct.c_int32
@@ -174,13 +181,13 @@ class NativeBamReader:
                       _slice: tuple[int, int] = (STAGE_BLOCKS,
                                                  STAGE_IN_BYTES)) -> None:
         """Have this reader's batch fetches (`fetch_batch`,
-        `fetch_batch_merged`) inflate the blocks their walk can read ahead
-        of it, a slice at a time, with `kernels.bgzf_inflate` on
-        ``device``: the kernel on a card, on a stream of this reader's own,
-        through pinned buffers allocated here once; zlib a block on the
-        CPU.  Every other read stays lazy.  ``_slice`` (a slice's most
-        blocks and compressed bytes) is for tests of slices smaller than a
-        fetch's blocks."""
+        `fetch_batch_merged`, `ins_seqs_batch`) inflate the blocks their
+        walk can read ahead of it, a slice at a time, with
+        `kernels.bgzf_inflate` on ``device``: the kernel on a card, on a
+        stream of this reader's own, through pinned buffers allocated here
+        once; zlib a block on the CPU.  Every other read stays lazy.
+        ``_slice`` (a slice's most blocks and compressed bytes) is for tests
+        of slices smaller than a fetch's blocks."""
         import torch
 
         from .. import kernels
@@ -308,6 +315,42 @@ class NativeBamReader:
                                     (n + 1,))
         buf = ct.string_at(self._lib.svbam_ins_buf(self._h), int(off[n]))
         return [buf[off[i]:off[i + 1]].decode() for i in range(n)]
+
+    def ins_seqs_batch(self, tids, begs, ends, min_len: int, los,
+                       his) -> list[list[str]]:
+        """`ins_seqs` of many sites in one library call: site i's strings,
+        as ``ins_seqs(tids[i], begs[i], ends[i], min_len, los[i],
+        his[i])`` returns them, in list i (empty where tids[i] < 0).  With
+        a batch inflate attached (`stage_inflate`) the sites' blocks are
+        inflated by it a slice at a time before their walk."""
+        n = len(tids)
+        tids = np.ascontiguousarray(tids, np.int32)
+        begs, ends, los, his = (np.ascontiguousarray(a, np.int64)
+                                for a in (begs, ends, los, his))
+        if any(len(a) != n for a in (begs, ends, los, his)):
+            raise ValueError("ins_seqs_batch: the site arrays differ in "
+                             "length")
+        counts = np.zeros(n, np.int64)
+        i64 = ct.POINTER(ct.c_int64)
+        total = self._lib.svbam_ins_seqs_batch(
+            self._h, n, tids.ctypes.data_as(ct.POINTER(ct.c_int32)),
+            begs.ctypes.data_as(i64), ends.ctypes.data_as(i64), min_len,
+            los.ctypes.data_as(i64), his.ctypes.data_as(i64),
+            counts.ctypes.data_as(i64))
+        if total < 0:
+            self._raise_error()
+        if total == 0:
+            return [[] for _ in range(n)]
+        off = np.ctypeslib.as_array(self._lib.svbam_ins_off(self._h),
+                                    (total + 1,)).tolist()
+        text = ct.string_at(self._lib.svbam_ins_buf(self._h),
+                            off[total]).decode()
+        seqs = [text[a:b] for a, b in zip(off, off[1:])]
+        out, at = [], 0
+        for c in counts.tolist():
+            out.append(seqs[at:at + c])
+            at += c
+        return out
 
     def fetch_batch(self, tids, begs, ends):
         """Fetch many regions with ONE library call (GIL released for

@@ -1255,8 +1255,10 @@ static void stage_end(svbam_t *b) {
 
 /* Attach a batch inflate and the buffers it reads and writes (see
  * struct stager; in_cap >= 2 blocks, max_blk <= STAGE_MAX_BLOCKS), or
- * detach with fn NULL.  The batch fetches then stage their blocks; every
- * other read stays lazy.  0, or -1 for bad sizes or no memory. */
+ * detach with fn NULL.  The batch fetches (svbam_fetch_batch,
+ * svbam_fetch_batch_merged, svbam_ins_seqs_batch) then stage their
+ * blocks; every other read stays lazy.  0, or -1 for bad sizes or no
+ * memory. */
 int32_t svbam_stage_attach(void *h, svbam_inflate_fn fn, int32_t on_card,
                            uint8_t *in, int64_t in_cap, uint8_t *out,
                            int64_t *meta, int32_t *status, int32_t max_blk) {
@@ -2169,92 +2171,142 @@ const int64_t *svgaf_erroff(void *h)   { return ((svgaf_t *)h)->erroff.data; }
 
 static const char SEQ_NT16[16] = "=ACMGRSVTWYHKDBN";
 
+/* The filter and decode of one whole record rec (bsz bytes) of a read at
+ * rpos on the walk of [beg, ...): a read that ends at or before beg, or
+ * whose SEQ is "*", adds nothing; else each I op >= min_len at a
+ * reference position in [lo, hi] whose bases lie within SEQ appends its
+ * decoded bases to insbuf and its end to insoff.  0, or -1 with errmsg
+ * set where the fields pass the record's end. */
+static int ins_record(svbam_t *b, const uint8_t *rec, int32_t bsz,
+                      int64_t rpos, int64_t beg, int32_t min_len,
+                      int64_t lo, int64_t hi) {
+    int l_read_name = rd_u32(rec + 8) & 0xff;
+    int n_cigar = rd_u32(rec + 12) & 0xffff;
+    int64_t l_seq = rd_i32(rec + 16);
+    int64_t cig_off = 32 + l_read_name;
+    int64_t seq_off = cig_off + 4 * (int64_t)n_cigar;
+    if (seq_off + (l_seq + 1) / 2 > bsz) {
+        FETCH_ERR(b, "BAM record fields exceed record size");
+        return -1;
+    }
+    const uint8_t *cig = rec + cig_off;
+    const uint8_t *seq = rec + seq_off;
+    /* overlap test needs endpos */
+    int64_t ref_len = 0;
+    for (int k = 0; k < n_cigar; k++) {
+        uint32_t v = rd_u32(cig + 4 * k);
+        uint32_t op = v & 0xf;
+        if (op == 0 || op == 2 || op == 3 || op == 7 || op == 8)
+            ref_len += v >> 4;
+    }
+    int64_t endpos = ref_len > 0 ? rpos + ref_len : rpos + 1;
+    if (endpos <= beg) return 0;
+    if (l_seq <= 0) return 0;      /* SEQ "*": nothing to decode */
+    /* refine_ins-convention walk with query tracking */
+    uint32_t rp = (uint32_t)rpos;
+    int64_t qpos = 0;
+    for (int k = 0; k < n_cigar; k++) {
+        uint32_t v = rd_u32(cig + 4 * k);
+        uint32_t op = v & 0xf, ln = v >> 4;
+        if (op == 1 && (int32_t)ln >= min_len &&
+            (int64_t)rp >= lo && (int64_t)rp <= hi &&
+            qpos + ln <= l_seq) {
+            char *dst = vec_push(&b->insbuf, ln);
+            for (uint32_t t = 0; t < ln; t++) {
+                int64_t qi = qpos + t;
+                uint8_t byte = seq[qi >> 1];
+                dst[t] = SEQ_NT16[(qi & 1) ? (byte & 0xf) : (byte >> 4)];
+            }
+            *(int64_t *)vec_push(&b->insoff, 1) = (int64_t)b->insbuf.len;
+        }
+        if (op != 1 && op != 4) rp += ln;   /* quirk ref advance */
+        if (op == 0 || op == 1 || op == 4 || op == 7 || op == 8)
+            qpos += ln;                     /* query advance */
+    }
+    return 0;
+}
+
+/* The walk of one site's region [beg, end) on tid: its chunks in order,
+ * each record read whole and given to ins_record, until a record of
+ * another tid or at or past end, whose fixed fields alone are read (as
+ * fetch_into reads them, so a staged fetch holds every byte read).
+ * Appends to insbuf/insoff; 0, or -1 with errmsg set. */
+static int ins_walk(svbam_t *b, int32_t tid, int64_t beg, int64_t end,
+                    int32_t min_len, int64_t lo, int64_t hi) {
+    size_t m = region_chunks(b, tid, beg, end, &b->binvec, &b->chunkvec);
+    const chunk_t *cs = b->chunkvec.data;
+    if (beg < 0) beg = 0;
+    for (size_t ci = 0; ci < m; ci++) {
+        if (bgzf_seek(&b->z, (int64_t)cs[ci].beg) != 0) {
+            FETCH_ERR(b, "BGZF seek to chunk offset %lld failed",
+                      (long long)cs[ci].beg);
+            return -1;
+        }
+        while ((uint64_t)bgzf_tell(&b->z) < cs[ci].end) {
+            int32_t bsz;
+            int got = bgzf_read(&b->z, &bsz, 4);
+            if (got != 4) { FETCH_ERR(b, "short record length read"); return -1; }
+            if (bsz < 32 || bsz > (64 << 20)) {
+                FETCH_ERR(b, "implausible BAM record size %d", bsz);
+                return -1;
+            }
+            /* room for the whole record: SEQ is needed */
+            if ((size_t)bsz > b->rec_cap) {
+                b->rec_cap = (size_t)bsz * 2;
+                b->rec = realloc(b->rec, b->rec_cap);
+            }
+            got = bgzf_read(&b->z, b->rec, 32);
+            if (got != 32) { FETCH_ERR(b, "short BAM record read"); return -1; }
+            int32_t rtid = rd_i32(b->rec);
+            int64_t rpos = rd_i32(b->rec + 4);
+            if (rtid != tid || rpos >= end) return 0;
+            got = bgzf_read(&b->z, b->rec + 32, bsz - 32);
+            if (got != bsz - 32) { FETCH_ERR(b, "short BAM record read"); return -1; }
+            if (ins_record(b, b->rec, bsz, rpos, beg, min_len, lo, hi) < 0)
+                return -1;
+        }
+    }
+    return 0;
+}
+
+/* The inserts of one site, read lazily: its strings in file order in
+ * insbuf/insoff (svbam_ins_buf, svbam_ins_off); their number, or -1. */
 int64_t svbam_ins_seqs(void *h, int32_t tid, int64_t beg, int64_t end,
                        int32_t min_len, int64_t lo, int64_t hi) {
     svbam_t *b = h;
     b->insbuf.len = b->insoff.len = 0;
     b->errmsg[0] = 0;
     *(int64_t *)vec_push(&b->insoff, 1) = 0;
+    if (ins_walk(b, tid, beg, end, min_len, lo, hi) < 0) return -1;
+    return (int64_t)(b->insoff.len - 1);
+}
 
-    size_t m = region_chunks(b, tid, beg, end, &b->binvec, &b->chunkvec);
-    const chunk_t *cs = b->chunkvec.data;
-    if (beg < 0) beg = 0;
-
-    int64_t err = 0;
-    for (size_t ci = 0; ci < m && !err; ci++) {
-        if (bgzf_seek(&b->z, (int64_t)cs[ci].beg) != 0) {
-            FETCH_ERR(b, "BGZF seek to chunk offset %lld failed",
-                      (long long)cs[ci].beg);
-            err = -1;
-            break;
+/* The inserts of n sites in one call: the sites' regions are staged and
+ * inflated a slice at a time through the attached batch inflate (where
+ * one is attached), then each is walked as svbam_ins_seqs walks it.  Site
+ * i's strings follow site i - 1's in insbuf/insoff, site_counts[i] of
+ * them; a site with tids[i] < 0 has none.  Returns their total, or -1. */
+int64_t svbam_ins_seqs_batch(void *h, int32_t n, const int32_t *tids,
+                             const int64_t *begs, const int64_t *ends,
+                             int32_t min_len, const int64_t *los,
+                             const int64_t *his, int64_t *site_counts) {
+    svbam_t *b = h;
+    b->insbuf.len = b->insoff.len = 0;
+    b->errmsg[0] = 0;
+    *(int64_t *)vec_push(&b->insoff, 1) = 0;
+    stage_begin(b);
+    for (int32_t i = 0; i < n; i++) stage_add(b, tids[i], begs[i], ends[i]);
+    for (int32_t i = 0; i < n; i++) {
+        size_t before = b->insoff.len;
+        if (stage_before(b, (size_t)i) < 0 ||
+            ins_walk(b, tids[i], begs[i], ends[i], min_len, los[i],
+                     his[i]) < 0) {
+            stage_end(b);
+            return -1;
         }
-        while ((uint64_t)bgzf_tell(&b->z) < cs[ci].end) {
-            int32_t bsz;
-            int got = bgzf_read(&b->z, &bsz, 4);
-            if (got != 4) { FETCH_ERR(b, "short record length read"); err = -1; goto done; }
-            if (bsz < 32 || bsz > (64 << 20)) {
-                FETCH_ERR(b, "implausible BAM record size %d", bsz);
-                err = -1; goto done;
-            }
-            /* full record this time: SEQ is needed */
-            if ((size_t)bsz > b->rec_cap) {
-                b->rec_cap = (size_t)bsz * 2;
-                b->rec = realloc(b->rec, b->rec_cap);
-            }
-            got = bgzf_read(&b->z, b->rec, bsz);
-            if (got != bsz) { FETCH_ERR(b, "short BAM record read"); err = -1; goto done; }
-            int32_t rtid = rd_i32(b->rec);
-            int64_t rpos = rd_i32(b->rec + 4);
-            if (rtid != tid || rpos >= end) goto done;
-            int l_read_name = rd_u32(b->rec + 8) & 0xff;
-            int n_cigar = rd_u32(b->rec + 12) & 0xffff;
-            int64_t l_seq = rd_i32(b->rec + 16);
-            int64_t cig_off = 32 + l_read_name;
-            int64_t seq_off = cig_off + 4 * (int64_t)n_cigar;
-            if (seq_off + (l_seq + 1) / 2 > bsz) {
-                FETCH_ERR(b, "BAM record fields exceed record size");
-                err = -1; goto done;
-            }
-            const uint8_t *cig = b->rec + cig_off;
-            const uint8_t *seq = b->rec + seq_off;
-            /* overlap test needs endpos */
-            int64_t ref_len = 0;
-            for (int k = 0; k < n_cigar; k++) {
-                uint32_t v = rd_u32(cig + 4 * k);
-                uint32_t op = v & 0xf;
-                if (op == 0 || op == 2 || op == 3 || op == 7 || op == 8)
-                    ref_len += v >> 4;
-            }
-            int64_t endpos = ref_len > 0 ? rpos + ref_len : rpos + 1;
-            if (endpos <= beg) continue;
-            if (l_seq <= 0) continue;      /* SEQ "*": nothing to decode */
-            /* refine_ins-convention walk with query tracking */
-            uint32_t rp = (uint32_t)rpos;
-            int64_t qpos = 0;
-            for (int k = 0; k < n_cigar; k++) {
-                uint32_t v = rd_u32(cig + 4 * k);
-                uint32_t op = v & 0xf, ln = v >> 4;
-                if (op == 1 && (int32_t)ln >= min_len &&
-                    (int64_t)rp >= lo && (int64_t)rp <= hi &&
-                    qpos + ln <= l_seq) {
-                    char *dst = vec_push(&b->insbuf, ln);
-                    for (uint32_t t = 0; t < ln; t++) {
-                        int64_t qi = qpos + t;
-                        uint8_t byte = seq[qi >> 1];
-                        dst[t] = SEQ_NT16[(qi & 1) ? (byte & 0xf)
-                                                   : (byte >> 4)];
-                    }
-                    *(int64_t *)vec_push(&b->insoff, 1) =
-                        (int64_t)b->insbuf.len;
-                }
-                if (op != 1 && op != 4) rp += ln;   /* quirk ref advance */
-                if (op == 0 || op == 1 || op == 4 || op == 7 || op == 8)
-                    qpos += ln;                     /* query advance */
-            }
-        }
+        site_counts[i] = (int64_t)(b->insoff.len - before);
     }
-done:
-    if (err) return -1;
+    stage_end(b);
     return (int64_t)(b->insoff.len - 1);
 }
 

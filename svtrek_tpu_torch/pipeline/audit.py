@@ -206,8 +206,12 @@ class AuditStats:
     sync_wait_s: float = 0.0   # consumer blocked in results' device→host
     write_s: float = 0.0       # emit_s less cons_s: format, print, write
                                # (svtrek.write)
-    cons_seq_s: float = 0.0    # cons_s: the native ins_seqs calls
-                               # (svtrek.cons.seq)
+    cons_seq_s: float = 0.0    # cons_s: the SEQ fetch, a native
+                               # ins_seqs_batch call a flush (svtrek.cons.seq)
+    cons_inflate_s: float = 0.0  # the consensus reader obtaining inflated
+                                 # blocks (as inflate_s)
+    cons_inflated_bytes: int = 0  # the bytes it inflated, host or card
+    cons_card_bytes: int = 0      # of those, the card's
     cons_vote_s: float = 0.0   # cons_s: host voting (svtrek.cons.vote)
     cons_dp_s: float = 0.0     # cons_s: the DP batches, device leg
     cons_sites: int = 0      # INS sites given a consensus sequence
@@ -280,7 +284,10 @@ class AuditStats:
                 f"band_wide_k2={self.cons_band_wide_k2} "
                 f"seq_time={self.cons_seq_s:.3f}s "
                 f"vote_time={self.cons_vote_s:.3f}s "
-                f"dp_time={self.cons_dp_s:.3f}s",
+                f"dp_time={self.cons_dp_s:.3f}s "
+                f"inflate={self.cons_inflate_s:.3f}s "
+                f"inflated_mb={self.cons_inflated_bytes / 1e6:.3f} "
+                f"card_mb={self.cons_card_bytes / 1e6:.3f}",
                 file=err,
             )
 
@@ -560,29 +567,40 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     record (svtrek_tpu/pipeline/audit.py:406-448).  Per record: reads
     overlapping the refined position whose >= 50 bp I op lands within
     consensus_interval of it contribute their inserted bases (the native
-    reader's SEQ decode, or the Python reader's); one batched consensus
-    call on ``device`` covers all records, of the star engine or, with
+    reader's SEQ decode, one `ins_seqs_batch` call for all records, or the
+    Python reader's a record at a time); one batched consensus call on
+    ``device`` covers all records, of the star engine or, with
     ``cfg.poa_engine == "graph"``, the graph engine.  res.seq = "" when
     there is no consensus (printed NA).  The SEQ fetch is timed into
-    stats.cons_seq_s, the star engine's voting and DP into cons_vote_s and
-    cons_dp_s (the graph engine times neither)."""
+    stats.cons_seq_s, the native reader's inflate counters go to
+    cons_inflate_s, cons_inflated_bytes and cons_card_bytes, the star
+    engine's voting and DP into cons_vote_s and cons_dp_s (the graph engine
+    times neither)."""
     consensus_batch = consensus_sequence_poa_batch \
         if cfg.poa_engine == "graph" else consensus_sequence_batch
     t0 = time.perf_counter()
     interval = cfg.consensus_interval
-    ins_seqs = reader.ins_seqs if hasattr(reader, "ins_seqs") else \
-        functools.partial(_ins_seqs_py, reader)
-    seq_lists: list[list[str]] = []
+    refined = [int(C.u32(res.rstart)) for res in records]
+    tids = [res.cons_tid for res in records]
+    begs = [max(r - interval, 0) for r in refined]
+    ends = [r + interval + 1 for r in refined]
+    los = [r - interval for r in refined]
+    his = [r + interval for r in refined]
     with span(stats, "cons_seq_s", "svtrek.cons.seq",
               flush=stats.cons_flushes):
-        for res in records:
-            r = int(C.u32(res.rstart))
-            lo, hi = r - interval, r + interval
-            if res.cons_tid < 0:
-                seq_lists.append([])
-                continue
-            seq_lists.append(ins_seqs(res.cons_tid, max(lo, 0), hi + 1,
-                                      C.SV_MIN_LENGTH, lo, hi))
+        if hasattr(reader, "ins_seqs_batch"):
+            seq_lists = reader.ins_seqs_batch(tids, begs, ends,
+                                              C.SV_MIN_LENGTH, los, his)
+            ns, nbytes = reader.counters()
+            card_bytes, _ = reader.stage_counters()
+            stats.cons_inflate_s += ns / 1e9
+            stats.cons_inflated_bytes += nbytes
+            stats.cons_card_bytes += card_bytes
+        else:
+            seq_lists = [
+                _ins_seqs_py(reader, *site[:3], C.SV_MIN_LENGTH, *site[3:])
+                if site[0] >= 0 else []
+                for site in zip(tids, begs, ends, los, his)]
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
               "band_scalar": 0, "band_wide_k2": 0, "vote_s": 0.0,
               "dp_s": 0.0}
@@ -681,8 +699,10 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
     # --ins-consensus: a dedicated main-thread reader for SEQ extraction
     # (the probe reader serves the producer's tid lookups, and BGZF cursor
-    # state is not thread-safe).
+    # state is not thread-safe).  The native one inflates each flush's
+    # blocks on the run's device, attached at the first flush with sites.
     cons_reader = open_reader(cfg) if cfg.ins_consensus else None
+    cons_staged = False
 
     num_shards = cfg.num_shards or 1
     shard_index = cfg.shard_index
@@ -921,9 +941,15 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
                 file_out.write(line + "\n")
 
     def flush_frontier(batch: int):
+        nonlocal cons_staged
         t0 = time.perf_counter()
         while pending_records and pending_records[0].remaining == 0:
             if needs_cons(pending_records[0]):
+                if not cons_staged and cfg.use_native_io:
+                    cons_reader.stage_inflate(device)
+                    cons_reader.counters()  # zeroed of the header's
+                    cons_reader.stage_counters()
+                    cons_staged = True
                 # Resolve every completed-but-unemitted INS site in one
                 # batched POA call: one per collected device batch.
                 _resolve_ins_consensus(
@@ -993,6 +1019,8 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     # Final frontier flush: everything is applied, so all zero-window
     # records (and any tail) drain here.
     flush_frontier(stats.batches)
+    if cons_reader is not None:
+        cons_reader.close()  # its stage buffers, before the next run's
     if file_out is not None:
         file_out.close()
     if pending_records:
