@@ -15,7 +15,7 @@ last line:
 3. kernel: K1 against its plain PyTorch version on the card at the bench
    shapes, the main path's shape, the device-extract path's (512, 1024)
    and edge rows, exact integer equality,
-   plus 256 rows against tools/audt_scalar.py's scalar consensus;
+   plus 256 rows against audt_scalar.py's scalar consensus;
    CUDA-event times of both, and at every shape the profiler's time of K1
    alone beside a launch floor (one int32 elementwise op on a [B] tensor,
    which the port never calls); then the second pass's full sweep, K1 at
@@ -55,7 +55,7 @@ last line:
    this process, so the launch counts can be read) on the 5,000-record
    synthetic long-read benchmark fixture of tools/bench_e2e.py (built by
    its copy on the port's BAM writer, tools/torch_fixtures.py); its result
-   lines must be byte-identical to those of tools/audt_scalar.py (an
+   lines must be byte-identical to those of audt_scalar.py (an
    independent scalar audt that decodes the BAM itself), K1 must have run
    once per batch or more, the plain path never, and the refined
    breakpoints must land within 5 bp of the planted truth; the pool's
@@ -73,7 +73,7 @@ last line:
    (every insert-length class) must equal an in-process `--device cpu`
    run and a `--device cuda` run of those sites, with the same band-route
    counts on both, the part before `, seq:` must be
-   byte-identical to tools/audt_scalar.py, and the `seq:` field equal to
+   byte-identical to audt_scalar.py, and the `seq:` field equal to
    its scalar star consensus on a subset of sites from every insert-length
    class;
 8. disc path: `disc --device cuda` (svtrek_tpu_torch.pipeline.discover,
@@ -89,14 +89,14 @@ last line:
    of phase 6: the C reader fetches, the card walks the CIGARs
    (svtrek_tpu_torch.ops.cigar), groups the candidates and runs K1 at
    (512, 1024); the lines must be byte-identical to phase 6's (which
-   equal tools/audt_scalar.py's), the walk must have run on the card once
+   equal audt_scalar.py's), the walk must have run on the card once
    per batch, K1 once per batch or more, the plain consensus never, the
    staged inflate as in phase 6; then the CUDA-event time of one batch's
    device step;
 10. Python BAM path, reduced: tools/torch_fixtures.py's 500-record fixture
    (the Python reader at 60.2 M ops would take minutes): `audt
    --no-native-io` on cuda and on cpu, equal to each other and to
-   tools/audt_scalar.py, the walk on the card once per batch; `scan` over
+   audt_scalar.py, the walk on the card once per batch; `scan` over
    the whole chromosome on the native path on cuda and on cpu, and on a
    6 Mbp sub-region on the native and the `--no-native-io` path on cuda
    (the Python path fetches each tile), all equal to tools/scan_scalar.py,
@@ -136,7 +136,7 @@ last line:
    more, the plain paths never, no cluster on the scalar route; the lines
    before `, seq:` byte-identical to phase 7's lines of the same records,
    `seq:` equal to the port's scalar graph consensus
-   (`consensus_sequence_poa`, through tools/audt_scalar.py) on 2 sites of
+   (`consensus_sequence_poa`, through audt_scalar.py) on 2 sites of
    each length class, the first 40 sites' lines equal to a `--device cpu`
    run.  Then the long sites: the first 64 sites whose insert passes the
    JAX package's N_CAP 1,024 (its scalar route) and whose every allele
@@ -181,7 +181,7 @@ last line:
    and `band_wide_k2` (the pairs past 527) be above 0, K1 once per batch,
    K3 once per DP batch, the plain paths never, `band_scalar` degenerate
    pairs only and the copy back pinned; K2's CUDA-event time a DP batch;
-   the lines before `, seq:` byte-identical to tools/audt_scalar.py; and
+   the lines before `, seq:` byte-identical to audt_scalar.py; and
    on the first 24 sites, `--device cuda` and `--device cpu` runs whose
    lines equal each other and the 40-site run's, with the same band
    counts;
@@ -199,13 +199,13 @@ last line:
    the route BAM (64 records; windows with a read of 20,000-40,000 CIGAR
    ops, or one of 10-16 candidates): `long_ops` 0 and `dev_ovf` 0, the
    walk and K1 on the card every batch, the lines equal to
-   tools/audt_scalar.py and to a `--device cpu` run;
+   audt_scalar.py and to a `--device cpu` run;
 18. deep routes (run after phase 17): the windows past the first passes'
    widths, on the deep BAM of tools/torch_fixtures.py (64 records, 16 of
    150-400 supporting reads and 8 of 1,100-2,500; a synthetic route
    fixture, not user traffic).  `audt` on the host path, `--extract
    device` and `--no-native-io` (batches of 32 windows), on cuda and on
-   cpu: the lines equal to tools/audt_scalar.py and to each other;
+   cpu: the lines equal to audt_scalar.py and to each other;
    `kovf`, `sweep` and `dev_ovf` 0; `wide_k` above 0 on every path and
    `sweep_full` above 0 on the device walk (the host path's first pass
    holds n <= K = W, so its sweep cannot overflow at the defaults), both
@@ -294,6 +294,9 @@ sys.meta_path.insert(0, _Blocked())
 import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# audt_scalar.py, the independent scalar audt the lines are held to: the
+# benchmark's plain reference, imported from its place in portbench.
+REFERENCE = os.path.join(ROOT, "portbench", "reference")
 # The 5,000-record fixture of tools/bench_e2e.py (10 supporting + 5 noise
 # reads per record, 800 CIGAR ops per read); all-'A' SEQ, which changes
 # only BGZF decode time, never a candidate.
@@ -320,7 +323,7 @@ CHROM_END = 120_000_000
 # first INS_CPU_SITES of them also run on --device cpu (the plain DP takes
 # about 0.1 s a site there; every insert-length class is among them).
 INS_SITES, INS_SEED, INS_CPU_SITES = 2000, 0, 500
-# Sites per insert-length class whose consensus tools/audt_scalar.py
+# Sites per insert-length class whose consensus audt_scalar.py
 # recomputes (its DP is a Python loop over n*(2*band+1) cells).
 SCALAR_SEQ_PER_CLASS = 2
 # K4's checks (N, B, WP, fill, byte offset of the base from a 16-byte
@@ -1056,7 +1059,7 @@ def run_cli(argv, tag: str):
 
 def phase_main_path():
     """The host-extract audt on the card; returns its lines, which equal
-    tools/audt_scalar.py's."""
+    audt_scalar.py's."""
     from audt_scalar import audt_lines
     from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
     from svtrek_tpu_torch.ops.consensus import plain_calls
@@ -1079,7 +1082,7 @@ def phase_main_path():
 
     t0 = time.perf_counter()
     want = audt_lines(bam, vcf)
-    print(f"[main] tools/audt_scalar.py: {len(want)} lines in "
+    print(f"[main] audt_scalar.py: {len(want)} lines in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     if got != want:
         bad = [(a, b) for a, b in zip(want, got) if a != b][:3]
@@ -1115,14 +1118,14 @@ staged_runs: dict[str, dict] = {}
 def staged_spy():
     """While open, sums what the staged fetches of every C reader that
     attaches a batch inflate inflated on the card and with zlib
-    (`NativeBamReader.stage_counters`, whoever reads it; at a reader's
+    (`NativeBamReader.take_counters`, whoever reads it; at a reader's
     close, and at the end, what no one read)."""
     from svtrek_tpu_torch.native.bamlib import NativeBamReader
 
     log = {"card": 0, "zlib": 0, "readers": 0}
     readers = []
     attach, counters, close = (NativeBamReader.stage_inflate,
-                               NativeBamReader.stage_counters,
+                               NativeBamReader.take_counters,
                                NativeBamReader.close)
 
     def attach_spy(self, *a, **k):
@@ -1131,10 +1134,10 @@ def staged_spy():
         log["readers"] += 1
 
     def counters_spy(self):
-        card, by_zlib = counters(self)
-        log["card"] += card
-        log["zlib"] += by_zlib
-        return card, by_zlib
+        c = counters(self)
+        log["card"] += c.card_bytes
+        log["zlib"] += c.zlib_staged_bytes
+        return c
 
     def close_spy(self):
         if self._h and self._stage:
@@ -1142,13 +1145,13 @@ def staged_spy():
         close(self)
 
     NativeBamReader.stage_inflate = attach_spy
-    NativeBamReader.stage_counters = counters_spy
+    NativeBamReader.take_counters = counters_spy
     NativeBamReader.close = close_spy
     try:
         yield log
     finally:
         NativeBamReader.stage_inflate = attach
-        NativeBamReader.stage_counters = counters
+        NativeBamReader.take_counters = counters
         NativeBamReader.close = close
         for r in readers:
             if r._h:
@@ -1244,10 +1247,10 @@ def phase_extract_device(host_lines: list[str]) -> int:
     if got != host_lines:
         bad = [(a, b) for a, b in zip(host_lines, got) if a != b][:3]
         fail(f"--extract device lines differ from the host-extract run "
-             f"(and tools/audt_scalar.py): {len(got)} vs {len(host_lines)} "
+             f"(and audt_scalar.py): {len(got)} vs {len(host_lines)} "
              f"lines; first differences {bad}")
     print(f"[extract] {len(got)} result lines byte-identical to the "
-          f"host-extract run and tools/audt_scalar.py; records/s="
+          f"host-extract run and audt_scalar.py; records/s="
           f"{len(got) / wall:.1f} wall={wall:.3f}s batches={stats['batches']} "
           f"walk_on_cuda={stats['batches']} K1_launches={launches} "
           f"fallbacks kovf={stats['kovf']} sweep={stats['sweep']} "
@@ -1337,9 +1340,9 @@ def phase_python_bam() -> None:
     want = audt_lines(bam, vcf)
     if got != cpu or got != want:
         fail(f"--no-native-io: cuda == cpu {got == cpu}, cuda == "
-             f"tools/audt_scalar.py {got == want}")
+             f"audt_scalar.py {got == want}")
     print(f"[python] audt --no-native-io: {len(got)} lines equal on cuda, "
-          f"on cpu and tools/audt_scalar.py; cuda records/s="
+          f"on cpu and audt_scalar.py; cuda records/s="
           f"{len(got) / wall:.1f} wall={wall:.3f}s (cpu {cpu_wall:.3f}s), "
           f"batches={stats['batches']} walk_on_cuda={stats['batches']} "
           f"K1_launches={launches} fallbacks long_ops={stats['long_ops']} "
@@ -1505,7 +1508,7 @@ def check_star_host(tag: str, stats, spy, dp_calls: int) -> str:
 
 def phase_ins_path():
     """`audt --ins-consensus` on the card: launch counts, the band and
-    copy-back counts, the --device cpu run, and tools/audt_scalar.py."""
+    copy-back counts, the --device cpu run, and audt_scalar.py."""
     from audt_scalar import audt_lines
     from svtrek_tpu_torch.kernels import launch_counts, reset_launch_counts
     from svtrek_tpu_torch.ops import consensus, poa_dp
@@ -1574,13 +1577,13 @@ def phase_ins_path():
     want = audt_lines(bam, vcf, ins_consensus=True, seq_lines=subset)
     if [l.split(", seq:")[0] for l in got] != \
             [l.split(", seq:")[0] for l in want]:
-        fail("the lines before ', seq:' differ from tools/audt_scalar.py")
+        fail("the lines before ', seq:' differ from audt_scalar.py")
     bad = [i for i in subset if got[i] != want[i]]
     if bad:
         fail(f"seq differs from the scalar consensus at sites {bad[:5]}: "
              f"{got[bad[0]][:200]} vs {want[bad[0]][:200]}")
     classes = sorted({sites[i]["class"] for i in subset})
-    print(f"[ins] tools/audt_scalar.py: {len(want)} lines byte-identical "
+    print(f"[ins] audt_scalar.py: {len(want)} lines byte-identical "
           f"before ', seq:'; seq equal on {len(subset)} sites (classes "
           f"{classes}) in {time.perf_counter() - t0:.1f}s", flush=True)
     return launches, got
@@ -1589,8 +1592,9 @@ def phase_ins_path():
 def check_ins_seqs_batch(bam: str, lines: list[str]) -> str:
     """`ins_seqs_batch` on a reader whose batch inflate is the card's, over
     the INS sites of ``lines`` (each refined position, as the consensus
-    fetches it), against the lazy per-site `ins_seqs`: equal site by site
-    and string by string, the card inflating every byte, zlib none."""
+    fetches it), against a lazy call a site on an unstaged reader: equal
+    site by site and string by string, the card inflating every byte, zlib
+    none."""
     from svtrek_tpu_torch.config import AudtConfig
     from svtrek_tpu_torch.constants import SV_MIN_LENGTH
     from svtrek_tpu_torch.kernels import launch_counts
@@ -1605,9 +1609,8 @@ def check_ins_seqs_batch(bam: str, lines: list[str]) -> str:
     los, his = [r - interval for r in refined], [r + interval for r in refined]
     lazy, staged = open_native_reader(bam), open_native_reader(bam)
     staged.stage_inflate("cuda")
-    staged.counters()
     t0 = time.perf_counter()
-    want = [lazy.ins_seqs(0, b, e, SV_MIN_LENGTH, lo, hi)
+    want = [lazy.ins_seqs_batch([0], [b], [e], SV_MIN_LENGTH, [lo], [hi])[0]
             for b, e, lo, hi in zip(begs, ends, los, his)]
     lazy_s = time.perf_counter() - t0
     n0 = launch_counts["bgzf_inflate"]
@@ -1616,18 +1619,19 @@ def check_ins_seqs_batch(bam: str, lines: list[str]) -> str:
                                 SV_MIN_LENGTH, los, his)
     batch_s = time.perf_counter() - t0
     launches = launch_counts["bgzf_inflate"] - n0
-    _, nbytes = staged.counters()
-    card, by_zlib = staged.stage_counters()
+    c = staged.take_counters()
+    nbytes, card, by_zlib = c.inflated_bytes, c.card_bytes, \
+        c.zlib_staged_bytes
     if got != want:
         bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-        fail(f"ins_seqs_batch differs from ins_seqs at site {bad} "
+        fail(f"ins_seqs_batch differs from the lazy one at site {bad} "
              f"(ref pos {refined[bad]}): {len(got[bad])} against "
              f"{len(want[bad])} strings")
     if launches < 1 or by_zlib or card != nbytes or card < 1:
         fail(f"ins_seqs_batch: bgzf_inflate launched {launches} times, "
              f"{card} B on the card, {by_zlib} B by zlib, of {nbytes} B")
     return (f"ins_seqs_batch on the card: {len(refined)} sites, "
-            f"{sum(map(len, got))} strings equal to ins_seqs; "
+            f"{sum(map(len, got))} strings equal to the lazy walk's; "
             f"bgzf_inflate launches={launches}, {card} B on the card, 0 B by "
             f"zlib; {1000 * batch_s / len(refined):.4f} ms a site against "
             f"{1000 * lazy_s / len(refined):.4f} lazy")
@@ -1684,7 +1688,7 @@ def k2_timer():
 def phase_spread_sites():
     """`audt --ins-consensus` on the spread-length sites: K2's wide kernel
     on the main path, its launches and the band counts, K2's time a DP
-    batch, the --device cpu run and tools/audt_scalar.py.  Returns the
+    batch, the --device cpu run and audt_scalar.py.  Returns the
     wide kernel's launches and the K2 times (ms) of the DP batches."""
     import torch
 
@@ -1733,7 +1737,7 @@ def phase_spread_sites():
     if [l.split(", seq:")[0] for l in got] != \
             [l.split(", seq:")[0] for l in want]:
         fail("spread sites: the lines before ', seq:' differ from "
-             "tools/audt_scalar.py")
+             "audt_scalar.py")
 
     argv[4] = sub_vcf(vcf, list(range(SPREAD_CPU_SITES)),
                       f"spread_{SPREAD_CPU_SITES}.vcf")
@@ -1748,7 +1752,7 @@ def phase_spread_sites():
     if [cpu_stats[k] for k in routes] != [sub_stats[k] for k in routes]:
         fail("spread sites: --device cuda and --device cpu count other band "
              "routes")
-    print(f"[spread] tools/audt_scalar.py: {len(got)} lines byte-identical "
+    print(f"[spread] audt_scalar.py: {len(got)} lines byte-identical "
           f"before ', seq:'; the first {len(cpu)} sites: --device cpu "
           f"(wall {cpu_wall:.3f}s) and cuda lines equal to the run's, "
           f"band_wide={cpu_stats['band_wide']} band_wide_k2="
@@ -2358,8 +2362,8 @@ def phase_graph_long(bam: str, vcf: str, sites, ins_lines: list[str]):
     r = int(re.search(r"ref pos: (\d+)", ins_lines[over]).group(1))
     lo, hi = r - AudtConfig().consensus_interval, \
         r + AudtConfig().consensus_interval
-    seqs = open_native_reader(bam).ins_seqs(0, max(lo, 0), hi + 1,
-                                            SV_MIN_LENGTH, lo, hi)
+    seqs = open_native_reader(bam).ins_seqs_batch(
+        [0], [max(lo, 0)], [hi + 1], SV_MIN_LENGTH, [lo], [hi])[0]
     t0 = time.perf_counter()
     want = consensus_sequence_poa(seqs)
     scalar_s = time.perf_counter() - t0
@@ -2996,7 +3000,7 @@ def phase_routes() -> dict:
     tools/disc_scalar.py; the second page timed.  The route BAM on
     `--extract device` and `--no-native-io`: long_ops 0 and dev_ovf 0,
     the walk and K1 on the card every batch, the lines equal to
-    tools/audt_scalar.py and to --device cpu.  Returns the launches and
+    audt_scalar.py and to --device cpu.  Returns the launches and
     rates."""
     import disc_scalar
     from audt_scalar import audt_lines
@@ -3057,9 +3061,9 @@ def phase_routes() -> dict:
                 got != cpu or got != want:
             fail(f"routes {tag}: long_ops={stats['long_ops']} dev_ovf="
                  f"{stats['dev_ovf']}, cuda == cpu {got == cpu}, cuda == "
-                 f"tools/audt_scalar.py {got == want}")
+                 f"audt_scalar.py {got == want}")
         print(f"[routes] audt {' '.join(flags)}: {len(got)} lines equal on "
-              f"cuda, on cpu ({cpu_wall:.3f}s) and tools/audt_scalar.py; "
+              f"cuda, on cpu ({cpu_wall:.3f}s) and audt_scalar.py; "
               f"records/s={len(got) / wall:.1f} wall={wall:.3f}s "
               f"batches={stats['batches']} K1={k1[tag]} long_ops=0 "
               f"dev_ovf=0", flush=True)
@@ -3124,7 +3128,7 @@ def phase_deep_routes() -> dict:
                 counts != (cst["wide_k"], cst["sweep_full"]) or \
                 int(counts[0]) < 1 or \
                 (tag != "host" and int(counts[1]) < 1):
-            fail(f"deep {tag}: cuda == tools/audt_scalar.py {got == want}, "
+            fail(f"deep {tag}: cuda == audt_scalar.py {got == want}, "
                  f"cpu == it {cpu == want}, kovf/sweep/long_ops/dev_ovf "
                  f"{routes}, wide_k/sweep_full cuda {counts} cpu "
                  f"{(cst['wide_k'], cst['sweep_full'])}")
@@ -3136,7 +3140,7 @@ def phase_deep_routes() -> dict:
         out["records_per_s"][tag] = len(got) / wall
         print(f"[deep] audt {' '.join(flags) or 'host extract'}: "
               f"{len(got)} lines equal on cuda, on cpu ({cpu_wall:.3f}s) "
-              f"and tools/audt_scalar.py; records/s={len(got) / wall:.1f} "
+              f"and audt_scalar.py; records/s={len(got) / wall:.1f} "
               f"wall={wall:.3f}s batches={st['batches']} K1={k1} (first "
               f"passes {batches}, second passes {second}) wide_k="
               f"{counts[0]} sweep_full={counts[1]} kovf=0 sweep=0 "
@@ -3348,8 +3352,6 @@ def phase_inflate() -> dict:
     ends = begs + 2000
     lazy, staged = native_bam_reader(fx["bam"]), native_bam_reader(fx["bam"])
     staged.stage_inflate("cuda")
-    lazy.counters()
-    staged.counters()
     kernels.reset_launch_counts()
     for how in ("merged", "plain"):
         got = []
@@ -3363,9 +3365,10 @@ def phase_inflate() -> dict:
             if not np.array_equal(a, b):
                 fail(f"the staged {how} fetch on the card differs from the "
                      f"lazy one")
-    _, lazy_bytes = lazy.counters()
-    _, staged_bytes = staged.counters()
-    card_bytes, missed = staged.stage_counters()
+    lazy_bytes = lazy.take_counters().inflated_bytes
+    c = staged.take_counters()
+    staged_bytes, card_bytes, missed = (c.inflated_bytes, c.card_bytes,
+                                        c.zlib_staged_bytes)
     if missed or card_bytes != staged_bytes or \
             not lazy_bytes <= staged_bytes <= 1.35 * lazy_bytes:
         fail(f"staged fetch: {staged_bytes} B inflated ({card_bytes} on the "
@@ -3399,7 +3402,7 @@ def timed(name: str, fn, *args):
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tools"), REFERENCE]
     import torch
 
     timed("build", phase_build)
@@ -3580,7 +3583,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         # A gloo process of phase 15 (c), started by check_bootstrap.
-        sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
+        sys.path[:0] = [ROOT, os.path.join(ROOT, "tools"), REFERENCE]
         dist_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -25,6 +25,7 @@ import numpy as np
 from .bai import BaiIndex
 from .bgzf import BgzfReader, BgzfWriter
 from ..constants import CIGAR_OPS, CONSUMES_REF
+from ..native.bamlib import ReaderCounters
 
 _SEQ_NIBBLES = "=ACMGRSVTWYHKDBN"
 _NIB = {c: i for i, c in enumerate(_SEQ_NIBBLES)}
@@ -214,6 +215,16 @@ class BamReader:
             if n == name or n == "chr" + name or "chr" + n == name:
                 return i
         return -1
+
+    # The native reader's names for what the pipeline calls on a reader.
+    tid_by_name = tid_of
+
+    def stage_inflate(self, device) -> None:
+        """Nothing to stage: this reader inflates each block as it reads."""
+
+    def take_counters(self) -> ReaderCounters:
+        """This reader counts nothing: all zeros."""
+        return ReaderCounters()
 
     def _read_record(self) -> BamRecord | None:
         size_b = self._bgzf.read(4)

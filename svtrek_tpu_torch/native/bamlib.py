@@ -2,6 +2,8 @@
 from __future__ import annotations
 
 import ctypes as ct
+import dataclasses
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -101,11 +103,6 @@ def load_library():
         ct.POINTER(ct.c_int32), ct.c_int64, ct.c_int64,
         ct.c_int32, ct.c_int32, ct.c_int32,
     ]
-    lib.svbam_ins_seqs.restype = ct.c_int64
-    lib.svbam_ins_seqs.argtypes = [
-        ct.c_void_p, ct.c_int32, ct.c_int64, ct.c_int64,
-        ct.c_int32, ct.c_int64, ct.c_int64,
-    ]
     lib.svbam_ins_seqs_batch.restype = ct.c_int64
     lib.svbam_ins_seqs_batch.argtypes = [
         ct.c_void_p, ct.c_int32, ct.POINTER(ct.c_int32),
@@ -113,24 +110,45 @@ def load_library():
         ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
         ct.POINTER(ct.c_int64),
     ]
-    lib.svbam_counters.restype = None
-    lib.svbam_counters.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int64)]
+    lib.svbam_take_counters.restype = None
+    lib.svbam_take_counters.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int64)]
     lib.svbam_stage_attach.restype = ct.c_int32
     lib.svbam_stage_attach.argtypes = [
         ct.c_void_p, _INFLATE_FN, ct.c_int32, ct.c_void_p, ct.c_int64,
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int32,
     ]
-    lib.svbam_walk_counters.restype = None
-    lib.svbam_walk_counters.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int64)]
-    lib.svbam_stage_counters.restype = None
-    lib.svbam_stage_counters.argtypes = [ct.c_void_p,
-                                         ct.POINTER(ct.c_int64)]
     lib.svbam_ins_buf.restype = ct.POINTER(ct.c_char)
     lib.svbam_ins_buf.argtypes = [ct.c_void_p]
     lib.svbam_ins_off.restype = ct.POINTER(ct.c_int64)
     lib.svbam_ins_off.argtypes = [ct.c_void_p]
     _LIB = lib
     return lib
+
+
+@dataclass(frozen=True)
+class ReaderCounters:
+    """What a reader did since its open or its last `take_counters()`;
+    counters of several readers or calls add up with ``+``."""
+
+    inflate_ns: int = 0     # obtaining inflated blocks: zlib's time on a
+                            # block, and the time around each staged
+                            # slice's batch inflate (copies, kernel, wait)
+    inflated_bytes: int = 0  # the bytes they made (a block served from the
+                             # handle's cache or skipped unread counts none)
+    card_bytes: int = 0     # of those, the card's batch inflates'
+    zlib_staged_bytes: int = 0  # of those, zlib's during staged fetches:
+                                # blocks the stage left out
+    walk_ops: int = 0       # CIGAR ops of the reads `extract_batch` handed
+                            # its windows' walks, a read once a window
+    walked_bytes: int = 0   # bytes of the staged fetches' records the walk
+                            # read: length, fixed fields, name, CIGAR
+
+    def __add__(self, other: "ReaderCounters") -> "ReaderCounters":
+        return ReaderCounters(*(a + b for a, b in zip(
+            dataclasses.astuple(self), dataclasses.astuple(other))))
+
+
+_N_COUNTERS = len(dataclasses.fields(ReaderCounters))
 
 
 class NativeBamError(IOError):
@@ -242,34 +260,13 @@ class NativeBamReader:
         self._stage = (raised, fn, h_in, h_out, h_meta, h_status,
                        *((d_in, d_out, d_meta, d_status) if card else ()))
 
-    def stage_counters(self) -> tuple[int, int]:
-        """(bytes the card inflated for staged fetches, bytes zlib inflated
-        during them: blocks the stage left out) on this handle since the
-        last call, which zeroes them."""
-        out = np.zeros(2, np.int64)
-        self._lib.svbam_stage_counters(
+    def take_counters(self) -> ReaderCounters:
+        """This handle's counters since its open (which reads the header)
+        or the last call, which zeroes them all."""
+        out = np.zeros(_N_COUNTERS, np.int64)
+        self._lib.svbam_take_counters(
             self._h, out.ctypes.data_as(ct.POINTER(ct.c_int64)))
-        return int(out[0]), int(out[1])
-
-    def walk_counters(self) -> tuple[int, int]:
-        """(CIGAR ops of the reads `extract_batch` handed its windows'
-        walks, a read once for each window it falls in; bytes the walk of
-        the staged fetches read: each record's length, fixed fields, name
-        and CIGAR) on this handle since the last call, which zeroes them."""
-        out = np.zeros(2, np.int64)
-        self._lib.svbam_walk_counters(
-            self._h, out.ctypes.data_as(ct.POINTER(ct.c_int64)))
-        return int(out[0]), int(out[1])
-
-    def counters(self) -> tuple[int, int]:
-        """(ns obtaining inflated blocks, bytes inflated) on this handle
-        since the last call, which zeroes them: zlib's time on a block, and
-        the time around each staged slice's batch inflate; a block served
-        from the handle's cache or skipped unread counts nothing."""
-        out = np.zeros(2, np.int64)
-        self._lib.svbam_counters(self._h,
-                                 out.ctypes.data_as(ct.POINTER(ct.c_int64)))
-        return int(out[0]), int(out[1])
+        return ReaderCounters(*out.tolist())
 
     def ref_name(self, tid: int) -> str:
         """Reference name for a tid (BAM header)."""
@@ -298,31 +295,17 @@ class NativeBamReader:
         lens = np.ctypeslib.as_array(self._lib.svbam_oplens(self._h), (total,)).copy()
         return pos, nops, opoff, ops, lens
 
-    def ins_seqs(self, tid: int, beg: int, end: int, min_len: int,
-                 lo: int, hi: int) -> list[str]:
-        """Inserted-base strings: for every read overlapping
-        [beg, end) with an I op >= min_len whose refine_ins-convention
-        reference position lies in [lo, hi], the decoded SEQ substring
-        of that op (the payload the prefix-parse fetch path skips).
-        One string per qualifying I op, file order."""
-        n = self._lib.svbam_ins_seqs(self._h, tid, beg, end,
-                                     min_len, lo, hi)
-        if n < 0:
-            self._raise_error()
-        if n == 0:
-            return []
-        off = np.ctypeslib.as_array(self._lib.svbam_ins_off(self._h),
-                                    (n + 1,))
-        buf = ct.string_at(self._lib.svbam_ins_buf(self._h), int(off[n]))
-        return [buf[off[i]:off[i + 1]].decode() for i in range(n)]
-
     def ins_seqs_batch(self, tids, begs, ends, min_len: int, los,
                        his) -> list[list[str]]:
-        """`ins_seqs` of many sites in one library call: site i's strings,
-        as ``ins_seqs(tids[i], begs[i], ends[i], min_len, los[i],
-        his[i])`` returns them, in list i (empty where tids[i] < 0).  With
-        a batch inflate attached (`stage_inflate`) the sites' blocks are
-        inflated by it a slice at a time before their walk."""
+        """Inserted-base strings of many sites in one library call: in
+        list i, for every read overlapping [begs[i], ends[i]) on tids[i]
+        with an I op >= min_len whose refine_ins-convention reference
+        position lies in [los[i], his[i]], the decoded SEQ substring of
+        that op (the payload the prefix-parse fetch path skips), one
+        string per such op in file order; empty where tids[i] < 0.  With a
+        batch inflate attached (`stage_inflate`) the sites' blocks are
+        inflated by it a slice at a time before their walk; without, each
+        site is read lazily."""
         n = len(tids)
         tids = np.ascontiguousarray(tids, np.int32)
         begs, ends, los, his = (np.ascontiguousarray(a, np.int64)

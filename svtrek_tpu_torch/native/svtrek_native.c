@@ -88,8 +88,8 @@ typedef struct {
     uint32_t tick;
     int64_t coffset;       /* cursor: compressed offset of current block */
     int upos;              /* cursor within the current block */
-    int64_t inflate_ns;    /* counters since the last svbam_counters: */
-    int64_t inflate_bytes; /* time in bgzf_inflate_block, bytes it made */
+    int64_t inflate_ns;    /* counters (svbam_take_counters): the time */
+    int64_t inflate_bytes; /* in bgzf_inflate_block and the bytes it made */
     int64_t miss_bytes;    /* of those, inflated during a staged fetch */
     bgzf_blk_t *st;        /* staged store [STAGE_MAX_BLOCKS]; NULL = none */
     int32_t *st_hash;      /* [STAGE_HASH] indices into st, -1 = empty */
@@ -634,12 +634,11 @@ struct stager {
                                 handle's while a miss stages */
     size_t first, full, walking, sj;
     int64_t resume, need;
-    /* counters: ns around batch inflates and the bytes they made (both
-     * also in svbam_counters), those of them made on the card, and the
-     * bytes zlib inflated during staged fetches (bgzf_t.miss_bytes) */
+    /* counters (svbam_take_counters): ns around batch inflates, the bytes
+     * they made and those of them made on the card; the bytes the walk
+     * reads during staged fetches: each record's length, fixed fields,
+     * name and CIGAR */
     int64_t ns, bytes, card_bytes;
-    /* the bytes the walk reads during staged fetches: each record's
-     * length, fixed fields, name and CIGAR (svbam_walk_counters) */
     int64_t walked_bytes;
 };
 
@@ -668,7 +667,7 @@ typedef struct svbam {
     vec_t chunkvec; /* chunk_t scratch (per-fetch, reused) */
     /* reference names (BAM header), for name-based tid lookup */
     char **ref_names;
-    /* svbam_ins_seqs output: concatenated inserted-base chars +
+    /* svbam_ins_seqs_batch output: concatenated inserted-base chars +
      * per-insert offsets (n+1) */
     vec_t insbuf;
     vec_t insoff;
@@ -679,7 +678,7 @@ typedef struct svbam {
     vec_t wide_off;
     vec_t wide_val;
     /* the CIGAR ops of the reads svbam_extract_batch hands each window's
-     * walk, since the last svbam_walk_counters */
+     * walk (svbam_take_counters) */
     int64_t walk_ops;
     /* sticky decode-error detail; "" = no error.  A corrupt/truncated
        BAM must FAIL the fetch, never silently return partial results
@@ -722,6 +721,7 @@ void *svbam_open(const char *path) {
         b->ref_names[i] = strdup(name);
     }
     b->data_voffset = bgzf_tell(&b->z);
+    b->z.inflate_ns = b->z.inflate_bytes = 0;  /* the counters start here */
 
     /* htslib's sam_index_load tries .bai then .csi; mirror that. */
     char ipath[4096];
@@ -808,15 +808,27 @@ int32_t svbam_tid(void *h, const char *name) {
 
 const char *svbam_error(void *h) { return ((svbam_t *)h)->errmsg; }
 
-/* The handle's inflate counters since the last call, which zeroes them:
+/* The handle's counters since its open or the last call, which zeroes
+ * them all (bamlib.ReaderCounters' fields, in order):
  * out[0] ns inside bgzf_inflate_block and around the staged slices' batch
  * inflates, out[1] the bytes both produced (cache hits and skipped blocks
- * inflate nothing). */
-void svbam_counters(void *h, int64_t *out) {
+ * inflate nothing), out[2] those of them the card made, out[3] those zlib
+ * inflated during staged fetches (blocks the stage left out), out[4] the
+ * CIGAR ops of the reads svbam_extract_batch handed its windows' walks (a
+ * read once for each window it falls in; the walk stops at the op that
+ * passes the window's end), out[5] the bytes the walk of the staged
+ * fetches read (each record's length, fixed fields, name and CIGAR). */
+void svbam_take_counters(void *h, int64_t *out) {
     svbam_t *b = h;
     out[0] = b->z.inflate_ns + b->sg.ns;
     out[1] = b->z.inflate_bytes + b->sg.bytes;
-    b->z.inflate_ns = b->z.inflate_bytes = b->sg.ns = b->sg.bytes = 0;
+    out[2] = b->sg.card_bytes;
+    out[3] = b->z.miss_bytes;
+    out[4] = b->walk_ops;
+    out[5] = b->sg.walked_bytes;
+    b->z.inflate_ns = b->z.inflate_bytes = b->z.miss_bytes = 0;
+    b->sg.ns = b->sg.bytes = b->sg.card_bytes = b->sg.walked_bytes = 0;
+    b->walk_ops = 0;
 }
 
 /* Fetch one region; returns #reads, or -1 with b->errmsg set on any
@@ -1284,28 +1296,6 @@ int32_t svbam_stage_attach(void *h, svbam_inflate_fn fn, int32_t on_card,
     sg->status = status;
     sg->max_blk = max_blk;
     return 0;
-}
-
-/* out[0] the bytes batch inflates made on the card, out[1] those zlib
- * inflated during staged fetches (blocks the stage left out), since the
- * last call, which zeroes them. */
-void svbam_stage_counters(void *h, int64_t *out) {
-    svbam_t *b = h;
-    out[0] = b->sg.card_bytes;
-    out[1] = b->z.miss_bytes;
-    b->sg.card_bytes = b->z.miss_bytes = 0;
-}
-
-/* out[0] the CIGAR ops of the reads svbam_extract_batch handed its
- * windows' walks (a read counts once for each window it falls in; the
- * walk stops at the op that passes the window's end), out[1] the bytes the
- * walk of the staged fetches read (each record's length, fixed fields,
- * name and CIGAR), since the last call, which zeroes them. */
-void svbam_walk_counters(void *h, int64_t *out) {
-    svbam_t *b = h;
-    out[0] = b->walk_ops;
-    out[1] = b->sg.walked_bytes;
-    b->walk_ops = b->sg.walked_bytes = 0;
 }
 
 int64_t svbam_fetch(void *h, int32_t tid, int64_t beg, int64_t end) {
@@ -2269,21 +2259,10 @@ static int ins_walk(svbam_t *b, int32_t tid, int64_t beg, int64_t end,
     return 0;
 }
 
-/* The inserts of one site, read lazily: its strings in file order in
- * insbuf/insoff (svbam_ins_buf, svbam_ins_off); their number, or -1. */
-int64_t svbam_ins_seqs(void *h, int32_t tid, int64_t beg, int64_t end,
-                       int32_t min_len, int64_t lo, int64_t hi) {
-    svbam_t *b = h;
-    b->insbuf.len = b->insoff.len = 0;
-    b->errmsg[0] = 0;
-    *(int64_t *)vec_push(&b->insoff, 1) = 0;
-    if (ins_walk(b, tid, beg, end, min_len, lo, hi) < 0) return -1;
-    return (int64_t)(b->insoff.len - 1);
-}
-
 /* The inserts of n sites in one call: the sites' regions are staged and
  * inflated a slice at a time through the attached batch inflate (where
- * one is attached), then each is walked as svbam_ins_seqs walks it.  Site
+ * one is attached; else each site is read lazily), then each is walked by
+ * ins_walk, its strings in file order.  Site
  * i's strings follow site i - 1's in insbuf/insoff, site_counts[i] of
  * them; a site with tids[i] < 0 has none.  Returns their total, or -1. */
 int64_t svbam_ins_seqs_batch(void *h, int32_t n, const int32_t *tids,

@@ -1,11 +1,15 @@
 """`audt` mode pipeline: VCF + BAM → refined breakpoint records, with the
 device step in PyTorch.
 
-Port of svtrek_tpu/pipeline/audit.py.  A pool of producer
-threads fetches and packs each chunk of windows, each thread with its own
-BAM reader; this thread sends each batch to the device (`ops.audit_step`),
-keeps a few in flight, and emits result lines in input order as records
-complete.  The producers take one of the JAX pipeline's three branches:
+Port of svtrek_tpu/pipeline/audit.py.  A pool of producer threads
+(`pool.reader_map`) fetches and packs each chunk of windows, each thread
+with its own BAM reader; this thread sends each batch to the device
+(`ops.audit_step`), keeps a few in flight, and emits result lines in input
+order as records complete.  `open_reader` opens every reader of a run: the
+pool's, staged on the run's device, and this thread's own, which resolves
+CHROM names, re-reads a window the host refines and, staged at the first
+flush with sites, fetches the --ins-consensus SEQ.  The producers take one
+of the JAX pipeline's three branches:
 
 - host extract (`extract` auto or host, the default): the native C reader
   fetches the chunk and runs the CIGAR evidence walk, and the device gets
@@ -58,14 +62,12 @@ devices.  A native library that does not build is an error
 from __future__ import annotations
 
 import functools
-import itertools
 import os
 import queue
 import sys
 import threading
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -93,13 +95,13 @@ from ..parallel.mesh import (
     run_mesh, sharded_audit_step, sharded_audit_step_csr,
     sharded_consensus_step,
 )
-from ..refusals import raise_refused
 from ..tracing import span
 from . import pack
 from .pack import (
     INT64_MIN, PackedBatch, PackedCandBatch, as_read_list, pack_chunk,
     pack_chunk_cand, pack_chunk_native, window_tid, windows_for_task,
 )
+from .pool import PoolStats, reader_map
 
 NA32 = 0xFFFFFFFF
 
@@ -121,19 +123,17 @@ def open_native_reader(path: str):
             f"opened); --no-native-io runs the Python BAM reader") from e
 
 
-def open_reader(cfg):
-    """The run's BAM reader: the native C reader, or with --no-native-io
-    (``cfg.use_native_io`` false) the Python `io.bam.BamReader`."""
-    if cfg.use_native_io:
-        return open_native_reader(cfg.bam_file)
-    return BamReader(cfg.bam_file)
-
-
-def reader_tid(reader, name: str) -> int:
-    """tid of a reference name on either reader (chr-prefix tolerant)."""
-    if hasattr(reader, "tid_by_name"):
-        return reader.tid_by_name(name)
-    return reader.tid_of(name)
+def open_reader(cfg, device: torch.device | None = None):
+    """A BAM reader of the run: the native C reader, or with
+    --no-native-io (``cfg.use_native_io`` false) the Python
+    `io.bam.BamReader`, which has the methods the pipeline calls on the
+    native one.  With ``device``, the reader's batch fetches inflate their
+    blocks on it (`stage_inflate`; the Python reader stages nothing)."""
+    reader = (open_native_reader(cfg.bam_file) if cfg.use_native_io
+              else BamReader(cfg.bam_file))
+    if device is not None:
+        reader.stage_inflate(device)
+    return reader
 
 
 def python_fetch(reader: BamReader):
@@ -438,14 +438,15 @@ def _mesh_of(first):
 
 
 def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
-                       cfg: AudtConfig,
-                       stats: AuditStats | None = None) -> list:
+                       cfg: AudtConfig, stats: AuditStats | None = None,
+                       reader=None) -> list:
     """Copy one batch's results to the host, run the second pass of the
     rows whose sweep overflowed (on the batch's device) and read the
     windows past K, and take the C extractor's values past WIDE_MAX_K.
-    Returns (window, refined) pairs."""
+    ``reader`` (the caller's own) re-reads a device-walk window that the
+    host refines.  Returns (window, refined) pairs."""
     if isinstance(packed, PackedBatch):
-        return _collect_walk(packed, dev, cfg, stats)
+        return _collect_walk(packed, dev, cfg, stats, reader)
     if dev is None:
         return []
     first, wide = dev
@@ -491,7 +492,7 @@ def collect_refinement(packed: PackedCandBatch | PackedBatch, dev,
 
 
 def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
-                  stats: AuditStats | None) -> list:
+                  stats: AuditStats | None, reader) -> list:
     """collect_refinement of a device-walk batch: the windows that
     overflowed on the device (K or the sweep) take the second pass on
     the batch's device, regrouped from the walk its step kept; past
@@ -528,7 +529,7 @@ def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
                 stats.oracle_windows += 1
                 stats.fallback_device += 1
             value[i] = _refine_on_host(
-                w, as_read_list(packed.reads_per_window[i]), cfg)
+                w, as_read_list(packed.reads_per_window[i], reader), cfg)
         elif overflow[slot] and stats:
             if counts[slot] > K:
                 stats.wide_k += 1
@@ -540,10 +541,10 @@ def _collect_walk(packed: PackedBatch, dev, cfg: AudtConfig,
 
 def _ins_seqs_py(reader: BamReader, tid: int, beg: int, end: int,
                  min_len: int, lo: int, hi: int) -> list[str]:
-    """The Python reader's analog of the native svbam_ins_seqs: decoded SEQ
-    substrings of I ops >= min_len whose refine_ins-convention reference
-    position (it advances on every op but I and S, the
-    refinement.c:137-139 quirk) lies in [lo, hi]."""
+    """The Python reader's analog of one site of the native
+    `ins_seqs_batch`: decoded SEQ substrings of I ops >= min_len whose
+    refine_ins-convention reference position (it advances on every op but
+    I and S, the refinement.c:137-139 quirk) lies in [lo, hi]."""
     out: list[str] = []
     for rec in reader.fetch(tid, beg, end):
         if rec.seq == "*":
@@ -572,10 +573,9 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     ``device`` covers all records, of the star engine or, with
     ``cfg.poa_engine == "graph"``, the graph engine.  res.seq = "" when
     there is no consensus (printed NA).  The SEQ fetch is timed into
-    stats.cons_seq_s, the native reader's inflate counters go to
-    cons_inflate_s, cons_inflated_bytes and cons_card_bytes, the star
-    engine's voting and DP into cons_vote_s and cons_dp_s (the graph engine
-    times neither)."""
+    stats.cons_seq_s, the reader's inflate counters go to cons_inflate_s,
+    cons_inflated_bytes and cons_card_bytes, the star engine's voting and
+    DP into cons_vote_s and cons_dp_s (the graph engine times neither)."""
     consensus_batch = consensus_sequence_poa_batch \
         if cfg.poa_engine == "graph" else consensus_sequence_batch
     t0 = time.perf_counter()
@@ -586,21 +586,21 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     ends = [r + interval + 1 for r in refined]
     los = [r - interval for r in refined]
     his = [r + interval for r in refined]
+    reader.take_counters()  # what the reader read before is not the SEQ's
     with span(stats, "cons_seq_s", "svtrek.cons.seq",
               flush=stats.cons_flushes):
-        if hasattr(reader, "ins_seqs_batch"):
+        if cfg.use_native_io:
             seq_lists = reader.ins_seqs_batch(tids, begs, ends,
                                               C.SV_MIN_LENGTH, los, his)
-            ns, nbytes = reader.counters()
-            card_bytes, _ = reader.stage_counters()
-            stats.cons_inflate_s += ns / 1e9
-            stats.cons_inflated_bytes += nbytes
-            stats.cons_card_bytes += card_bytes
         else:
             seq_lists = [
                 _ins_seqs_py(reader, *site[:3], C.SV_MIN_LENGTH, *site[3:])
                 if site[0] >= 0 else []
                 for site in zip(tids, begs, ends, los, his)]
+        seq = reader.take_counters()
+    stats.cons_inflate_s += seq.inflate_ns / 1e9
+    stats.cons_inflated_bytes += seq.inflated_bytes
+    stats.cons_card_bytes += seq.card_bytes
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
               "band_scalar": 0, "band_wide_k2": 0, "vote_s": 0.0,
               "dp_s": 0.0}
@@ -672,37 +672,33 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     written to ``out`` and cfg.output_file); ``collect_lines=False`` keeps
     memory flat on whole-genome runs.
 
-    Raises Unsupported for options the port does not run,
-    device.DeviceUnavailable when the card is asked for and absent, and
-    NativeReaderUnavailable when the native reader is asked for (the
-    default) and does not build or load."""
+    Raises device.DeviceUnavailable when the card is asked for and
+    absent, and NativeReaderUnavailable when the native reader is asked
+    for (the default) and does not build or load."""
     out = out or sys.stdout
     err = err or sys.stderr
-    raise_refused(cfg)
     device = resolve_device(cfg.device)
     n_shards = resolve_data_shards(cfg, device, err)
     stats = AuditStats(device=str(device), data_shards=n_shards)
     t_start = time.perf_counter()
 
-    # Fail fast (bad BAM path, no native library) before the pool starts.
-    # With --chrom-by-name this reader also resolves CHROM names against
-    # the BAM header (the extension over the reference's tid = chrom-1).
-    probe = open_reader(cfg)
+    # This thread's own reader, opened first to fail fast (bad BAM path,
+    # no native library) before the pool starts.  With --chrom-by-name it
+    # also resolves CHROM names against the BAM header (the extension over
+    # the reference's tid = chrom-1) for the producer: the header alone,
+    # no BGZF cursor.  It re-reads the windows the host refines and, staged
+    # on the run's device at the first flush with sites, fetches the
+    # --ins-consensus SEQ.
+    reader = open_reader(cfg)
+    staged = False
     tid_cache: dict[str, int] = {}
 
     def tid_by_name(name: str) -> int:
         if name not in tid_cache:
-            tid_cache[name] = reader_tid(probe, name)
+            tid_cache[name] = reader.tid_by_name(name)
         return tid_cache[name]
 
     print("[INFO] Started processing variation file.", file=out)
-
-    # --ins-consensus: a dedicated main-thread reader for SEQ extraction
-    # (the probe reader serves the producer's tid lookups, and BGZF cursor
-    # state is not thread-safe).  The native one inflates each flush's
-    # blocks on the run's device, attached at the first flush with sites.
-    cons_reader = open_reader(cfg) if cfg.ins_consensus else None
-    cons_staged = False
 
     num_shards = cfg.num_shards or 1
     shard_index = cfg.shard_index
@@ -794,12 +790,9 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             )
             raise SystemExit(1)
 
-    # Bounded batch queue: cfg.thread_number fetch+pack workers, each with
-    # a private BAM handle (BGZF seek state and the native fetch buffers
-    # are not shareable), feed packed batches in order to this thread.
-    # The C fetch and extract release the GIL, so the workers overlap each
-    # other and the device.  The branch is the JAX pipeline's
-    # (svtrek_tpu/pipeline/audit.py:642-662).
+    # Bounded batch queue: the pool's cfg.thread_number fetch+pack workers
+    # feed packed batches in order to this thread.  The branch is the JAX
+    # pipeline's (svtrek_tpu/pipeline/audit.py:642-662).
     q: queue.Queue = queue.Queue(maxsize=max(2, cfg.tload_factor))
     stats_lock = threading.Lock()
 
@@ -822,49 +815,15 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
         prof.__enter__()
 
     def producer():
-        tls = threading.local()
-        last_end: dict[int, float] = {}  # each worker's last chunk's end
-
-        def work(index, chunk):
-            if not hasattr(tls, "reader"):
-                tls.reader = open_reader(cfg)
-                # the C reader's inflate counters (the Python reader has
-                # none), zeroed of the header's; its batch fetches inflate
-                # their blocks on the run's device
-                tls.counters = getattr(tls.reader, "counters",
-                                       lambda: (0, 0))
-                tls.card_counters = getattr(tls.reader, "stage_counters",
-                                            lambda: (0, 0))
-                tls.walk_counters = getattr(tls.reader, "walk_counters",
-                                            lambda: (0, 0))
-                tls.counters()
-                if cfg.use_native_io:
-                    tls.reader.stage_inflate(device)
+        def work(item, rd):
+            index, chunk = item
             spans = functools.partial(span, stats, lock=stats_lock,
                                       batch=index)
-            t0 = time.perf_counter()
             if not cfg.use_native_io:
-                pb = pack_chunk(chunk, python_fetch(tls.reader), cfg,
-                                n_shards)
-            elif cfg.extract == "device":
-                pb = pack_chunk_native(chunk, tls.reader, cfg, n_shards,
-                                       spans)
-            else:
-                pb = pack_chunk_cand(chunk, tls.reader, cfg, n_shards,
-                                     spans)
-            t1 = time.perf_counter()
-            ns, nbytes = tls.counters()
-            card_bytes, _ = tls.card_counters()
-            ops, walked = tls.walk_counters()
-            with stats_lock:
-                stats.pack_s += t1 - t0  # aggregate worker-seconds
-                stats.inflate_s += ns / 1e9
-                stats.inflated_bytes += nbytes
-                stats.card_inflated_bytes += card_bytes
-                stats.walk_ops += ops
-                stats.walked_bytes += walked
-                last_end[threading.get_ident()] = t1
-            return pb
+                return pack_chunk(chunk, python_fetch(rd), cfg, n_shards)
+            if cfg.extract == "device":
+                return pack_chunk_native(chunk, rd, cfg, n_shards, spans)
+            return pack_chunk_cand(chunk, rd, cfg, n_shards, spans)
 
         bw = cfg.batch_windows
 
@@ -878,30 +837,26 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
             if chunk:
                 yield chunk
 
-        chunks = enumerate(chunk_stream())
         n_workers = stats.workers = max(1, cfg.thread_number)
+        pool = PoolStats()
         try:
-            with ThreadPoolExecutor(
-                n_workers, thread_name_prefix="svtrek-pack"
-            ) as ex:
-                pending = deque(
-                    ex.submit(work, *c)
-                    for c in itertools.islice(chunks, n_workers + 2)
-                )
-                while pending:
-                    pb = pending.popleft().result()
-                    nxt = next(chunks, None)
-                    if nxt is not None:
-                        pending.append(ex.submit(work, *nxt))
-                    # blocks when full → bounds work in flight
-                    with span(stats, "put_wait_s"):
-                        q.put(pb)
+            for pb in reader_map(work, enumerate(chunk_stream()), n_workers,
+                                 lambda: open_reader(cfg, device),
+                                 stats=pool):
+                # blocks when full → bounds work in flight
+                with span(stats, "put_wait_s"):
+                    q.put(pb)
         except BaseException as e:  # surfaced in the consumer loop
             q.put(e)
             return
-        if last_end:
-            end = max(last_end.values())
-            stats.pool_tail_s = sum(end - t for t in last_end.values())
+        c = pool.counters
+        stats.pack_s = pool.busy_s  # aggregate worker-seconds
+        stats.pool_tail_s = pool.tail_s
+        stats.inflate_s = c.inflate_ns / 1e9
+        stats.inflated_bytes = c.inflated_bytes
+        stats.card_inflated_bytes = c.card_bytes
+        stats.walk_ops = c.walk_ops
+        stats.walked_bytes = c.walked_bytes
         with span(stats, "put_wait_s"):
             q.put(None)
 
@@ -941,21 +896,19 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
                 file_out.write(line + "\n")
 
     def flush_frontier(batch: int):
-        nonlocal cons_staged
+        nonlocal staged
         t0 = time.perf_counter()
         while pending_records and pending_records[0].remaining == 0:
             if needs_cons(pending_records[0]):
-                if not cons_staged and cfg.use_native_io:
-                    cons_reader.stage_inflate(device)
-                    cons_reader.counters()  # zeroed of the header's
-                    cons_reader.stage_counters()
-                    cons_staged = True
+                if not staged:
+                    reader.stage_inflate(device)
+                    staged = True
                 # Resolve every completed-but-unemitted INS site in one
                 # batched POA call: one per collected device batch.
                 _resolve_ins_consensus(
                     [r for r in pending_records
                      if r.remaining == 0 and needs_cons(r)],
-                    cons_reader, cfg, device, stats)
+                    reader, cfg, device, stats)
             with span(stats, "write_s", "svtrek.write", batch=batch):
                 emit_ready()
         stats.emit_s += time.perf_counter() - t0
@@ -979,7 +932,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
     def collect():
         index, packed, dev = in_flight.popleft()
-        apply(collect_refinement(packed, dev, cfg, stats), index)
+        apply(collect_refinement(packed, dev, cfg, stats, reader), index)
 
     try:
         while True:
@@ -1019,8 +972,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
     # Final frontier flush: everything is applied, so all zero-window
     # records (and any tail) drain here.
     flush_frontier(stats.batches)
-    if cons_reader is not None:
-        cons_reader.close()  # its stage buffers, before the next run's
+    reader.close()  # its stage buffers, before the next run's
     if file_out is not None:
         file_out.close()
     if pending_records:

@@ -49,7 +49,7 @@ from ..ops.poa_graph_batch import consensus_sequence_poa_batch
 from ..parallel.mesh import (
     ShardedOutput, make_global_array, run_mesh, sharded_disc_step,
 )
-from ..refusals import Unsupported, raise_refused
+from ..refusals import Unsupported
 from .audit import resolve_data_shards
 
 _TYPE_NAME = {BP_INS: "INS", BP_DEL: "DEL", BP_CLIP: "CLIP"}
@@ -511,11 +511,10 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     (data_shards); nothing is printed for
     them.
 
-    Raises Unsupported for what the port does not run, and
+    Raises Unsupported where the native GAF reader does not load, and
     device.DeviceUnavailable when the card is asked for and absent."""
     out = out or sys.stdout
     err = err or sys.stderr
-    raise_refused(cfg)
     if not isinstance(device, torch.device):
         device = resolve_device(device)
     t_start = time.perf_counter()

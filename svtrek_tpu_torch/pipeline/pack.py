@@ -40,7 +40,6 @@ to its global result slot.
 from __future__ import annotations
 
 import functools
-import threading
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
@@ -160,15 +159,14 @@ def as_packed(reads) -> PackedReads:
     return PackedReads.from_list(reads)
 
 
-def as_read_list(reads):
-    """Normalize to the oracle-fallback list form."""
-    if isinstance(reads, (PackedReads, LazyWindowReads)):
+def as_read_list(reads, reader=None):
+    """Normalize to the oracle-fallback list form; ``reader`` re-reads a
+    `LazyWindowReads`."""
+    if isinstance(reads, LazyWindowReads):
+        return reads.to_list(reader)
+    if isinstance(reads, PackedReads):
         return reads.to_list()
     return reads
-
-
-_FALLBACK_READERS: dict = {}
-_FALLBACK_LOCK = threading.Lock()
 
 
 class LazyWindowReads:
@@ -176,29 +174,21 @@ class LazyWindowReads:
 
     `pack_chunk_native` leaves the fetched reads in the native reader's
     reusable buffers; the rare window that overflows K or the consensus
-    sweep re-queries its region instead, through one cached native reader
-    per BAM path (the path had one: it packed the batch)."""
+    sweep re-queries its region instead, through the native reader its
+    caller holds."""
 
-    __slots__ = ("bam_path", "tid", "beg", "end")
+    __slots__ = ("tid", "beg", "end")
 
-    def __init__(self, bam_path: str, tid: int, beg: int, end: int):
-        self.bam_path = bam_path
+    def __init__(self, tid: int, beg: int, end: int):
         self.tid = tid
         self.beg = beg
         self.end = end
 
-    def to_list(self):
+    def to_list(self, reader):
         if self.tid < 0:
             return []
-        with _FALLBACK_LOCK:
-            reader = _FALLBACK_READERS.get(self.bam_path)
-            if reader is None:
-                from ..native import native_bam_reader
-
-                reader = native_bam_reader(self.bam_path)
-                _FALLBACK_READERS[self.bam_path] = reader
-            return PackedReads(
-                *reader.fetch_packed(self.tid, self.beg, self.end)).to_list()
+        return PackedReads(
+            *reader.fetch_packed(self.tid, self.beg, self.end)).to_list()
 
 
 @dataclass
@@ -393,7 +383,7 @@ def pack_chunk_native(window_chunk: Sequence[WindowSpec], reader,
         total, counts = reader.fetch_batch(tids, begs, ends)
     # Overflow-fallback evidence is re-fetched lazily (rare).
     reads_per_window = [
-        LazyWindowReads(reader.path, int(tids[i]), int(begs[i]), int(ends[i]))
+        LazyWindowReads(int(tids[i]), int(begs[i]), int(ends[i]))
         for i in range(n_win)
     ]
     return _csr_batch(window_chunk, reader.batch_flat_n(total), counts, cfg,

@@ -8,8 +8,8 @@ reads are those of the reference's region fetch (tid = chrom-1, 1-based
 bounds, sliding_window.c:27).  Two paths, as in the JAX package:
 
 - native (the default): one C merged fetch and one C `extract_batch` per
-  chunk of ``batch_windows`` tiles on a pool of ``thread_number`` workers,
-  each with its own reader; the strided cluster scan
+  chunk of ``batch_windows`` tiles on the reader pool of audt's producer
+  (`pool.reader_map`, ``thread_number`` workers); the strided cluster scan
   (`ops.window_scan.window_scan_batch`) runs on the device with up to 3
   chunks in flight;
 - `--no-native-io`: the Python reader fetches each tile, and the device
@@ -28,12 +28,10 @@ route, stays 0.  Output mirrors the reference's per-window print
 """
 from __future__ import annotations
 
-import itertools
+import contextlib
 import sys
-import threading
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,8 +44,9 @@ from ..ops.audit_step import to_device
 from ..ops.cigar import group_walk, walk_runs
 from ..ops.window_scan import window_scan_batch
 from . import pack
-from .audit import open_native_reader, open_reader, python_fetch, reader_tid
+from .audit import open_reader, python_fetch
 from .pack import as_packed, csr_rows
+from .pool import reader_map
 
 # The side CSR of the C extractor takes every tile past K on the scan.
 _ALL_WIDE = 0x7FFFFFFF
@@ -70,7 +69,7 @@ def resolve_scan_tid(cfg: ScanConfig, reader=None) -> int:
     (sliding_window.c:27 via refinement.c:114), or with --chrom-by-name
     the name resolved against the BAM header."""
     if cfg.chrom_by_name:
-        return -1 if reader is None else reader_tid(reader, cfg.chrom_name)
+        return -1 if reader is None else reader.tid_by_name(cfg.chrom_name)
     return cfg.chrom - 1
 
 
@@ -149,27 +148,8 @@ def run_scan_tiles(tiles: list[tuple[int, int]], fetch, cfg: ScanConfig,
     return results
 
 
-def bounded_map(ex: ThreadPoolExecutor, fn, items, window: int):
-    """ex.map with at most ``window`` futures outstanding, results in
-    order.  When a call raises, or the consumer stops early, the futures
-    not yet started are cancelled (a started one runs to its end)."""
-    it = iter(items)
-    pending = deque(ex.submit(fn, c) for c in itertools.islice(it, window))
-    try:
-        while pending:
-            result = pending.popleft().result()
-            nxt = next(it, None)
-            if nxt is not None:
-                pending.append(ex.submit(fn, nxt))
-            yield result
-    finally:
-        for fut in pending:
-            fut.cancel()
-
-
-def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
-                          cfg: ScanConfig, tid: int | None = None,
-                          make_reader=None, *,
+def run_scan_tiles_native(tiles: list[tuple[int, int]], cfg: ScanConfig,
+                          tid: int | None = None, *, open_reader,
                           device: torch.device = torch.device("cpu"),
                           stats: dict | None = None
                           ) -> list[tuple[int, int]]:
@@ -179,9 +159,9 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
     tiles past K, from the extractor's side CSR, take a second batch at
     their width on ``device``.
 
-    With ``make_reader``, the chunks' host stages run on a
-    cfg.thread_number worker pool, one private reader per worker, while
-    this thread scans completed chunks in order."""
+    The chunks' host stages run on `pool.reader_map`'s cfg.thread_number
+    workers, each with a private reader from ``open_reader()``, while this
+    thread scans completed chunks in order."""
     results: list[tuple[int, int]] = [(-1, 0)] * len(tiles)
     K = pack.pow2(min(cfg.max_candidates, 8192), 64)
     if tid is None:
@@ -218,21 +198,8 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
         return locs, counts, rd.wide_rows()
 
     n_workers = max(1, min(cfg.thread_number, len(chunks)))
-    ex = None
-    if n_workers > 1 and make_reader is not None:
-        tls = threading.local()
-
-        def work(chunk):
-            if not hasattr(tls, "rd"):
-                tls.rd = make_reader()
-                tls.rd.stage_inflate(device)
-            return host_stage(chunk, tls.rd)
-
-        ex = ThreadPoolExecutor(n_workers, thread_name_prefix="svtrek-scan")
-        staged = bounded_map(ex, work, (c for _, c in chunks), n_workers + 2)
-    else:
-        reader.stage_inflate(device)
-        staged = (host_stage(c, reader) for _, c in chunks)
+    staged = reader_map(host_stage, (c for _, c in chunks), n_workers,
+                        open_reader)
 
     def apply(base, chunk, win, first, second):
         best, support = (x.cpu().numpy() for x in first)
@@ -242,7 +209,7 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
             results[base + b] = (int(best[b]), int(support[b]))
 
     in_flight: deque = deque()
-    try:
+    with contextlib.closing(staged):
         for (base, chunk), (locs, counts, wide) in zip(chunks, staged):
             n = len(chunk)
             B = max(cfg.batch_windows, n)
@@ -268,10 +235,6 @@ def run_scan_tiles_native(tiles: list[tuple[int, int]], reader,
                 apply(*in_flight.popleft())
         while in_flight:
             apply(*in_flight.popleft())
-    finally:
-        if ex is not None:
-            staged.close()
-            ex.shutdown(wait=True, cancel_futures=True)
     return results
 
 
@@ -297,12 +260,12 @@ def run_scan(cfg: ScanConfig, out=None, err=None, *,
     tid = resolve_scan_tid(cfg, reader)
     if cfg.use_native_io:
         results = run_scan_tiles_native(
-            tiles, reader, cfg, tid=tid,
-            make_reader=lambda: open_native_reader(cfg.bam_file),
+            tiles, cfg, tid=tid, open_reader=lambda: open_reader(cfg, device),
             device=device, stats=stats)
     else:
         results = run_scan_tiles(tiles, python_fetch(reader), cfg, tid=tid,
                                  device=device, stats=stats)
+    reader.close()
 
     lines = []
     best_overall, support_overall = -1, 0

@@ -152,7 +152,7 @@ def planted(tmp_path_factory):
     return str(d), bam, vcf
 
 
-def _same_batch(got, want):
+def _same_batch(got, want, reader=None):
     assert type(got.batch).__name__ == type(want.batch).__name__
     _only_jax_fields(got.batch, want.batch)
     for f in dataclasses.fields(got.batch):
@@ -169,8 +169,8 @@ def _same_batch(got, want):
             assert a == b, f.name
     assert [dataclasses.astuple(w) for w in got.windows] == \
         [dataclasses.astuple(w) for w in want.windows]
-    assert [tpack.as_read_list(r) for r in got.reads_per_window] == \
-        [jpack.as_read_list(r) for r in want.reads_per_window]
+    assert [tpack.as_read_list(r, reader) for r in got.reads_per_window] \
+        == [jpack.as_read_list(r) for r in want.reads_per_window]
     # The port keeps every window on the device; on these fixtures the JAX
     # package sends none to the oracle either.
     assert not want.oracle_windows and not hasattr(got, "oracle_windows")
@@ -201,7 +201,7 @@ def test_packers_match_jax(planted, layout):
         else:
             want = jpack.pack_chunk(jw[lo:lo + 4], py, cfg)
             got = tpack.pack_chunk(tw[lo:lo + 4], py, cfg)
-        _same_batch(got, want)
+        _same_batch(got, want, reader)
 
 
 # ---- run_audit ---------------------------------------------------------
@@ -404,7 +404,7 @@ def test_long_read_chunk_packs_flat(long_read_fixture):
         assert got.windows == want.windows and \
             got.window_slots == want.window_slots
         assert [tpack.as_read_list(r) for r in got.reads_per_window] == \
-            [tpack.as_read_list(r) for r in want.reads_per_window]
+            [tpack.as_read_list(r, reader) for r in want.reads_per_window]
 
 
 def test_no_native_io_never_opens_the_native_reader(planted, monkeypatch):
@@ -432,14 +432,18 @@ def test_no_native_io_never_opens_the_native_reader(planted, monkeypatch):
 
 
 def test_ins_consensus_python_reader_matches_native(planted):
-    """The Python reader's insert collection equals the native reader's
-    svbam_ins_seqs over every planted INS site."""
+    """The Python reader's insert collection equals the JAX package's
+    native svbam_ins_seqs and the port's `ins_seqs_batch` (a site, lazy)
+    over every planted INS site."""
     _, bam, _ = planted
     py, nat = taudit.BamReader(bam), native_bam_reader(bam)
+    port = taudit.open_native_reader(bam)
     n = 0
     for tid, r in [(0, 119_999), (1, 159_999), (0, 50_000)]:
         lo, hi = r - 5, r + 5
         a = taudit._ins_seqs_py(py, tid, max(lo, 0), hi + 1, 50, lo, hi)
         assert a == nat.ins_seqs(tid, max(lo, 0), hi + 1, 50, lo, hi)
+        assert [a] == port.ins_seqs_batch([tid], [max(lo, 0)], [hi + 1], 50,
+                                          [lo], [hi])
         n += len(a)
     assert n > 10

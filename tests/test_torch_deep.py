@@ -26,7 +26,8 @@ from svtrek_tpu_torch.pipeline import pack as tpack
 from svtrek_tpu_torch.pipeline import scan as tscan
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path[:0] = [os.path.join(ROOT, "tools"),
+                os.path.join(ROOT, "portbench", "reference")]
 
 import audt_scalar  # noqa: E402
 from torch_fixtures import build_deep_bam, deep_records  # noqa: E402
@@ -82,7 +83,7 @@ def test_deep_bam_tiers(deep):
     """The fixture reaches the widths: the JAX package's host path sends
     every window of the first two tiers past --cand-width 128 (kovf),
     its device walk every such window past K or the sweep, and the lines
-    equal tools/audt_scalar.py."""
+    equal portbench/reference/audt_scalar.py."""
     bam, vcf = deep
     lines, c = _jax(deep, "host")
     recs = deep_records()

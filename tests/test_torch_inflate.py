@@ -12,6 +12,7 @@ one): the kernel against the plain version, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -23,10 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+from svtrek_tpu_torch import constants as C
 from svtrek_tpu_torch import kernels
 from svtrek_tpu_torch.config import AudtConfig
 from svtrek_tpu_torch.native import native_bam_reader
-from svtrek_tpu_torch.native.bamlib import NativeBamError, NativeBamReader
+from svtrek_tpu_torch.native.bamlib import (
+    NativeBamError, NativeBamReader, ReaderCounters,
+)
 from svtrek_tpu_torch.pipeline import audit as taudit
 from tests.fixtures import PlantedSV, write_fixture
 
@@ -146,7 +150,6 @@ def _fetch(reader, how: str, tids, begs, ends):
 def _staged(bam: str, **kw) -> NativeBamReader:
     r = native_bam_reader(bam)
     r.stage_inflate("cpu", **kw)
-    r.counters()
     return r
 
 
@@ -162,9 +165,8 @@ def test_staged_fetch_covers_the_lazy_walk(planted, hifi, crossing, case,
     walk reads), and it inflates at most 1.35x the lazy walk's bytes."""
     bam, tids, begs, ends = _windows(case, planted, hifi, crossing)
     lazy = native_bam_reader(bam)
-    lazy.counters()
     want = _fetch(lazy, how, tids, begs, ends)
-    _, lazy_bytes = lazy.counters()
+    lazy_bytes = lazy.take_counters().inflated_bytes
     staged = _staged(bam)
     got = _fetch(staged, how, tids, begs, ends)
     assert len(got) == len(want)
@@ -172,9 +174,11 @@ def test_staged_fetch_covers_the_lazy_walk(planted, hifi, crossing, case,
         np.testing.assert_array_equal(a, b)
     if how == "merged":
         assert len(got[-1]) == int(got[0].sum())
-    _, nbytes = staged.counters()
-    card, missed = staged.stage_counters()
+    c = staged.take_counters()
+    nbytes, card, missed = (c.inflated_bytes, c.card_bytes,
+                            c.zlib_staged_bytes)
     assert card == 0 and missed == 0
+    assert staged.take_counters() == ReaderCounters()  # zeroed on read
     # a block that several windows read inflates once a slice
     assert nbytes <= 1.35 * lazy_bytes, (nbytes, lazy_bytes)
     if case == "empty":
@@ -195,6 +199,31 @@ def test_small_slices_return_the_same(planted, hifi, crossing, case, blocks):
         got = _fetch(staged, how, tids, begs, ends)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["planted", "hifi"])
+def test_take_counters_is_one_snapshot_that_zeroes(planted, hifi, crossing,
+                                                   case):
+    """A fresh handle reads all zeros (the open zeroes what its header
+    read); a staged fetch and an extract over it fill every field of one
+    snapshot, which adds up field by field, and the next call reads zeros
+    again."""
+    bam, tids, begs, ends = _windows(case, planted, hifi, crossing)
+    r = native_bam_reader(bam)
+    assert r.take_counters() == ReaderCounters()
+    r.stage_inflate("cpu")
+    total, counts = r.fetch_batch(tids, begs, ends)
+    cfg, n = AudtConfig(), len(tids)
+    r.extract_batch(np.full(n, C.KIND_INS, np.int32), begs + 1, ends + 1,
+                    np.zeros(n, np.int64), counts, 64,
+                    cfg.consensus_min_count, cfg.consensus_interval,
+                    cfg.consensus_interval_range)
+    c = r.take_counters()
+    assert total > 0 and c.inflate_ns > 0 and c.inflated_bytes > 0
+    assert c.card_bytes == 0 and c.zlib_staged_bytes == 0  # the CPU's zlib
+    assert c.walk_ops > 0 and c.walked_bytes > 0
+    assert r.take_counters() == ReaderCounters()
+    assert c + c == ReaderCounters(*(2 * v for v in dataclasses.astuple(c)))
 
 
 def _corrupt(src: str, dst: str, how: str) -> None:

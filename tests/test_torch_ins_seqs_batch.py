@@ -1,11 +1,12 @@
 """The consensus reader's SEQ fetch in one call a flush: the native
 `svbam_ins_seqs_batch` (`NativeBamReader.ins_seqs_batch`), which stages
 its sites' blocks through the attached batch inflate a slice at a time
-before it walks them, held site by site and string by string to the
-per-site `svbam_ins_seqs` and to the Python reader's `_ins_seqs_py`, on
-the CPU (`stage_inflate("cpu")`: the same C staging, zlib a block); and
-`run_audit --ins-consensus`, whose lines stay those of the per-site path
-while its `ins_consensus` line counts what the consensus reader inflated.
+before it walks them, held site by site and string by string to the same
+call on a reader with no stage attached (each site read lazily, a call a
+site) and to the Python reader's `_ins_seqs_py`, on the CPU
+(`stage_inflate("cpu")`: the same C staging, zlib a block); and
+`run_audit --ins-consensus`, whose lines stay those of the lazy path while
+its `ins_consensus` line counts what the consensus reader inflated.
 """
 from __future__ import annotations
 
@@ -166,14 +167,15 @@ CASES = ["planted", "hifi", "long", "seq_star", "no_reads", "lo_negative",
 
 @pytest.mark.parametrize("case", CASES)
 def test_batch_equals_per_site_and_python(planted, hifi, long_bam, case):
-    """Each site's strings equal, in order, the per-site native call's and
-    the Python reader's; the staged batch leaves no block it reads to zlib
-    and inflates them through the batch inflate."""
+    """Each site's strings equal, in order, those of a lazy call of its
+    own on an unstaged reader and the Python reader's; the staged batch
+    leaves no block it reads to zlib and inflates them through the batch
+    inflate."""
     which, sites = _sites(case, hifi)
     bam = {"planted": planted, "hifi": hifi["bam"]}.get(which, long_bam)
     tids, begs, ends, min_len, los, his = _args(sites)
     lazy, py = native_bam_reader(bam), BamReader(bam)
-    want = [lazy.ins_seqs(t, b, e, min_len, lo, hi) if t >= 0 else []
+    want = [lazy.ins_seqs_batch([t], [b], [e], min_len, [lo], [hi])[0]
             for t, b, e, lo, hi in zip(tids, begs, ends, los, his)]
     assert want == [
         taudit._ins_seqs_py(py, t, b, e, min_len, lo, hi) if t >= 0 else []
@@ -181,11 +183,11 @@ def test_batch_equals_per_site_and_python(planted, hifi, long_bam, case):
     staged = native_bam_reader(bam)
     staged.stage_inflate("cpu", **({"_slice": (4, 3 * BLOCK)}
                                    if case == "small_slice" else {}))
-    staged.counters()
     got = staged.ins_seqs_batch(tids, begs, ends, min_len, los, his)
     assert got == want
-    _, nbytes = staged.counters()
-    card, by_zlib = staged.stage_counters()
+    c = staged.take_counters()
+    nbytes, card, by_zlib = c.inflated_bytes, c.card_bytes, \
+        c.zlib_staged_bytes
     assert card == 0 and by_zlib == 0
     n = sum(map(len, got))
     if case == "no_reads":
@@ -250,18 +252,15 @@ def _run(bam, vcf, engine):
 
 @pytest.mark.parametrize("engine", ["star", "graph"])
 def test_run_audit_lines_and_tokens(ins_sites, monkeypatch, engine):
-    """The lines equal the per-site path's (lazy `ins_seqs` a record); the
-    staged run prints the consensus reader's inflate: every byte through
-    the batch inflate, so where that counts as the card's (the CPU's
-    inflate attached as on a card) card_mb equals inflated_mb."""
+    """The lines equal the lazy path's (no stage attached: each site read
+    lazily); the staged run prints the consensus reader's inflate: every
+    byte through the batch inflate, so where that counts as the card's
+    (the CPU's inflate attached as on a card) card_mb equals
+    inflated_mb."""
     bam, vcfs = ins_sites
     with monkeypatch.context() as m:
         m.setattr(NativeBamReader, "stage_inflate",
                   lambda self, *a, **k: None)
-        m.setattr(NativeBamReader, "ins_seqs_batch",
-                  lambda self, tids, begs, ends, min_len, los, his: [
-                      self.ins_seqs(*x[:3], min_len, *x[3:])
-                      for x in zip(tids, begs, ends, los, his)])
         want, lazy = _run(bam, vcfs[engine], engine)
     attach = NativeBamReader.stage_inflate
 

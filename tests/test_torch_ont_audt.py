@@ -21,6 +21,7 @@ from svtrek_tpu_torch import constants as C
 from svtrek_tpu_torch.config import AudtConfig
 from svtrek_tpu_torch.io.vcf import VcfTask, iter_vcf_tasks
 from svtrek_tpu_torch.native import native_bam_reader
+from svtrek_tpu_torch.native.bamlib import ReaderCounters
 from svtrek_tpu_torch.pipeline import audit as taudit
 from svtrek_tpu_torch.pipeline.pack import (
     KIND_POINT, pack_chunk_cand, window_tid, windows_for_task,
@@ -126,11 +127,11 @@ def test_walk_ops_count_the_extract_alone(ont):
     begs = np.array([C.u32(w.inter_start - 1) for w in wins], np.int64)
     ends = np.array([C.u32(w.inter_end - 1) for w in wins], np.int64)
     reader.fetch_batch_merged(tids, begs, ends, cfg.merge_fetch_gap)
-    assert reader.walk_counters()[0] == 0
+    assert reader.take_counters().walk_ops == 0
     pack_chunk_cand(wins, reader, cfg)
-    ops, _ = reader.walk_counters()
+    ops = reader.take_counters().walk_ops
     assert ops == _ops_of_fetch_packed(dict(ont, vcf=ont["loci_vcf"])) > 0
-    assert reader.walk_counters() == (0, 0)
+    assert reader.take_counters() == ReaderCounters()
 
 
 @pytest.mark.parametrize("workers", WORKERS)
@@ -153,7 +154,7 @@ def test_walked_bytes_count_staged_fetches_alone(ont, staged):
                         zip(zip(*wins), (np.int32, np.int64, np.int64)))
     reader.fetch_batch(tids, begs, ends)
     reader.fetch_packed(*wins[0])  # a lazy fetch counts nothing
-    _, walked = reader.walk_counters()
+    walked = reader.take_counters().walked_bytes
     assert (walked > 0) == staged
 
 

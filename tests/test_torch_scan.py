@@ -3,8 +3,10 @@
 svtrek_tpu.ops.window_scan's, the wrapping mean, truncating division and
 first-maximum ties included; `run_scan` on the native and the Python path
 giving svtrek_tpu's lines, --chrom-by-name and the tiles past K
-included (a tile past 16,384 candidates too); `bounded_map` cancelling what it has not started when a call
-fails; and tools/scan_scalar.py, the independent scalar scan chip_smoke.py
+included (a tile past 16,384 candidates too); the reader pool of scan's
+native path and audt's producer (`pool.reader_map`) keeping order and its
+window, cancelling what it has not started when a call fails and closing
+every reader it opened; and tools/scan_scalar.py, the independent scalar scan chip_smoke.py
 holds the port to, equal to svtrek_tpu's run_scan."""
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ import random
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -28,8 +29,10 @@ from svtrek_tpu.ops.window_scan import window_scan_batch as jax_scan
 from svtrek_tpu.oracle import extract_candidates, window_scan
 from svtrek_tpu.pipeline.scan import run_scan as jax_run_scan
 from svtrek_tpu_torch.config import ScanConfig as TScanConfig
+from svtrek_tpu_torch.native.bamlib import ReaderCounters
 from svtrek_tpu_torch.ops import window_scan as twin
 from svtrek_tpu_torch.pipeline import scan as tscan
+from svtrek_tpu_torch.pipeline.pool import PoolStats, reader_map
 from tests.fixtures import PlantedSV, simulate_reads_for_sv, write_fixture
 from tests.test_window_scan import _pack
 
@@ -295,13 +298,29 @@ def _chrx_bam(tmp_path_factory) -> str:
     return _CHRX["bam"]
 
 
+class _Reader:
+    """A stand-in reader for the pool: one walk op a call, and its close
+    recorded."""
+
+    def __init__(self, opened: list):
+        self.closed = False
+        opened.append(self)
+
+    def take_counters(self) -> ReaderCounters:
+        return ReaderCounters(walk_ops=1)
+
+    def close(self):
+        self.closed = True
+
+
 def test_bounded_map_cancels_pending_on_error():
-    """A failing call stops the map: the futures not yet started are
-    cancelled, not left running (the JAX version's hazard)."""
-    started = []
+    """A failing call stops the pool's map: the calls not yet started are
+    cancelled, not left running (the JAX version's hazard), and the
+    worker's reader is closed."""
+    started, opened = [], []
     gate = threading.Event()
 
-    def fn(i):
+    def fn(i, reader):
         started.append(i)
         if i == 0:
             gate.wait(5)
@@ -309,20 +328,50 @@ def test_bounded_map_cancels_pending_on_error():
         time.sleep(0.05)
         return i
 
-    with ThreadPoolExecutor(1) as ex:
-        it = tscan.bounded_map(ex, fn, range(100), 4)
-        threading.Timer(0.2, gate.set).start()
-        with pytest.raises(ValueError, match="boom"):
-            list(it)
+    it = reader_map(fn, range(100), 1, lambda: _Reader(opened))
+    threading.Timer(0.2, gate.set).start()
+    with pytest.raises(ValueError, match="boom"):
+        list(it)
     # The one worker may take item 1 between item 0's failure and the
-    # cancel; items 2-4 stay queued and are cancelled.
+    # cancel; items 2 and 3 stay queued and are cancelled.
     assert started in ([0], [0, 1])
+    assert len(opened) == 1 and opened[0].closed
 
 
 def test_bounded_map_keeps_order_and_window():
-    with ThreadPoolExecutor(3) as ex:
-        assert list(tscan.bounded_map(ex, lambda i: i * i, range(20), 4)) \
-            == [i * i for i in range(20)]
+    """Results in order, with at most n_workers + 2 calls submitted ahead
+    of the caller."""
+    calls, got = [], []
+    for x in reader_map(lambda i, rd: calls.append(i) or i * i, range(20),
+                        3, lambda: _Reader([])):
+        got.append(x)
+        assert len(calls) - len(got) <= 3 + 2  # in flight, not yet yielded
+    assert got == [i * i for i in range(20)]
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_reader_pool_closes_every_reader(fails):
+    """Each worker opens one reader at its first call; the map closes every
+    one when it ends, on success and when a call raises, and adds each
+    finished call's counters and time to the caller's sum."""
+    opened = []
+    stats = PoolStats()
+
+    def fn(i, reader):
+        time.sleep(0.002)
+        if fails and i == 12:
+            raise ValueError("call failed")
+        return i
+
+    it = reader_map(fn, range(40), 3, lambda: _Reader(opened), stats=stats)
+    if fails:
+        with pytest.raises(ValueError, match="call failed"):
+            list(it)
+    else:
+        assert list(it) == list(range(40))
+        assert stats.counters.walk_ops == 40
+    assert 1 <= len(opened) <= 3 and all(r.closed for r in opened)
+    assert stats.busy_s > 0 and stats.tail_s >= 0
 
 
 def test_scan_workers_failure_cancels_chunks(ins_fixture, monkeypatch):
@@ -338,8 +387,8 @@ def test_scan_workers_failure_cancels_chunks(ins_fixture, monkeypatch):
                       window_size=100, batch_windows=10, thread_number=2)
     tiles = tscan.scan_tiles(cfg)
     with pytest.raises(OSError, match="reader failed"):
-        tscan.run_scan_tiles_native(tiles, None, cfg, tid=0,
-                                    make_reader=make_reader)
+        tscan.run_scan_tiles_native(tiles, cfg, tid=0,
+                                    open_reader=make_reader)
     assert len(calls) <= 4
 
 

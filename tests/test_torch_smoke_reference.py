@@ -1,5 +1,6 @@
-"""tools/audt_scalar.py, the independent scalar `audt` that chip_smoke.py
-holds the port's output to on the card, against the JAX package: its
+"""portbench/reference/audt_scalar.py, the independent scalar `audt` that
+the benchmark's `correct` and chip_smoke.py hold the port's output to on
+the card, against the JAX package: its
 consensus and evidence walks against svtrek_tpu.oracle, its insert
 collection against the native reader and its star consensus against
 svtrek_tpu.ops.poa, and its result lines against
@@ -35,7 +36,8 @@ from tests.test_golden_audit_e2e import CHROM_LEN, gen_reads, gen_vcf_lines
 from tests.test_torch_audit import SVS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "tools"))
+REFERENCE = os.path.join(ROOT, "portbench", "reference")
+sys.path[:0] = [os.path.join(ROOT, "tools"), REFERENCE]
 
 import audt_scalar  # noqa: E402
 import disc_scalar  # noqa: E402
@@ -54,7 +56,7 @@ def _jax_lines(bam: str, vcf: str, **kw) -> list[str]:
 
 
 def test_imports_neither_package():
-    with open(os.path.join(ROOT, "tools", "audt_scalar.py")) as fh:
+    with open(os.path.join(REFERENCE, "audt_scalar.py")) as fh:
         tree = ast.parse(fh.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]

@@ -21,6 +21,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(ROOT, "tools")
+# The benchmark's plain reference, audt_scalar, which the smoke imports too.
+REFERENCE = os.path.join(ROOT, "portbench", "reference")
 sys.path.insert(0, TOOLS)
 
 PKG_MODULES = sorted(
@@ -47,7 +49,7 @@ class Refuse:
             raise ImportError(f"refused: {name}")
         return None
 sys.meta_path.insert(0, Refuse())
-sys.path[:0] = [ROOT, TOOLS]
+sys.path[:0] = [ROOT, TOOLS, REFERENCE]
 if NAME.endswith("__main__"):
     sys.argv = [NAME, "--help"]
     try:
@@ -62,7 +64,8 @@ print(json.dumps(sorted(m for m in sys.modules
 
 
 def _probe(name: str) -> tuple[int, str, str]:
-    code = (f"ROOT, TOOLS, NAME = {ROOT!r}, {TOOLS!r}, {name!r}\n" + _PROBE)
+    code = (f"ROOT, TOOLS, REFERENCE, NAME = {ROOT!r}, {TOOLS!r}, "
+            f"{REFERENCE!r}, {name!r}\n" + _PROBE)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     return r.returncode, r.stdout, r.stderr

@@ -21,6 +21,7 @@ import torch
 from svtrek_tpu_torch import tracing
 from svtrek_tpu_torch.config import AudtConfig
 from svtrek_tpu_torch.native import native_bam_reader
+from svtrek_tpu_torch.native.bamlib import ReaderCounters
 from svtrek_tpu_torch.pipeline import audit as taudit
 from tests.fixtures import PlantedSV, write_fixture
 from tests.test_ins_consensus import _rand_seq, build_fixture
@@ -154,14 +155,14 @@ def test_inflated_bytes_are_the_blocks_a_fetch_inflates(planted):
     last_header = next(i for i, end in enumerate(
         itertools.accumulate(sizes)) if end >= _header_len(stream))
     reader = native_bam_reader(bam)
-    reader.counters()  # zeroed of the open's
+    assert reader.take_counters() == ReaderCounters()  # the open's zeroed
     pos = reader.fetch_packed(0, 0, CHROM_LEN)[0]
-    ns, nbytes = reader.counters()
+    c = reader.take_counters()
     assert len(pos) > 0
-    assert nbytes == sum(sizes[last_header + 1:]) > 0
-    assert ns > 0
+    assert c.inflated_bytes == sum(sizes[last_header + 1:]) > 0
+    assert c.inflate_ns > 0
     reader.fetch_packed(0, 0, CHROM_LEN)
-    assert reader.counters() == (0, 0)
+    assert reader.take_counters() == ReaderCounters()
 
 
 def test_spans_lie_in_their_pass_on_the_profilers_clock(one_site):

@@ -19,7 +19,8 @@ on the CPU.  Its own:
   (total + n/2)/n of its positions and lengths;
 - the FASTQ scan and the inserted substring of each supporting read
   (reverse-complemented for a '<' path);
-- for the chosen clusters, the star consensus of tools/audt_scalar.py;
+- for the chosen clusters, the star consensus of the benchmark's plain
+  reference, portbench/reference/audt_scalar.py;
 - the lines `(DISC T) ref pos: P, len: L, support: N[, seq: S|NA]`, sorted
   by type name, then position.
 
@@ -30,8 +31,8 @@ from __future__ import annotations
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "portbench", "reference"), ROOT]
 
 from audt_scalar import star_consensus  # noqa: E402
 

@@ -4,7 +4,8 @@
 A short restatement of the windowed INS discovery of `svtrek_tpu`'s scan
 mode in plain Python, for holding a port's output to it (`chip_smoke.py`
 holds the PyTorch port's to it on the card).  It shares no code with
-`svtrek_tpu` or `svtrek_tpu_torch`; it builds on tools/audt_scalar.py:
+`svtrek_tpu` or `svtrek_tpu_torch`; it builds on the benchmark's plain
+reference, portbench/reference/audt_scalar.py:
 
 - reads: audt_scalar's whole-BAM gzip decode; a tile's reads are those
   with pos < end and endpos > beg for beg = start - 1, end = tile end - 1
@@ -36,7 +37,9 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "portbench", "reference"))
 
 from audt_scalar import INS, MIN_COUNT, Bam, evidence, i32, u32  # noqa: E402
 
