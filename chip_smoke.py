@@ -512,7 +512,7 @@ def phase_build():
     with contextlib.redirect_stderr(report):
         kbuild.build(force=True, verbose=True)
     load_library()
-    print(f"[build] K1 K2 K3 K4 G1 inflate {kbuild.LIB} "
+    print(f"[build] K1 K2 K3 K4 K5 G1 inflate {kbuild.LIB} "
           f"{time.perf_counter() - t0:.3f}s",
           flush=True)
     for line in report.getvalue().splitlines():
@@ -1448,40 +1448,54 @@ def scalar_subset(sites) -> set[int]:
 
 @contextlib.contextmanager
 def star_host_spy():
-    """While open, records each DP batch's copy back of the star engine
-    (`ops.poa_batch.cols_ins_flat`: its pairs B, its target width M, the
-    pairs' sum of m + 1, the bytes that came back, and whether into pinned
-    memory) and each pair of its scalar host DP (`banded_align_ins`: m, n
-    and the base band)."""
+    """While open, records each round's vote of the star engine
+    (`ops.poa_batch.vote`: its clusters, the bytes a DP batch's cols and
+    ins would take at each pair's width, the bytes of the vote's copy back
+    and whether into pinned memory; the inputs of the round with the most
+    pairs, kept for `k5_times`) and each pair of its scalar host DP
+    (`banded_align_ins`: m, n and the base band)."""
     from svtrek_tpu_torch.ops import poa_batch
 
-    log = {"d2h": [], "scalar": []}
-    flat, scalar = poa_batch.cols_ins_flat, poa_batch.banded_align_ins
+    log = {"votes": [], "scalar": [], "largest": None}
+    vote, to_host = poa_batch.vote, poa_batch.vote_to_host
+    scalar = poa_batch.banded_align_ins
 
-    def flat_spy(cols, ins, idx):
-        out = flat(cols, ins, idx)
-        log["d2h"].append((cols.shape[0], cols.shape[1], idx.numel(),
-                           sum(t.nbytes for t in out),
-                           all(t.is_pinned() for t in out)))
-        return out
+    def vote_spy(cols, ins, qpad, meta, targets, total, counts=None):
+        rows = meta.cpu().numpy()
+        pairs = rows[:, 1] - rows[:, 0]
+        log["votes"].append([len(rows), int((pairs * (5 * rows[:, 2] + 4))
+                                            .sum()), total, None])
+        if log["largest"] is None or cols.shape[0] > \
+                log["largest"][0].shape[0]:
+            log["largest"] = (cols, ins, qpad, meta, targets, total)
+        return vote(cols, ins, qpad, meta, targets, total, counts=counts)
+
+    def to_host_spy(out):
+        host = to_host(out)
+        log["votes"][-1][3] = host.is_pinned()
+        return host
 
     def scalar_spy(t, q, band):
         log["scalar"].append((len(t), len(q), band))
         return scalar(t, q, band)
 
-    poa_batch.cols_ins_flat = flat_spy
+    poa_batch.vote, poa_batch.vote_to_host = vote_spy, to_host_spy
     poa_batch.banded_align_ins = scalar_spy
     try:
         yield log
     finally:
-        poa_batch.cols_ins_flat, poa_batch.banded_align_ins = flat, scalar
+        poa_batch.vote, poa_batch.vote_to_host = vote, to_host
+        poa_batch.banded_align_ins = scalar
 
 
 def check_star_host(tag: str, stats, spy, dp_calls: int) -> str:
     """After a star-engine run on cuda under `star_host_spy`: band_scalar
     counts the host DP's pairs, each of them degenerate (band >= m + n);
-    each DP batch came back in at most 1.1 x (sum m + 4 sum (m + 1))
-    bytes, into pinned memory.  Returns the line to print."""
+    K5 voted every cluster-round (vote_card == vote_rounds, exactly one
+    launch a round, at least one round a DP batch), each round's vote came
+    back in one copy into pinned memory.  Returns the line to print."""
+    from svtrek_tpu_torch.kernels import launch_counts
+
     wide, scalar = int(stats["band_wide"]), int(stats["band_scalar"])
     if scalar != len(spy["scalar"]):
         fail(f"{tag}: band_scalar={scalar}, but {len(spy['scalar'])} pairs "
@@ -1491,19 +1505,74 @@ def check_star_host(tag: str, stats, spy, dp_calls: int) -> str:
     if bad:
         fail(f"{tag}: {len(bad)} pairs that are not degenerate took the host "
              f"DP (m, n): {bad[:5]}")
-    if len(spy["d2h"]) != dp_calls:
-        fail(f"{tag}: {len(spy['d2h'])} copies back for {dp_calls} DP "
-             f"batches")
-    parts = []
-    for B, M, lens, nbytes, pinned in spy["d2h"]:
-        need = (lens - B) + 4 * lens
-        if nbytes > 1.1 * need or not pinned:
-            fail(f"{tag}: a DP batch of {B} pairs came back in {nbytes} "
-                 f"bytes (sum m + 4 sum (m + 1) = {need}), pinned={pinned}")
-        parts.append(f"{nbytes} ({nbytes / need:.4f} x sum m + 4 sum (m+1); "
-                     f"padded {B * M + 4 * B * (M + 1)})")
+    rounds, card = int(stats["vote_rounds"]), int(stats["vote_card"])
+    votes = spy["votes"]
+    if not 0 < card == rounds == sum(v[0] for v in votes) or \
+            len(votes) < dp_calls or launch_counts["poa_vote"] != len(votes):
+        fail(f"{tag}: vote_card={card} of vote_rounds={rounds}, "
+             f"{len(votes)} votes of {sum(v[0] for v in votes)} clusters "
+             f"for {dp_calls} DP batches, K5 launched "
+             f"{launch_counts['poa_vote']} times")
+    if not all(v[3] for v in votes):
+        fail(f"{tag}: a vote came back into pageable memory")
     return (f"band_wide={wide} band_scalar={scalar} (every one degenerate); "
-            f"D2H bytes a DP batch, pinned: " + ", ".join(parts))
+            f"vote_card={card} of vote_rounds={rounds} in {len(votes)} "
+            f"votes; D2H bytes a vote, pinned (cols and ins at each pair's "
+            f"width would be): " + ", ".join(
+                f"{total} ({flat})" for _, flat, total, _ in votes))
+
+
+def k5_times(inputs) -> tuple[str, dict]:
+    """K5 alone on one round's inputs (`star_host_spy`'s largest), held
+    to the plain vote of the same inputs: its profiler time and CUDA-event
+    time a call, the plain vote's time, and its bound: each pair's cols,
+    ins and query read once.  Returns (the line to print, the numbers)."""
+    import torch
+
+    from svtrek_tpu_torch.kernels import poa_vote_cuda
+    from svtrek_tpu_torch.ops.poa_dp import vote_reference
+
+    cols, ins, qpad, meta, targets, total = inputs
+    rows = meta.cpu().numpy()
+    pairs = rows[:, 1] - rows[:, 0]
+    n_bases = int((qpad < 5).sum())  # the queries' bases, past them PAD
+    nbytes = int((pairs * (5 * rows[:, 2] + 4)).sum()) + n_bases
+    t0 = time.perf_counter()
+    want = vote_reference(*(t.cpu() for t in inputs[:5]), total).numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = poa_vote_cuda(*inputs).cpu().numpy()
+    C = len(rows)
+    lens = want[:4 * C].view(np.int32)
+    # the lengths, then each cluster's bases up to its length (K5 leaves
+    # the bytes past it as they are)
+    keep = np.zeros(len(want), bool)
+    keep[:4 * C] = True
+    for o, n in zip(rows[:, 6].tolist(), lens.tolist()):
+        keep[4 * C + o:4 * C + o + max(n, 0)] = True
+    diff = np.abs(got[keep].astype(np.int16) - want[keep].astype(np.int16))
+    n_diff, err = int((diff > 0).sum()), int(diff.max(initial=0))
+    if n_diff:
+        fail(f"K5 and the plain vote differ in {n_diff} of {int(keep.sum())}"
+             f" bytes on the largest round (max abs err {err})")
+    alone = device_ms(lambda: poa_vote_cuda(*inputs), "poa_vote")
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(10):
+        poa_vote_cuda(*inputs)
+    b.record()
+    b.synchronize()
+    call = a.elapsed_time(b) / 10
+    lim, res = bound(nbytes, 0)
+    return (f"K5 on a round of {C} clusters, {cols.shape[0]} pairs (M "
+            f"{cols.shape[1]}, N {qpad.shape[1]}, m {int(rows[:, 2].min())}"
+            f"-{int(rows[:, 2].max())}), equal to the plain vote in "
+            f"{int(keep.sum())} bytes (max abs err {err}): alone "
+            f"{fmt_ms(alone)}, call {call:.4f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {lim:.6f} ms ({res}: {nbytes} bytes)",
+            {"ms": call, "device_ms": alone, "plain_ms": plain_ms,
+             "bound_ms": lim, "bound_by": res, "max_abs_err": err,
+             "bytes_compared": int(keep.sum())})
 
 
 def phase_ins_path():
@@ -1544,6 +1613,8 @@ def phase_ins_path():
           f"K2={launches['poa_dp_ptr']} K3={launches['poa_traceback']} "
           f"plain_calls={plain}", flush=True)
     print(f"[ins] {check_star_host('ins', stats, spy, dp_calls)}", flush=True)
+    k5_line, k5 = k5_times(spy["largest"])
+    print(f"[ins] {k5_line}", flush=True)
     # the ins_consensus line's inflated_mb (printed after the stages
     # line's, so the one in stats): the consensus reader's, all on the card
     if not 0 < float(stats["card_mb"]) == float(stats["inflated_mb"]):
@@ -1586,7 +1657,7 @@ def phase_ins_path():
     print(f"[ins] audt_scalar.py: {len(want)} lines byte-identical "
           f"before ', seq:'; seq equal on {len(subset)} sites (classes "
           f"{classes}) in {time.perf_counter() - t0:.1f}s", flush=True)
-    return launches, got
+    return launches, got, k5
 
 
 def check_ins_seqs_batch(bam: str, lines: list[str]) -> str:
@@ -1839,6 +1910,10 @@ def phase_disc():
              f"{launches['poa_traceback']} times for {dp_calls} DP batches")
     if plain != 0:
         fail(f"the plain POA path ran {plain} times on --device cuda")
+    if not 0 < st["vote_card"] == st["vote_rounds"] or \
+            launches["poa_vote"] < 1:
+        fail(f"K5 voted {st['vote_card']} of {st['vote_rounds']} "
+             f"cluster-rounds in {launches['poa_vote']} launches")
     print(f"[disc] {len(got)} lines ({st['clusters']} clusters, "
           f"{st['ins_clusters']} INS), reads={st['reads']} "
           f"reads/s={st['reads'] / wall:.1f} wall={wall:.3f}s; "
@@ -1846,7 +1921,9 @@ def phase_disc():
           f"host_reads={st['host_reads']} breakpoints={st['breakpoints']}; "
           f"launches K2={launches['poa_dp_ptr']} "
           f"K3={launches['poa_traceback']} for dp_calls={dp_calls}, "
-          f"plain_calls={plain}", flush=True)
+          f"K5={launches['poa_vote']} for vote_card={st['vote_card']} of "
+          f"vote_rounds={st['vote_rounds']}, plain_calls={plain}",
+          flush=True)
     print(f"[disc] split detect={st['detect_s']:.3f}s (scan_wait="
           f"{st['scan_wait_s']:.3f}s) cluster={st['cluster_s']:.3f}s "
           f"consensus={st['consensus_s']:.3f}s emit={st['emit_s']:.3f}s "
@@ -3416,7 +3493,7 @@ def main() -> int:
     graph_err, graph = timed("graph kernel", phase_graph_kernel)
     inflate = timed("inflate", phase_inflate)
     host_lines = timed("main path", phase_main_path)
-    launches, ins_lines = timed("ins path", phase_ins_path)
+    launches, ins_lines, k5 = timed("ins path", phase_ins_path)
     spread_launches, spread_k2_ms = timed("spread sites", phase_spread_sites)
     disc_launches, disc_lines, disc_cl, disc_subset = timed("disc",
                                                             phase_disc)
@@ -3511,6 +3588,22 @@ def main() -> int:
         "library_ms": None,
         "ms_before": None,
         "device_ms": flush["k3_device"],
+        "device_ms_before": None,
+    }, {
+        "name": "poa_vote",
+        "route": "cuda",
+        "source": "svtrek_tpu_torch/csrc/poa.cu",
+        "replaces": "svtrek_tpu/ops/poa.py accumulate_votes, "
+                    "assemble_consensus (host)",
+        "launches": launches["poa_vote"],
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": None,
+        "ms_before": None,
+        "device_ms": k5["device_ms"],
         "device_ms_before": None,
     }, {
         "name": "step_probe",

@@ -1,5 +1,5 @@
-// Banded global-alignment DP (K2) and its traceback (K3) for the star
-// consensus of insertion clusters, for Hopper.
+// Banded global-alignment DP (K2), its traceback (K3) and the vote (K5) for
+// the star consensus of insertion clusters, for Hopper.
 //
 // K2 replaces the Pallas TPU kernel svtrek_tpu/ops/poa_pallas.py
 // (dp_ptr_pallas, body _dp_rows_kernel); K3 replaces tb_batch_pallas (body
@@ -118,6 +118,30 @@
 // reads cell 2*band until a left run brings it in, one below reads cell 0,
 // and a run through cell 0 goes on to j = 0.  Any code other than 0 and 1
 // moves left, as in the walk.
+//
+// K5, the vote (no TPU kernel: the JAX package votes on the host, in
+// svtrek_tpu/ops/poa.py accumulate_votes and assemble_consensus).  After
+// K3, each cluster of a round turns its pairs' cols and insert counts, and
+// its members equal to the target, into its new consensus, exactly as
+// those functions do:
+// - One block per cluster.  Phase 1: a warp per pair scans its row of
+//   ins + (cols >= 0) (the query bases consumed before each boundary) and
+//   stores the exclusive sum where a boundary has an insert: that insert's
+//   first query base (svtrek_tpu/ops/poa_batch.py::_segments_from_counts).
+// - Phase 2, a thread per boundary j, the block over the boundaries in
+//   tiles of kVoteThreads: the column's six counts (A C G T N gap; the
+//   members equal to the target add its base) over the cluster's pairs,
+//   the first maximum winning (numpy's argmax); the insert by a
+//   Boyer-Moore pass over the pairs with an insert at j (length and bytes
+//   compared exactly), then a count of the candidate, kept where it passes
+//   n_members / 2: a strict majority is unique, so Counter.most_common's
+//   order never matters.  A block scan of each boundary's output (the
+//   insert, then the column's base unless the gap won) places its bytes.
+// - The host sizes each cluster's output at m + 2 * (its longest query):
+//   a kept insert is a piece of the query of more than half the members,
+//   and a member's inserts are disjoint pieces of its query, so the kept
+//   inserts of a cluster sum to less than twice its longest query.  A
+//   cluster that would pass its size writes length -1 instead.
 
 #include <cuda_runtime.h>
 
@@ -146,6 +170,11 @@ constexpr int kTbRing = 64;        // rows in K3's ring (loaded or in flight)
 constexpr int kTbRun = 32;         // rows one ballot checks for a run
 // A slot's words: the window, the row's query word and padding to 16 bytes.
 constexpr int kTbSlot = kTbWin / 4 + 4;
+constexpr int kVoteThreads = 256;  // K5: boundaries a tile, a block a cluster
+constexpr int kVoteWarps = kVoteThreads / 32;
+// K5's int64 fields a cluster (kernels.POA_VOTE_META): its pairs [lo, hi),
+// m, n_members, n_equal, its target's offset, its output's offset and size.
+constexpr int kVoteMeta = 8;
 static_assert((kTbRing & (kTbRing - 1)) == 0 && kTbRing == 2 * kTbRun,
               "a power-of-two ring: one run read, one run in flight");
 // The strip widths S of the strip kernel (kernels.POA_STRIPS), and the
@@ -643,6 +672,164 @@ poa_traceback_kernel(const int8_t* __restrict__ ptr, long long total,
   wait_async_all();  // no copy into the ring outlives the warp
 }
 
+// The len query bases at a and b are the same.
+__device__ __forceinline__ bool same_bases(const int8_t* a, const int8_t* b,
+                                           int len) {
+  for (int x = 0; x < len; ++x)
+    if (a[x] != b[x]) return false;
+  return true;
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += o;
+  }
+  return v;
+}
+
+// One block per cluster: the vote of the K5 design note.  cols [B, M] and
+// ins [B, M+1] of K3 (or the host DP's rows), qpad [B, N]; meta [C,
+// kVoteMeta]; starts [B, M+1] scratch.  out: C int32 lengths (-1 past the
+// cluster's size), then each cluster's ASCII bases at its offset.
+__global__ void __launch_bounds__(kVoteThreads)
+poa_vote_kernel(const int8_t* __restrict__ cols, const int* __restrict__ ins,
+                const int8_t* __restrict__ qpad, int M, int N,
+                const long long* __restrict__ meta,
+                const int8_t* __restrict__ targets, int* __restrict__ starts,
+                int C, uint8_t* __restrict__ out) {
+  __shared__ int warp_sum[kVoteWarps];
+  const long long* mt = meta + static_cast<size_t>(blockIdx.x) * kVoteMeta;
+  const int lo = static_cast<int>(mt[0]), hi = static_cast<int>(mt[1]);
+  const int m = static_cast<int>(mt[2]);
+  const int half = static_cast<int>(mt[3]) / 2;
+  const int n_equal = static_cast<int>(mt[4]);
+  const int8_t* tgt = targets + mt[5];
+  uint8_t* dst = out + 4LL * C + mt[6];
+  const long long cap = mt[7];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t Mi = static_cast<size_t>(M) + 1;
+
+  // Phase 1: each pair's first query base of the insert at each boundary.
+  for (int p = lo + warp; p < hi; p += kVoteWarps) {
+    const int8_t* crow = cols + static_cast<size_t>(p) * M;
+    const int* irow = ins + static_cast<size_t>(p) * Mi;
+    int* srow = starts + static_cast<size_t>(p) * Mi;
+    int carry = 0;
+#pragma unroll 4
+    for (int j0 = 0; j0 <= m; j0 += 32) {
+      const int j = j0 + lane;
+      int k = 0, used = 0;
+      if (j <= m) {
+        k = irow[j];
+        used = k + (j < m && crow[j] >= 0);
+      }
+      const int incl = warp_inclusive_sum(used, lane);
+      if (k > 0) srow[j] = carry + incl - used;
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: a thread per boundary of each tile.
+  long long base = 0;  // the bytes of the tiles before, the same everywhere
+  bool over = false;
+  for (int j0 = 0; j0 <= m; j0 += kVoteThreads) {
+    const int j = j0 + threadIdx.x;
+    const bool col = j < m;
+    int win = 5, cand_p = 0, cand_s = 0, cand_len = 0;
+    if (j <= m) {
+      int n0 = 0, n1 = 0, n2 = 0, n3 = 0, n4 = 0, n5 = 0;
+      if (col) {
+        const int t = tgt[j];
+        n0 = t == 0 ? n_equal : 0;
+        n1 = t == 1 ? n_equal : 0;
+        n2 = t == 2 ? n_equal : 0;
+        n3 = t == 3 ? n_equal : 0;
+        n4 = t == 4 ? n_equal : 0;
+      }
+      int run = 0;  // Boyer-Moore's count of the candidate
+#pragma unroll 4
+      for (int p = lo; p < hi; ++p) {
+        if (col) {
+          const int x = cols[static_cast<size_t>(p) * M + j];
+          n0 += x == 0;
+          n1 += x == 1;
+          n2 += x == 2;
+          n3 += x == 3;
+          n4 += x == 4;
+          n5 += x < 0;
+        }
+        const int len = ins[static_cast<size_t>(p) * Mi + j];
+        if (len > 0) {
+          const int s = starts[static_cast<size_t>(p) * Mi + j];
+          if (run == 0) {
+            cand_p = p;
+            cand_s = s;
+            cand_len = len;
+            run = 1;
+          } else if (len == cand_len &&
+                     same_bases(qpad + static_cast<size_t>(p) * N + s,
+                                qpad + static_cast<size_t>(cand_p) * N +
+                                    cand_s,
+                                len)) {
+            ++run;
+          } else {
+            --run;
+          }
+        }
+      }
+      if (col) {  // the first maximum in the order A C G T N gap
+        int best = n0;
+        win = 0;
+        if (n1 > best) best = n1, win = 1;
+        if (n2 > best) best = n2, win = 2;
+        if (n3 > best) best = n3, win = 3;
+        if (n4 > best) best = n4, win = 4;
+        if (n5 > best) win = 5;
+      }
+      if (run > 0) {  // the candidate's support, kept past half
+        const int8_t* cq = qpad + static_cast<size_t>(cand_p) * N + cand_s;
+        int support = 0;
+        for (int p = lo; p < hi; ++p) {
+          const int len = ins[static_cast<size_t>(p) * Mi + j];
+          if (len == cand_len)
+            support += same_bases(
+                qpad + static_cast<size_t>(p) * N +
+                    starts[static_cast<size_t>(p) * Mi + j],
+                cq, len);
+        }
+        if (support <= half) cand_len = 0;
+      } else {
+        cand_len = 0;
+      }
+    }
+    const int own = cand_len + (col && win != 5);
+    const int incl = warp_inclusive_sum(own, lane);
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kVoteWarps; ++w) {
+      before += w < warp ? warp_sum[w] : 0;
+      total += warp_sum[w];
+    }
+    __syncthreads();  // warp_sum is the next tile's
+    over = over || base + total > cap;
+    if (!over && own) {
+      uint8_t* o = dst + base + before + incl - own;
+      const int8_t* q = qpad + static_cast<size_t>(cand_p) * N + cand_s;
+      for (int x = 0; x < cand_len; ++x) o[x] = "ACGTN-"[q[x]];
+      if (col && win != 5) o[cand_len] = "ACGTN-"[win];
+    }
+    base += total;
+  }
+  if (threadIdx.x == 0)
+    reinterpret_cast<int*>(out)[blockIdx.x] =
+        over ? -1 : static_cast<int>(base);
+}
+
 }  // namespace
 
 extern "C" {
@@ -725,6 +912,28 @@ int svtrek_poa_traceback(const void* ptr, long long total,
       static_cast<const int*>(ns), static_cast<const int*>(bands),
       static_cast<const int*>(order), count, M, static_cast<int8_t*>(cols),
       static_cast<int*>(ins));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's fields a cluster (kernels.POA_VOTE_META).
+int svtrek_poa_vote_meta() { return kVoteMeta; }
+
+// cols [B, M] int8, ins [B, M+1] int32, qpad [B, N] int8 row-major; meta
+// [C, kVoteMeta] int64 (each cluster's pairs lo..hi-1 of those rows, m,
+// n_members, n_equal, the offset of its m target bases in targets, the
+// offset and size of its output); starts [B, M+1] int32 scratch; out
+// uint8, C int32 lengths then the clusters' bases.  All device pointers.
+// Launches on `stream` and returns cudaGetLastError().
+int svtrek_poa_vote(const void* cols, const void* ins, const void* qpad,
+                    int M, int N, const void* meta, const void* targets,
+                    void* starts, int C, void* out, void* stream) {
+  if (C <= 0) return 0;
+  poa_vote_kernel<<<C, kVoteThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(cols), static_cast<const int*>(ins),
+      static_cast<const int8_t*>(qpad), M, N,
+      static_cast<const long long*>(meta),
+      static_cast<const int8_t*>(targets), static_cast<int*>(starts), C,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,8 +20,8 @@ import torch
 # wide kernel's.
 launch_counts: dict[str, int] = {"consensus_pos": 0, "poa_dp_ptr": 0,
                                  "poa_dp_ptr_wide": 0, "poa_traceback": 0,
-                                 "step_probe": 0, "poa_graph_dp": 0,
-                                 "bgzf_inflate": 0}
+                                 "poa_vote": 0, "step_probe": 0,
+                                 "poa_graph_dp": 0, "bgzf_inflate": 0}
 # The widest row K1 takes: one warp's row and its int64 prefix sums in the
 # shared memory of a block (csrc/consensus.cu).  The first pass ships K <=
 # 8192; a window past the first pass's width takes a second pass at the
@@ -42,6 +42,10 @@ POA_STRIP_MAX_BAND = (32 * POA_STRIPS[-1] - 1) // 2
 POA_WIDE_WARPS = 8
 POA_WIDE_STRIPS = (5, 6, 8, 10, 12, 14, 17)
 POA_WIDE_MAX_BAND = (32 * POA_WIDE_WARPS * POA_WIDE_STRIPS[-1] - 1) // 2
+# K5's int64 fields a cluster (`poa_vote_cuda`'s meta): its pairs' rows
+# [lo, hi), m, n_members, n_equal, the offset of its target in targets,
+# the offset and size of its output.
+POA_VOTE_META = 8
 # G1 (csrc/poa_graph.cu): the largest graph (nodes), query and predecessor
 # count it takes (ops/poa_graph_batch.py routes at these: its V_CAP, N_CAP
 # and P_CAP); a row's cells, n+1 rounded up to GRAPH_ROW_ALIGN (whole lane
@@ -119,6 +123,12 @@ def _load():
             ptr, ct.c_longlong, ptr, ptr, ct.c_int, ptr, ptr, ptr, ptr,
             ct.c_int, ct.c_int, ptr, ptr, ptr,
         ]
+        lib.svtrek_poa_vote_meta.restype = ct.c_int
+        if lib.svtrek_poa_vote_meta() != POA_VOTE_META:
+            raise RuntimeError("csrc/poa.cu and kernels.POA_VOTE_META differ")
+        lib.svtrek_poa_vote.restype = ct.c_int
+        lib.svtrek_poa_vote.argtypes = [ptr, ptr, ptr, ct.c_int, ct.c_int,
+                                        ptr, ptr, ptr, ct.c_int, ptr, ptr]
         bind_graph(lib)
         lib.svtrek_bgzf_inflate.restype = ct.c_int
         lib.svtrek_bgzf_inflate.argtypes = [ptr, ptr, ct.c_int, ptr, ptr,
@@ -467,6 +477,39 @@ def poa_dp_cols_cuda(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
     plan = poa_dp_plan(M, N, ms, ns, bands)
     ptr = _dp_ptr_launch(tpad, ms, qpad, ns, bands, plan)
     return _traceback_launch(ptr, plan[0], plan[1], qpad, ms, ns, bands, M)
+
+
+def poa_vote_cuda(cols: torch.Tensor, ins: torch.Tensor, qpad: torch.Tensor,
+                  meta: torch.Tensor, targets: torch.Tensor, total: int
+                  ) -> torch.Tensor:
+    """Kernel K5 (csrc/poa.cu): one round's vote of every cluster, after
+    K3 on the same stream, `ops.poa_dp.vote` on CUDA tensors.  Arguments
+    and result as `ops.poa_dp.vote_reference`, whose output it equals up
+    to each cluster's length (the bytes past it are left as they are)."""
+    _require_cuda("poa_vote_cuda", cols)
+    if cols.dim() != 2 or meta.dim() != 2:
+        raise ValueError(f"cols must be [B, M] and meta [C, {POA_VOTE_META}]"
+                         f", got {tuple(cols.shape)} and {tuple(meta.shape)}")
+    (B, M), C, dev = cols.shape, meta.shape[0], cols.device
+    N = qpad.shape[-1]
+    _check("cols", cols, (B, M), dev, torch.int8)
+    _check("ins", ins, (B, M + 1), dev)
+    _check("qpad", qpad, (B, N), dev, torch.int8)
+    _check("meta", meta, (C, POA_VOTE_META), dev, torch.int64)
+    _check("targets", targets, tuple(targets.shape), dev, torch.int8)
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    if C == 0:
+        return out
+    starts = torch.empty_like(ins)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.svtrek_poa_vote(cols.data_ptr(), ins.data_ptr(),
+                                 qpad.data_ptr(), M, N, meta.data_ptr(),
+                                 targets.data_ptr(), starts.data_ptr(), C,
+                                 out.data_ptr(), stream)
+    _launched("poa_vote", lib, rc)
+    return out
 
 
 def step_probe_cuda(ptr: torch.Tensor, rows_per: int, s0: int, s1: int,

@@ -11,11 +11,9 @@ length-medoid with a banded global DP that also collects the query bases
 inserted at each column boundary, vote per column and per boundary, and
 realign to the new consensus until it stops changing.  `banded_align_ins`
 is the scalar DP, used here for the pairs whose band is too wide for the
-batched path (ops/poa_batch.py).
+batched path (ops/poa_batch.py); the vote is `ops.poa_dp.vote`.
 """
 from __future__ import annotations
-
-from collections import Counter
 
 import numpy as np
 
@@ -111,40 +109,6 @@ def majority_length_mode(seqs: list[str]) -> list[str]:
             clusters.append([cur])
     best = max(clusters, key=len)
     return [seqs[i] for i in sorted(best)]
-
-
-def new_vote_state(target: np.ndarray):
-    """(votes [m, 6], ins_votes [m+1] Counters) for one voting round."""
-    m = len(target)
-    return np.zeros((m, 6), np.int32), [Counter() for _ in range(m + 1)]
-
-
-def accumulate_votes(votes, ins_votes, cols, ins_segs) -> None:
-    """Fold one member's alignment into the round state.  ins_segs:
-    decoded insert string per boundary ("" = none)."""
-    gap = cols < 0
-    votes[~gap, cols[~gap]] += 1
-    votes[gap, 5] += 1
-    for j, seg in enumerate(ins_segs):
-        if seg:
-            ins_votes[j][seg] += 1
-
-
-def assemble_consensus(votes, ins_votes, n_members: int) -> str:
-    """Emit the consensus: per-column base majority (gap majority drops
-    the column) + boundary inserts supported by a strict majority."""
-    winner = votes.argmax(axis=1)
-    m = votes.shape[0]
-    half = n_members // 2
-    out: list[str] = []
-    for j in range(m + 1):
-        if ins_votes[j]:
-            seg, n = ins_votes[j].most_common(1)[0]
-            if n > half:
-                out.append(seg)
-        if j < m and winner[j] != 5:
-            out.append(_BASES[winner[j]])
-    return "".join(out)
 
 
 def decode_ins(ins: list[list[int]]) -> list[str]:

@@ -1,97 +1,49 @@
 """Batched star-MSA consensus: many clusters' member alignments per call.
 
-Port of svtrek_tpu/ops/poa_batch.py (`_segments_from_counts`,
-`banded_cols_batch`, `consensus_sequence_batch`), line for line where the
-output depends on it: the scalar fallback of degenerate pairs, the
-`s[: 4 * m]` query cut, `max_len`, the fixed point and `rounds`.  The DP
-runs in `ops.poa_dp.dp_cols` on the given device.  The JAX package's pow2
-shape buckets (`_nbucket`), its dispatch policy and its band cap of 512
-exist to limit what one outlier costs a TPU kernel's compiled shape and
-are not carried over: pairs are padded to the batch's longest target and
-query, K2 stores each pair at its own band (up to kernels.POA_MAX_BAND),
-and a pair's result depends on neither.  Every route is exact, so the
-output is the JAX package's.
+Port of svtrek_tpu/ops/poa_batch.py's `consensus_sequence_batch` (its
+`banded_cols_batch` is `dp_pairs`, whose rows stay on the device), line
+for line where the output depends on it: the scalar fallback of
+degenerate pairs, the `s[: 4 * m]` query cut, `max_len`, the fixed point
+and `rounds`.  The DP runs in `ops.poa_dp.dp_cols` on the given device,
+and so does the vote (`ops.poa_dp.vote`, which the JAX package does on
+the host with a Counter a boundary): a round's pairs stay on the device
+from the DP to the vote, and each cluster's new consensus comes back in
+one copy.  The JAX
+package's pow2 shape buckets (`_nbucket`), its dispatch policy and its
+band cap of 512 exist to limit what one outlier costs a TPU kernel's
+compiled shape and are not carried over: pairs are padded to the batch's
+longest target and query, K2 stores each pair at its own band (up to
+kernels.POA_MAX_BAND), and a pair's result depends on neither.  Every
+route is exact, so the output is the JAX package's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .poa import (
-    accumulate_votes, assemble_consensus, banded_align_ins, decode,
-    decode_ins, encode, majority_length_mode, new_vote_state,
-)
+from .poa import banded_align_ins, encode, majority_length_mode
 from ..kernels import POA_MAX_BAND, POA_STRIP_MAX_BAND
-from ..tracing import span
-from .poa_dp import PAD, dp_cols
+from ..tracing import add, span
+from .poa_dp import PAD, dp_cols, vote
 
 # svtrek_tpu's band cap: wider pairs take its scalar host DP, and here
 # they are counted in counts["band_wide"].
 JAX_BAND_CAP = 512
 
 
-def _segments_from_counts(query: np.ndarray, cols: np.ndarray,
-                          ins_counts: np.ndarray) -> list[str]:
-    """Reconstruct the inserted query segment per boundary from the
-    per-boundary counts: the global alignment consumes the query
-    monotonically, so boundary j's insert is the ins_counts[j] query bases
-    after the ones consumed before it (inserts and aligned columns before
-    j), identical to the scalar banded_align_ins segments."""
-    m = len(cols)
-    segs = [""] * (m + 1)
-    used = ins_counts.astype(np.int64)
-    used[:m] += cols >= 0
-    start = np.cumsum(used) - used
-    for j in np.flatnonzero(ins_counts).tolist():
-        segs[j] = decode(query[start[j]: start[j] + ins_counts[j]])
-    return segs
+def dp_pairs(targets, queries, band: int = 64, band_cap: int = POA_MAX_BAND,
+             *, device: torch.device | str = "cpu",
+             counts: dict | None = None):
+    """The DP of a list of (target, query) pairs, left on ``device``:
+    returns (cols [B, M] int8, ins [B, M+1] int32, qpad [B, N] int8), pair
+    i in row i, M and N the longest target and query (`dp_cols`'s
+    outputs, and the queries padded with PAD).
 
-
-def flat_index(ms: np.ndarray, M: int) -> np.ndarray:
-    """The flat index, into a [B, M+1] row-major array, of each pair's
-    columns 0..m_b: pair b's m_b+1 entries start at (m + 1)'s exclusive
-    prefix sum.  int32 where B*(M+1) fits, else int64."""
-    lens = ms.astype(np.int64) + 1
-    starts = np.cumsum(lens) - lens
-    shift = np.arange(len(ms), dtype=np.int64) * (M + 1) - starts
-    idx = np.arange(int(lens.sum()), dtype=np.int64) + np.repeat(shift, lens)
-    return idx.astype(np.int32 if len(ms) * (M + 1) < 1 << 31 else np.int64)
-
-
-def cols_ins_flat(cols: torch.Tensor, ins: torch.Tensor, idx: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A DP batch's cols [B, M] int8 and ins [B, M+1] int32 at each pair's
-    own width: both gathered at ``idx`` (`flat_index`, on their device;
-    cols padded by one column, so that both share it) into flat CPU
-    tensors, pair b's cols and ins at the same offset.  On CUDA each
-    comes back in one non-blocking copy into pinned memory, then the
-    stream is synchronized once: Σ(m+1) + 4·Σ(m+1) bytes, not the padded
-    B·M + 4·B·(M+1)."""
-    cols_f = torch.nn.functional.pad(cols, (0, 1)).view(-1).index_select(
-        0, idx)
-    ins_f = ins.reshape(-1).index_select(0, idx)
-    if cols.device.type == "cpu":
-        return cols_f, ins_f
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in (cols_f, ins_f)]
-    for h, t in zip(host, (cols_f, ins_f)):
-        h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(cols.device).synchronize()
-    return host[0], host[1]
-
-
-def banded_cols_batch(targets, queries, band: int = 64,
-                      band_cap: int = POA_MAX_BAND, *,
-                      device: torch.device | str = "cpu",
-                      counts: dict | None = None):
-    """Batched drop-in for ``banded_align_ins`` over pair lists.
-
-    targets/queries: lists of int8 numpy arrays.  Returns
-    (cols_list, segs_list): per pair, the per-target-column query bases
-    and the decoded inserted segment per boundary.  Pairs whose effective
+    targets/queries: lists of int8 numpy arrays.  Pairs whose effective
     band max(band, |n-m|+1) exceeds ``band_cap`` (K2's widest by default)
-    or reaches the summed lengths go through the scalar host path; the
-    others through one `dp_cols` call on ``device``.  With ``counts``:
+    or reaches the summed lengths go through the scalar host DP
+    (`banded_align_ins`), whose cols and insert counts are copied into
+    their rows; the others through one `dp_cols` call.  With ``counts``:
     counts["dp_calls"] counts that call, counts["band_wide"] the pairs it
     takes with a band above JAX_BAND_CAP (those the JAX package sends to
     the host), counts["band_wide_k2"] those with a band above
@@ -99,50 +51,63 @@ def banded_cols_batch(targets, queries, band: int = 64,
     counts["band_scalar"] the pairs on the host path."""
     assert len(targets) == len(queries)
     nn = len(targets)
-    cols_out = [None] * nn
-    segs_out = [None] * nn
-    dev_idx = []
-    wide = wide_k2 = 0
-    for i, (t, q) in enumerate(zip(targets, queries)):
-        eb = max(band, abs(len(q) - len(t)) + 1)
-        if eb > band_cap or eb >= max(len(t), 1) + len(q):
-            cols_out[i], ins = banded_align_ins(t, q, band)
-            segs_out[i] = decode_ins(ins)
-        else:
-            dev_idx.append(i)
-            wide += eb > JAX_BAND_CAP
-            wide_k2 += eb > POA_STRIP_MAX_BAND
+    ms = np.array([len(t) for t in targets], np.int32)
+    ns = np.array([len(q) for q in queries], np.int32)
+    bands = np.maximum(band, np.abs(ns - ms) + 1).astype(np.int32)
+    host = (bands > band_cap) | (bands >= np.maximum(ms, 1) + ns)
+    dev_idx = np.flatnonzero(~host)
     if counts is not None:
-        counts["band_wide"] = counts.get("band_wide", 0) + wide
-        counts["band_wide_k2"] = counts.get("band_wide_k2", 0) + wide_k2
+        counts["band_wide"] = counts.get("band_wide", 0) + int(
+            (bands[dev_idx] > JAX_BAND_CAP).sum())
+        counts["band_wide_k2"] = counts.get("band_wide_k2", 0) + int(
+            (bands[dev_idx] > POA_STRIP_MAX_BAND).sum())
         counts["band_scalar"] = counts.get("band_scalar", 0) + \
             nn - len(dev_idx)
-    if not dev_idx:
-        return cols_out, segs_out
-    B = len(dev_idx)
-    ms = np.array([len(targets[i]) for i in dev_idx], np.int32)
-    ns = np.array([len(queries[i]) for i in dev_idx], np.int32)
-    bands = np.maximum(band, np.abs(ns - ms) + 1).astype(np.int32)
-    tpad = np.full((B, int(ms.max())), PAD, np.int8)
-    qpad = np.full((B, int(ns.max())), PAD, np.int8)
-    for bi, i in enumerate(dev_idx):
-        tpad[bi, : ms[bi]] = targets[i]
-        qpad[bi, : ns[bi]] = queries[i]
-    tpad_d, ms_d, qpad_d, ns_d, bands_d, idx_d = (
-        torch.from_numpy(a).to(device) for a in (
-            tpad, ms, qpad, ns, bands, flat_index(ms, tpad.shape[1])))
-    cols_h, ins_h = (t.numpy() for t in cols_ins_flat(
-        *dp_cols(tpad_d, ms_d, qpad_d, ns_d, bands_d), idx_d))
-    if counts is not None:
-        counts["dp_calls"] = counts.get("dp_calls", 0) + 1
-    start = 0
-    for bi, i in enumerate(dev_idx):
-        m = int(ms[bi])
-        cols_out[i] = cols_h[start: start + m]
-        segs_out[i] = _segments_from_counts(
-            queries[i], cols_out[i], ins_h[start: start + m + 1])
-        start += m + 1
-    return cols_out, segs_out
+    M, N = int(ms.max(initial=0)), int(ns.max(initial=0))
+    qpad = np.full((nn, N), PAD, np.int8)
+    for i, q in enumerate(queries):
+        qpad[i, :len(q)] = q
+    qpad_d = torch.from_numpy(qpad).to(device)
+    if len(dev_idx):
+        Md = int(ms[dev_idx].max())
+        tpad = np.full((len(dev_idx), Md), PAD, np.int8)
+        for bi, i in enumerate(dev_idx.tolist()):
+            tpad[bi, :ms[i]] = targets[i]
+        sel = None if len(dev_idx) == nn else \
+            torch.from_numpy(dev_idx).to(device)
+        q_dev = qpad_d if sel is None else qpad_d.index_select(0, sel)
+        tpad_d, ms_d, ns_d, bands_d = (
+            torch.from_numpy(a).to(device)
+            for a in (tpad, ms[dev_idx], ns[dev_idx], bands[dev_idx]))
+        cols, ins = dp_cols(tpad_d, ms_d, q_dev, ns_d, bands_d)
+        if counts is not None:
+            counts["dp_calls"] = counts.get("dp_calls", 0) + 1
+        if sel is None:
+            return cols, ins, qpad_d
+    # Some pairs took the host DP: every pair's row in arrays of M columns.
+    cols_h = np.full((nn, M), -1, np.int8)
+    ins_h = np.zeros((nn, M + 1), np.int32)
+    for i in np.flatnonzero(host).tolist():
+        c, segs = banded_align_ins(targets[i], queries[i], band)
+        cols_h[i, :ms[i]] = c
+        ins_h[i, :ms[i] + 1] = [len(seg) for seg in segs]
+    cols_all, ins_all = (torch.from_numpy(a).to(device)
+                         for a in (cols_h, ins_h))
+    if len(dev_idx):
+        cols_all[sel, :Md] = cols
+        ins_all[sel, :Md + 1] = ins
+    return cols_all, ins_all, qpad_d
+
+
+def vote_to_host(out: torch.Tensor) -> torch.Tensor:
+    """A round's vote output on the host: on CUDA one non-blocking copy
+    into pinned memory, then one wait on the current stream."""
+    if out.device.type == "cpu":
+        return out
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    torch.cuda.current_stream(out.device).synchronize()
+    return host
 
 
 def consensus_sequence_batch(clusters, band: int = 64, max_len: int = 4096,
@@ -153,12 +118,14 @@ def consensus_sequence_batch(clusters, band: int = 64, max_len: int = 4096,
     ``consensus_sequence`` (majority-mode selection, length-medoid seed,
     star alignment with insertion recovery, realign until a fixed point or
     ``rounds``) applied to many clusters, with every round's member to
-    consensus alignments across ALL clusters in one `banded_cols_batch`
-    call on ``device`` (``counts`` as there).  With ``counts``,
-    counts["vote_s"] times the host's part (mode and seed selection,
-    encode, `accumulate_votes`, `assemble_consensus`; profiler range
-    `svtrek.cons.vote`) and counts["dp_s"] the `banded_cols_batch` calls
-    (a timer only: they launch and wait for the device)."""
+    consensus alignments across ALL clusters in one `dp_pairs` call and
+    their vote in one `ops.poa_dp.vote` call on ``device`` (``counts`` as
+    `dp_pairs`'s).  With ``counts``, counts["vote_s"] times the voting
+    (mode and seed selection, encode, the vote's launch and copy back, the
+    fixed point; profiler range `svtrek.cons.vote` around the host's
+    stretches), counts["dp_s"] the `dp_pairs` calls (a timer only: they
+    launch device work), counts["vote_rounds"] the cluster-rounds voted
+    and counts["vote_card"] those in K5's launches (`vote`'s)."""
     results: list[str | None] = [None] * len(clusters)
     active: dict[int, tuple[list[str], str]] = {}
     with span(counts, "vote_s", "svtrek.cons.vote", round=0):
@@ -185,40 +152,52 @@ def consensus_sequence_batch(clusters, band: int = 64, max_len: int = 4096,
     for r in range(1, max(rounds, 1) + 1):
         if not active:
             break
-        votes = {}
-        insv = {}
-        pair_ci: list[int] = []
+        meta: list[tuple[int, ...]] = []
+        tgts: list[np.ndarray] = []
         pair_t: list[np.ndarray] = []
         pair_q: list[np.ndarray] = []
         with span(counts, "vote_s", "svtrek.cons.vote", round=r):
-            for ci, (members, cons) in active.items():
+            t_off = o_off = 0
+            for members, cons in active.values():
                 target = encode(cons)
                 m = len(target)
-                v, iv = new_vote_state(target)
+                lo, n_equal, longest = len(pair_q), 0, 0
                 for s in members:
                     if s == cons:
-                        v[np.arange(m), target] += 1
+                        n_equal += 1
                     else:
-                        pair_ci.append(ci)
                         pair_t.append(target)
                         pair_q.append(encode(s[: 4 * m]))
-                votes[ci] = v
-                insv[ci] = iv
-        if pair_ci:
-            with span(counts, "dp_s"):
-                all_cols, all_segs = banded_cols_batch(
-                    pair_t, pair_q, band, device=device, counts=counts)
+                        longest = max(longest, len(pair_q[-1]))
+                cap = m + 2 * longest
+                meta.append((lo, len(pair_q), m, len(members), n_equal,
+                             t_off, o_off, cap))
+                tgts.append(target)
+                t_off += m
+                o_off += cap
+        with span(counts, "dp_s"):  # no pair: empty rows, no DP call
+            cols, ins, qpad = dp_pairs(pair_t, pair_q, band, device=device,
+                                       counts=counts)
+        C = len(meta)
+        with span(counts, "vote_s"):  # launches, copies and waits: no range
+            meta_d, tgts_d = (torch.from_numpy(a).to(device) for a in (
+                np.array(meta, np.int64), np.concatenate(tgts)))
+            out = vote_to_host(vote(cols, ins, qpad, meta_d, tgts_d,
+                                    4 * C + o_off, counts=counts)).numpy()
         with span(counts, "vote_s", "svtrek.cons.vote", round=r):
-            if pair_ci:
-                for ci, cols, segs in zip(pair_ci, all_cols, all_segs):
-                    accumulate_votes(votes[ci], insv[ci], cols, segs)
+            lens = out[:4 * C].view(np.int32)
+            if (lens < 0).any():
+                raise RuntimeError("a cluster's vote passed its output size")
             nxt: dict[int, tuple[list[str], str]] = {}
-            for ci, (members, cons) in active.items():
-                new = assemble_consensus(votes[ci], insv[ci], len(members))
+            for (ci, (members, cons)), row, n in zip(active.items(), meta,
+                                                     lens.tolist()):
+                at = 4 * C + row[6]
+                new = out[at:at + n].tobytes().decode("ascii")
                 if not new or new == cons:
                     results[ci] = cons
                 else:
                     nxt[ci] = (members, new)
+            add(counts, "vote_rounds", C)
         active = nxt
     for ci, (_members, cons) in active.items():  # rounds exhausted
         results[ci] = cons

@@ -1,12 +1,16 @@
-"""Banded global-alignment DP and traceback for the star consensus.
+"""Banded global-alignment DP, traceback and vote for the star consensus.
 
 Counterpart of svtrek_tpu/ops/poa_pallas.py (kernels K2 and K3) and of the
 DP half of svtrek_tpu/ops/poa_batch.py.  `dp_cols` is the dispatch: CUDA
 tensors go to the hand-written kernels (csrc/poa.cu through
 `kernels.poa_dp_cols_cuda`: K2, then K3 on K2's plan), CPU tensors
 to the plain PyTorch versions here, `dp_ptr_reference` and
-`traceback_reference`.  The choice is made by the tensors' device; there is
-no fallback from one to the other.
+`traceback_reference`.  `vote` turns a round's cols and insert counts into
+each cluster's new consensus (svtrek_tpu/ops/poa.py's `accumulate_votes`
+and `assemble_consensus`, on the host there): kernel K5 for CUDA tensors
+(`kernels.poa_vote_cuda`), `vote_reference` for CPU tensors.  The choice
+is made by the tensors' device; there is no fallback from one to the
+other.
 
 The plain versions follow the JAX program step by step: one step per query
 row over a band of 2W+1 cells with the same int32 algebra (NEG = -2^28,
@@ -23,9 +27,13 @@ of its chunk, instead of holding [N, B, 2W+1] for the whole batch.
 """
 from __future__ import annotations
 
+from collections import Counter
+
+import numpy as np
 import torch
 
-from .poa import GAP, MATCH, MISMATCH
+from ..tracing import add
+from .poa import _DEC, GAP, MATCH, MISMATCH
 
 # NEG is far below every reachable score, as the scalar DP's -10^9 in
 # int64 is (ops/poa.py): a cell's score is at least GAP * (i + j) and at
@@ -41,8 +49,9 @@ NEG = -(1 << 28)
 PAD = 5  # the padding base of tpad/qpad
 PLAIN_CHUNK_BYTES = 1 << 27
 
-# Calls of the plain versions through `dp_cols` (the CPU route).
-plain_calls: dict[str, int] = {"poa_dp_ptr": 0, "poa_traceback": 0}
+# Calls of the plain versions through `dp_cols` and `vote` (the CPU route).
+plain_calls: dict[str, int] = {"poa_dp_ptr": 0, "poa_traceback": 0,
+                               "poa_vote": 0}
 
 
 def dp_ptr_reference(tpad: torch.Tensor, ms: torch.Tensor,
@@ -213,7 +222,7 @@ def dp_cols(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
     for CPU tensors.
 
     tpad [B, M] / qpad [B, N] int8 bases padded with 5; ms, ns, bands [B]
-    int32 with band >= |n - m| (banded_cols_batch sets |n - m| + 1 or
+    int32 with band >= |n - m| (`poa_batch.dp_pairs` sets |n - m| + 1 or
     more), so that the walk starts inside the band.  Returns
     (cols [B, M] int8, ins [B, M+1] int32), svtrek_tpu's
     `_dp_cols_batch` outputs for any storage W >= max(bands)."""
@@ -226,3 +235,91 @@ def dp_cols(tpad: torch.Tensor, ms: torch.Tensor, qpad: torch.Tensor,
     plain_calls["poa_dp_ptr"] += 1
     plain_calls["poa_traceback"] += 1
     return _dp_cols_plain(tpad, ms, qpad, ns, bands)
+
+
+def vote_reference(cols: torch.Tensor, ins: torch.Tensor, qpad: torch.Tensor,
+                   meta: torch.Tensor, targets: torch.Tensor, total: int
+                   ) -> torch.Tensor:
+    """The plain version of `vote`, on CPU tensors: per cluster, the
+    column votes by one bincount, each pair's inserts cut from its query
+    at the exclusive sum of ins + (cols >= 0) before their boundary
+    (a pair's query is consumed in order), a Counter a boundary with an
+    insert, then the assembly of svtrek_tpu's `assemble_consensus`."""
+    out = torch.zeros(total, dtype=torch.uint8)
+    buf, rows = out.numpy(), meta.tolist()
+    C = len(rows)
+    lens = buf[:4 * C].view(np.int32)
+    cols_n, ins_n, q_n, t_n = (t.numpy() for t in (cols, ins, qpad, targets))
+    for c, (lo, hi, m, n_members, n_equal, t_off, o_off, cap) in \
+            enumerate(rows):
+        tgt = t_n[t_off:t_off + m].astype(np.int64)
+        # (a round with no pair may come with cols [0, 0] and ins [0, 1])
+        cl = cols_n[lo:hi, :m].reshape(hi - lo, m)
+        code = np.where(cl < 0, 5, cl).astype(np.int64)
+        votes = np.bincount((np.arange(m) * 6 + code).ravel(),
+                            minlength=6 * m).reshape(m, 6)
+        votes[np.arange(m), tgt] += n_equal
+        winner = votes.argmax(axis=1)
+        counts = ins_n[lo:hi, :m + 1].reshape(hi - lo, m + 1).astype(
+            np.int64)
+        used = counts.copy()
+        used[:, :m] += cl >= 0
+        start = np.cumsum(used, axis=1) - used
+        segs: dict[int, Counter] = {}
+        for p, j in zip(*(a.tolist() for a in np.nonzero(counts))):
+            s = start[p, j]
+            segs.setdefault(j, Counter())[
+                q_n[lo + p, s:s + counts[p, j]].tobytes()] += 1
+        keep = {}
+        for j, ctr in segs.items():
+            seg, n = ctr.most_common(1)[0]
+            if n > n_members // 2:
+                keep[j] = _DEC[np.frombuffer(seg, np.int8)].tobytes()
+        bases = _DEC[winner]
+        kept = winner != 5
+        parts, prev = [], 0
+        for j in sorted(keep):
+            parts += [bases[prev:j][kept[prev:j]].tobytes(), keep[j]]
+            prev = j
+        parts.append(bases[prev:][kept[prev:]].tobytes())
+        seq = b"".join(parts)
+        if len(seq) > cap:
+            lens[c] = -1
+            continue
+        lens[c] = len(seq)
+        buf[4 * C + o_off:4 * C + o_off + len(seq)] = np.frombuffer(
+            seq, np.uint8)
+    return out
+
+
+def vote(cols: torch.Tensor, ins: torch.Tensor, qpad: torch.Tensor,
+         meta: torch.Tensor, targets: torch.Tensor, total: int, *,
+         counts: dict | None = None) -> torch.Tensor:
+    """One round's vote of every cluster on the tensors' device: kernel K5
+    for CUDA tensors, the plain version for CPU tensors.
+
+    cols [B, M] int8 and ins [B, M+1] int32 of the round's pairs (`dp_cols`
+    outputs, or the host DP's rows), qpad [B, N] int8 their queries;
+    meta [C, kernels.POA_VOTE_META] int64, a row a cluster: its pairs'
+    rows [lo, hi), m, n_members, n_equal (members equal to the target:
+    each votes the target's base on every column and no insert), the
+    offset of its m target codes in targets (int8), and the offset and
+    size (at least m + 2 x its longest query) of its output.  Returns
+    uint8 [total]: C int32 lengths (-1 where the output passed its size),
+    then at 4 C + offset each cluster's new consensus in ASCII: the
+    column's majority (the first of A C G T N gap; a gap drops the column)
+    and each boundary's insert supported by more than n_members // 2.
+    With ``counts``, counts["vote_card"] adds the clusters of each K5
+    launch made (`kernels.launch_counts["poa_vote"]`)."""
+    if cols.device.type == "cuda":
+        from ..kernels import launch_counts, poa_vote_cuda
+
+        before = launch_counts["poa_vote"]
+        out = poa_vote_cuda(cols, ins, qpad, meta, targets, total)
+        add(counts, "vote_card",
+            meta.shape[0] * (launch_counts["poa_vote"] - before))
+        return out
+    if cols.device.type != "cpu":
+        raise ValueError(f"no POA vote path for device {cols.device}")
+    plain_calls["poa_vote"] += 1
+    return vote_reference(cols, ins, qpad, meta, targets, total)

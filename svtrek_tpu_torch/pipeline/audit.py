@@ -212,7 +212,9 @@ class AuditStats:
                                  # blocks (as inflate_s)
     cons_inflated_bytes: int = 0  # the bytes it inflated, host or card
     cons_card_bytes: int = 0      # of those, the card's
-    cons_vote_s: float = 0.0   # cons_s: host voting (svtrek.cons.vote)
+    cons_vote_s: float = 0.0   # cons_s: voting: the host's stretches
+                               # (svtrek.cons.vote), the vote's launch and
+                               # copy back
     cons_dp_s: float = 0.0     # cons_s: the DP batches, device leg
     cons_sites: int = 0      # INS sites given a consensus sequence
     cons_flushes: int = 0    # batched consensus calls
@@ -224,6 +226,8 @@ class AuditStats:
     cons_band_wide_k2: int = 0  # star engine: pairs with a band above
                                 # kernels.POA_STRIP_MAX_BAND (K2's wide
                                 # kernel on cuda)
+    cons_vote_rounds: int = 0  # star engine: cluster-rounds voted
+    cons_vote_card: int = 0    # of those, voted on the card (kernel K5)
     total_s: float = 0.0
     records: int = 0
     windows: int = 0
@@ -287,7 +291,9 @@ class AuditStats:
                 f"dp_time={self.cons_dp_s:.3f}s "
                 f"inflate={self.cons_inflate_s:.3f}s "
                 f"inflated_mb={self.cons_inflated_bytes / 1e6:.3f} "
-                f"card_mb={self.cons_card_bytes / 1e6:.3f}",
+                f"card_mb={self.cons_card_bytes / 1e6:.3f} "
+                f"vote_rounds={self.cons_vote_rounds} "
+                f"vote_card={self.cons_vote_card}",
                 file=err,
             )
 
@@ -575,7 +581,9 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     there is no consensus (printed NA).  The SEQ fetch is timed into
     stats.cons_seq_s, the reader's inflate counters go to cons_inflate_s,
     cons_inflated_bytes and cons_card_bytes, the star engine's voting and
-    DP into cons_vote_s and cons_dp_s (the graph engine times neither)."""
+    DP into cons_vote_s and cons_dp_s (the graph engine times neither), and
+    its cluster-rounds voted, and those voted on the card, into
+    cons_vote_rounds and cons_vote_card."""
     consensus_batch = consensus_sequence_poa_batch \
         if cfg.poa_engine == "graph" else consensus_sequence_batch
     t0 = time.perf_counter()
@@ -603,7 +611,7 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     stats.cons_card_bytes += seq.card_bytes
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
               "band_scalar": 0, "band_wide_k2": 0, "vote_s": 0.0,
-              "dp_s": 0.0}
+              "dp_s": 0.0, "vote_rounds": 0, "vote_card": 0}
     for res, s in zip(records, consensus_batch(
             seq_lists, device=device, counts=counts)):
         res.seq = s or ""
@@ -617,6 +625,8 @@ def _resolve_ins_consensus(records: list[AuditResult], reader,
     stats.cons_band_wide_k2 += counts["band_wide_k2"]
     stats.cons_vote_s += counts["vote_s"]
     stats.cons_dp_s += counts["dp_s"]
+    stats.cons_vote_rounds += counts["vote_rounds"]
+    stats.cons_vote_card += counts["vote_card"]
     stats.cons_s += time.perf_counter() - t0
 
 

@@ -407,7 +407,9 @@ def consensus_insert_sequences(clusters: list[SvCluster], fq_path: str,
     engine's clusters on the scalar route, "band_wide" and "band_scalar"
     the star engine's pairs with a band above the JAX package's 512 on
     the DP and its pairs on the host DP, "band_wide_k2" its pairs with a
-    band above kernels.POA_STRIP_MAX_BAND, K2's wide kernel's on cuda)."""
+    band above kernels.POA_STRIP_MAX_BAND, K2's wide kernel's on cuda,
+    "vote_rounds" the star engine's cluster-rounds voted and "vote_card"
+    those voted by kernel K5)."""
     wanted: dict[str, list[tuple[SvCluster, Breakpoint]]] = {}
     for c in clusters:
         if c.type != "INS":
@@ -507,8 +509,8 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
     counts (reads, scan_batches, rescans (always 0: the JAX package's host
     rescans), scan_pages2, host_reads, breakpoints,
     clusters, ins_clusters, dp_calls, graph_scalar, band_wide,
-    band_scalar, band_wide_k2) and, when the detection runs, its shard count
-    (data_shards); nothing is printed for
+    band_scalar, band_wide_k2, vote_rounds, vote_card) and, when the
+    detection runs, its shard count (data_shards); nothing is printed for
     them.
 
     Raises Unsupported where the native GAF reader does not load, and
@@ -558,7 +560,8 @@ def run_discover(cfg: DiscConfig, out=None, err=None, *,
                                    cfg.cluster_window)
     t_cluster = time.perf_counter()
     counts = {"dp_calls": 0, "graph_scalar": 0, "band_wide": 0,
-              "band_scalar": 0, "band_wide_k2": 0}
+              "band_scalar": 0, "band_wide_k2": 0, "vote_rounds": 0,
+              "vote_card": 0}
     consensus_insert_sequences(clusters, cfg.fq_file, cfg.poa_engine,
                                device=device, counts=counts)
     t_cons = time.perf_counter()

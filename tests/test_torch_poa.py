@@ -6,8 +6,10 @@ poa_batch) against the JAX package on the CPU, tolerance 0 throughout:
   row 1..n;
 - the plain traceback (`traceback_reference`) on those pointers against
   `tb_batch_pallas` in interpret mode and against the XLA `_dp_cols_batch`;
-- `dp_cols`, `banded_cols_batch` and `consensus_sequence_batch` against
-  the JAX functions and the scalar `consensus_sequence`;
+- `dp_cols`, `dp_pairs` (its rows cut at each pair's width and its
+  inserts decoded, as the JAX package's `banded_cols_batch` returns them)
+  and `consensus_sequence_batch` against the JAX functions and the scalar
+  `consensus_sequence`;
 - results that do not change with the storage width W, the padded widths
   or the plain path's chunking;
 - the host helpers copied from svtrek_tpu/ops/poa.py.
@@ -27,6 +29,7 @@ from svtrek_tpu.ops.poa_pallas import (
 )
 from svtrek_tpu_torch import kernels
 from svtrek_tpu_torch.ops import poa, poa_batch, poa_dp
+from tests import poa_cases
 from tests.test_poa_batch import _mutate as _mutate_batch
 from tests.test_poa_batch import _rand_seq
 from tests.test_poa_pallas import _build
@@ -209,6 +212,26 @@ def test_dp_cols_dispatch_by_device():
                                    M=tpad.shape[1])
 
 
+def _cols_segs(targets, queries, band, **kw):
+    """`poa_batch.dp_pairs` of the pairs as svtrek_tpu's `banded_cols_batch`
+    returns them: per pair, cols[b, :m] and the inserted segment at each
+    boundary, ins[b, j] query bases after those consumed before j (the
+    inserts and the aligned columns before it)."""
+    cols, ins, _ = poa_batch.dp_pairs(targets, queries, band, **kw)
+    cols, ins = cols.cpu().numpy(), ins.cpu().numpy()
+    cols_out, segs_out = [], []
+    for b, (t, q) in enumerate(zip(targets, queries)):
+        m = len(t)
+        n_ins = ins[b, :m + 1].astype(np.int64)
+        used = n_ins.copy()
+        used[:m] += cols[b, :m] >= 0
+        start = np.cumsum(used) - used
+        cols_out.append(cols[b, :m])
+        segs_out.append([poa.decode(q[a:a + k]) if k else ""
+                         for a, k in zip(start.tolist(), n_ins.tolist())])
+    return cols_out, segs_out
+
+
 def test_banded_cols_batch_matches_jax_and_scalar():
     """tests/test_poa_batch.py::test_banded_cols_matches_scalar's pairs:
     random lengths, unrelated pairs and extreme length mismatches (band
@@ -223,7 +246,7 @@ def test_banded_cols_batch_matches_jax_and_scalar():
     for m, n in [(8, 200), (200, 8), (3, 3), (1, 40)]:
         targets.append(jpoa.encode(_rand_seq(rng, m)))
         queries.append(jpoa.encode(_rand_seq(rng, n)))
-    got_cols, got_segs = poa_batch.banded_cols_batch(targets, queries, 16)
+    got_cols, got_segs = _cols_segs(targets, queries, 16)
     jax_cols, jax_segs = jbatch.banded_cols_batch(targets, queries, 16)
     for i, (t, q) in enumerate(zip(targets, queries)):
         want_cols, want_ins = jpoa.banded_align_ins(t, q, 16)
@@ -241,8 +264,7 @@ def test_banded_cols_band_cap_fallback():
     t2 = jpoa.encode(_rand_seq(rng, 120))
     q2 = jpoa.encode(_mutate_batch(rng, jpoa.decode_ins([t2.tolist()])[0]))
     counts = {}
-    got = poa_batch.banded_cols_batch([t, t2], [q, q2], band=8, band_cap=64,
-                                      counts=counts)
+    got = _cols_segs([t, t2], [q, q2], 8, band_cap=64, counts=counts)
     want = jbatch.banded_cols_batch([t, t2], [q, q2], band=8, band_cap=64)
     np.testing.assert_array_equal(got[0][0], jpoa.banded_align(t, q, 8))
     for a, b in zip(got[0], want[0]):
@@ -279,8 +301,7 @@ def test_banded_cols_bands_past_jax_cap_take_the_device_path():
     assert bands[4] >= len(targets[4]) + len(queries[4])
     assert bands[5] > kernels.POA_MAX_BAND
     counts = {}
-    got_cols, got_segs = poa_batch.banded_cols_batch(targets, queries, 16,
-                                                     counts=counts)
+    got_cols, got_segs = _cols_segs(targets, queries, 16, counts=counts)
     jax_cols, jax_segs = jbatch.banded_cols_batch(targets, queries, 16)
     for i, (t, q) in enumerate(zip(targets, queries)):
         np.testing.assert_array_equal(got_cols[i], jax_cols[i],
@@ -290,50 +311,43 @@ def test_banded_cols_bands_past_jax_cap_take_the_device_path():
                       "band_wide_k2": 3}
 
 
-@pytest.mark.parametrize("B,M,noncontig", [(7, 40, False), (5, 1, True),
-                                           (2, 300, True)])
-def test_flat_gather_equals_slicing_the_padded_rows(B, M, noncontig):
-    """`flat_index` and `cols_ins_flat` give each pair's cols[b, :m_b]
-    and ins[b, :m_b+1] at one offset a pair, equal to slicing the padded
-    rows, for contiguous and strided (the plain traceback's) outputs."""
-    rng = np.random.default_rng(B * 1000 + M)
-    ms = rng.integers(0, M + 1, B).astype(np.int32)
-    ms[0] = M
-    cols = torch.from_numpy(rng.integers(-1, 5, (B, M)).astype(np.int8))
-    ins_full = torch.from_numpy(rng.integers(0, 9, (B, M + 2)).astype(
-        np.int32))
-    ins = ins_full[:, :M + 1] if noncontig else ins_full[:, :M + 1].clone()
-    assert ins.is_contiguous() != noncontig
-    idx = poa_batch.flat_index(ms, M)
-    assert idx.dtype == np.int32 and len(idx) == int(ms.sum()) + B
-    cols_h, ins_h = (t.numpy() for t in poa_batch.cols_ins_flat(
-        cols, ins, torch.from_numpy(idx)))
-    start = 0
-    for b, m in enumerate(ms.tolist()):
-        np.testing.assert_array_equal(cols_h[start:start + m],
-                                      cols[b, :m].numpy())
-        np.testing.assert_array_equal(ins_h[start:start + m + 1],
-                                      ins[b, :m + 1].numpy())
-        start += m + 1
-    assert start == len(cols_h) == len(ins_h)
+@pytest.mark.parametrize("seed,band_cap", [(7, kernels.POA_MAX_BAND),
+                                           (8, 64), (9, 16)])
+def test_dp_pairs_rows_do_not_depend_on_the_batch(seed, band_cap):
+    """A pair's row of `dp_pairs` (cols[b, :m], ins[b, :m+1], its query
+    padded with PAD) is the one it gets alone, whatever the batch's widths
+    and whichever pairs take the host DP (a low band_cap sends the wide
+    ones there)."""
+    rng = np.random.default_rng(seed)
+    targets, queries = [], []
+    for _ in range(9):
+        t = _rand_seq(rng, int(rng.integers(1, 160)))
+        q = _mutate_batch(rng, t, sub=0.1, ins=0.08, dele=0.05)
+        q += _rand_seq(rng, int(rng.integers(0, 60)))
+        targets.append(jpoa.encode(t))
+        queries.append(jpoa.encode(q))
+    targets.append(jpoa.encode(_rand_seq(rng, 10)))  # band 101
+    queries.append(jpoa.encode(_rand_seq(rng, 110)))
+    counts = {}
+    cols, ins, qpad = poa_batch.dp_pairs(targets, queries, 8, band_cap,
+                                         counts=counts)
+    assert cols.shape == (10, max(map(len, targets)))
+    assert qpad.shape == (10, max(map(len, queries)))
+    assert (counts["band_scalar"] > 0) == (band_cap < 101)
+    for b, (t, q) in enumerate(zip(targets, queries)):
+        c1, i1, q1 = poa_batch.dp_pairs([t], [q], 8, band_cap)
+        m, n = len(t), len(q)
+        np.testing.assert_array_equal(cols[b, :m], c1[0, :m], err_msg=str(b))
+        np.testing.assert_array_equal(ins[b, :m + 1], i1[0, :m + 1])
+        np.testing.assert_array_equal(qpad[b, :n], q1[0])
+        assert (qpad[b, n:] == poa_dp.PAD).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_consensus_batch_matches_jax_and_scalar(seed):
     """tests/test_poa_batch.py::test_consensus_batch_matches_scalar's
     clusters, plus a bimodal one for the majority length mode."""
-    rng = np.random.default_rng(seed)
-    clusters = []
-    for _ in range(12):
-        base = _rand_seq(rng, int(rng.integers(30, 300)))
-        k = int(rng.integers(1, 7))
-        clusters.append([_mutate_batch(rng, base) for _ in range(k)])
-    clusters.append([])
-    clusters.append(["ACGT"])
-    clusters.append(["ACGTACGT"] * 4)
-    short, long_ = _rand_seq(rng, 80), _rand_seq(rng, 200)
-    clusters.append([_mutate_batch(rng, short) for _ in range(3)]
-                    + [_mutate_batch(rng, long_) for _ in range(5)])
+    clusters = poa_cases.random_clusters(seed)
     counts = {}
     got = poa_batch.consensus_sequence_batch(clusters, counts=counts)
     assert got == jbatch.consensus_sequence_batch(clusters)

@@ -117,6 +117,32 @@ def test_stage_tokens_print_parse_and_agree(planted, ins_sites, case):
         assert not set(CONS_STAGES) & set(st)
 
 
+def test_vote_tokens_print_and_parse(ins_sites):
+    """vote_rounds= and vote_card= end the ins_consensus line: on the CPU
+    the plain vote takes every cluster-round of the star engine and the
+    card none, which the benchmark's reader of their share reads as 0; it
+    reads 100 where the card voted them all, and None where the line lacks
+    the tokens (a program before them) or nothing was voted."""
+    import harness
+
+    lines, st = _run(*ins_sites, ins_consensus=True, batch_windows=3)
+    assert lines and st["cons_sites"] > 0
+    assert st["cons_vote_rounds"] >= 1 and st["cons_vote_card"] == 0
+    reader = harness.metric_reader("cons_vote_card_pct")
+
+    def share(**stats):
+        return reader.read(harness.Run({}, {}, {}, 1.0, [harness.Pass(
+            1.0, len(lines), [], {**st, **stats})]))
+
+    assert share() == 0.0
+    assert share(cons_vote_card=st["cons_vote_rounds"]) == 100.0
+    assert share(cons_vote_rounds=0.0) is None
+    bare = {k: v for k, v in st.items()
+            if k not in ("cons_vote_rounds", "cons_vote_card")}
+    assert reader.read(harness.Run({}, {}, {}, 1.0, [harness.Pass(
+        1.0, len(lines), [], bare)])) is None
+
+
 def _bgzf_blocks(path: str) -> tuple[list[int], bytes]:
     """(each BGZF block's uncompressed size, the uncompressed stream),
     read with zlib alone."""
